@@ -4,13 +4,26 @@
 
 1. Prints the environment, builds the CUDA kernels and the host rANS coder.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 vq_argmin, K2 flash attention) and times both.
+   main path's shapes and times both: K1 vq_argmin, K2 flash attention, K3
+   gn_channel_sums, K4 gn_apply, K5 conv3x3_same, K6 conv3x3_gn_swish. The
+   conv kernels are also compared on the one-pixel border alone, and K3 to
+   K6 are run twice on the same input and must give the same bits.
 3. Drives the codec of the flagship model (config/dc_vic_patchgan.yaml,
-   full width, random weights from a seed): a batch of four 768x512 images
-   through Codec.compress -> bitstreams -> Codec.decompress, then one
-   500x740 image. It checks that the decoder's y_hat equals the encoder's
-   bitwise, that the decoded images equal the reconstruction of the
-   encoder's y_hat, and that the path launched both kernels.
+   full width, random weights from a seed) on its default path: a batch of
+   four 768x512 images through Codec.compress -> bitstreams ->
+   Codec.decompress, then one 500x740 image. It checks that the decoder's
+   y_hat equals the encoder's bitwise, that the decoded images equal the
+   reconstruction of the encoder's y_hat, and that the path launched K1 and
+   K2.
+4. Drives the same batch through a second model with the same weights built
+   with recon_kernels = gn, conv3x3, fused_resblock: the same checks, all six
+   kernels launched as often as the shape rules say for the modules that
+   ran, and the reconstruction held against the default model's.
+
+For every kernel it prints the least time the card could take for the same
+work (each input read once, each output written once, over 3.35 TB/s; the
+operations over the 67 TFLOP/s f32 rate outside the tensor cores) and, where
+one PyTorch call computes the same function, that call's time.
 
 Any failure raises and the script exits non-zero. It needs CUDA and fails
 without it. The last line is a JSON object naming the device.
@@ -38,9 +51,32 @@ def _time_ms(fn, *args, reps=10):
     return start.elapsed_time(end) / reps
 
 
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
+
+
+def bound(nbytes, flops):
+    """(ms, what binds): the larger of bytes over the memory rate and
+    operations over the f32 rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _border(t):
+    """The one-pixel frame of the last two dims, flattened."""
+    import torch
+    return torch.cat([t[..., 0, :].flatten(), t[..., -1, :].flatten(),
+                      t[..., :, 0].flatten(), t[..., :, -1].flatten()])
+
+
 def check_vq(vq, dev, gen):
     """K1 against its plain version: random rows at the main-path M, a
-    ragged M and exact-tie rows. Returns (max distance gap, ms, plain ms)."""
+    ragged M and exact-tie rows."""
     import torch
     worst = 0.0
     near_ties = 0
@@ -69,16 +105,27 @@ def check_vq(vq, dev, gen):
     print(f"K1 vq_argmin: indices equal to plain except {near_ties} near-tie rows "
           f"(top-two gap < 1e-6*max(1,|d|)); max distance gap {worst:.3e}")
     z = cases[0][0]
-    return worst, _time_ms(vq.vq_argmin, z, cb), _time_ms(vq.vq_argmin_plain, z, cb)
+    M, D = z.shape
+    N = cb.shape[0]
+    # per row and codeword: D multiply-adds for the cross term, 2 more flops
+    b_ms, b_by = bound(_nbytes(z, cb) + M * 4, M * N * (2 * D + 2))
+    return {"name": "vq_argmin", "route": "cuda",
+            "source": "dc_vic_tpu_torch/csrc/vq_argmin.cu",
+            "replaces": "dc_vic_tpu/ops/vq.py:21", "max_abs_err": worst,
+            "ms": _time_ms(vq.vq_argmin, z, cb),
+            "plain_ms": _time_ms(vq.vq_argmin_plain, z, cb),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_attention(attention, dev, gen):
     """K2 against its plain version (atol = rtol = 1e-4: the summation
     order differs), first at the main path's shape [4, 6144, 512], where it
-    is also timed. Returns (max abs error, ms, plain ms)."""
+    is also timed, beside F.scaled_dot_product_attention on the same f32
+    operands."""
     import torch
+    import torch.nn.functional as F
     worst = 0.0
-    timed = None
+    entry = None
     for (B, N, C), scale in (((4, 6144, 512), 1.0), ((2, 6144, 512), 1.0),
                              ((1, 1000, 512), 1.0), ((1, 1024, 128), 3.0)):
         pre = C ** -0.5 if scale == 1.0 else scale
@@ -94,32 +141,341 @@ def check_attention(attention, dev, gen):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         print(f"K2 flash_attention [{B},{N},{C}] scores x{scale}: max abs err {err:.3e}")
         worst = max(worst, err)
-        if timed is None:
-            timed = (_time_ms(attention.flash_attention, q, k, v),
-                     _time_ms(attention.attention_plain, q, k, v))
-    return (worst, *timed)
+        if entry is None:
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+            torch.testing.assert_close(lib(), want, atol=1e-4, rtol=1e-4)
+            # two products of 2*N*N*C flops per image
+            b_ms, b_by = bound(_nbytes(q, k, v, got), 4 * B * N * N * C)
+            entry = {"ms": _time_ms(attention.flash_attention, q, k, v),
+                     "plain_ms": _time_ms(attention.attention_plain, q, k, v),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": _time_ms(lib)}
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "dc_vic_tpu_torch/csrc/flash_attn_f32.cu",
+            "replaces": "dc_vic_tpu/ops/attention.py:25", "max_abs_err": worst, **entry}
 
 
-def round_trip(codec, images, label):
-    """compress -> decompress; checks the bitwise y_hat round trip and that
-    the decoded images are the reconstruction of the encoder's y_hat."""
+GN_SHAPES = [((4, 128, 768, 512), "float32"), ((4, 256, 384, 256), "float32"),
+             ((4, 512, 96, 64), "float32"), ((2, 24, 37, 53), "float32"),
+             ((4, 128, 192, 128), "bfloat16")]
+
+
+def check_gn(gn, dev, gen):
+    """K3 and K4 at the main path's planes, a ragged plane and a bf16 plane.
+    K3 and its plain version are both held to a float64 sum of the same
+    input within 1e-5 of sum|x| (for the sums) and of sum x^2 (for the sums
+    of squares): f32 accumulation over up to 393,216 values. K4 is held to
+    its plain version at atol = rtol = 1e-6 in f32 (the affine has the
+    plain version's bits; the sigmoid may differ in the last place) and
+    1e-2 in bf16 (one step of the output type). Both twice: equal bits.
+    Timed at [4, 128, 768, 512] f32, the largest plane of the path."""
     import torch
-    B, H, W = images.shape[:3]
+    import torch.nn.functional as F
+    k3 = k4 = None
+    for shape, dtype_name in GN_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+        scale = torch.rand(shape[:2], generator=gen, device=dev) * 1.5 + 0.5
+        bias = torch.randn(shape[:2], generator=gen, device=dev)
+        sums = gn.channel_sums(x)
+        plain = gn.channel_sums_plain(x)
+        want = torch.empty(shape[0], 2, shape[1], dtype=torch.float64, device=dev)
+        ref_scale = torch.empty_like(want)
+        for b in range(shape[0]):                     # float64 one image at a time
+            xd = x[b].double().flatten(1)
+            sq = (xd * xd).sum(-1)
+            want[b, 0], want[b, 1] = xd.sum(-1), sq
+            ref_scale[b, 0], ref_scale[b, 1] = xd.abs().sum(-1), sq
+            del xd
+        torch.cuda.synchronize()
+        rel = {}
+        for name, val in (("kernel", sums), ("plain", plain)):
+            rel[name] = float(((val.double() - want).abs() / ref_scale).max())
+            if not rel[name] <= 1e-5:
+                raise AssertionError(f"gn_channel_sums {name} off float64 by {rel[name]:.2e} "
+                                     f"of the scale at {shape}")
+        if not torch.equal(sums, gn.channel_sums(x)):
+            raise AssertionError(f"gn_channel_sums is not repeatable at {shape}")
+        err3 = float((sums - plain).abs().max())
+        print(f"K3 gn_channel_sums {list(shape)} {dtype_name}: against float64, in units of "
+              f"sum|x| / sum x^2: kernel {rel['kernel']:.2e}, plain {rel['plain']:.2e}; "
+              f"max abs diff to plain {err3:.3e}; repeatable")
+        err4 = 0.0
+        tol = 1e-6 if dtype == torch.float32 else 1e-2
+        for act in (None, "swish"):
+            got = gn.apply_affine(x, scale, bias, act)
+            ref = gn.apply_affine_plain(x, scale, bias, act)
+            torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+            if not torch.equal(got, gn.apply_affine(x, scale, bias, act)):
+                raise AssertionError(f"gn_apply is not repeatable at {shape}")
+            err4 = max(err4, float((got.float() - ref.float()).abs().max()))
+            del got, ref
+        print(f"K4 gn_apply {list(shape)} {dtype_name}: max abs err {err4:.3e} "
+              f"(act none and swish, tolerance {tol:g}); repeatable")
+        if k3 is None:
+            n = x.numel()
+            b3, by3 = bound(_nbytes(x, sums), 3 * n)            # add, multiply-add
+            b4, by4 = bound(2 * _nbytes(x) + _nbytes(scale, bias), 6 * n)
+            k3 = {"name": "gn_channel_sums", "route": "cuda",
+                  "source": "dc_vic_tpu_torch/csrc/gn.cu",
+                  "replaces": "dc_vic_tpu/ops/gn.py:52", "max_abs_err": err3,
+                  "ms": _time_ms(gn.channel_sums, x),
+                  "plain_ms": _time_ms(gn.channel_sums_plain, x),
+                  "bound_ms": b3, "bound_by": by3, "library_ms": None}
+            k4 = {"name": "gn_apply", "route": "cuda",
+                  "source": "dc_vic_tpu_torch/csrc/gn.cu",
+                  "replaces": "dc_vic_tpu/ops/gn.py:117", "max_abs_err": err4,
+                  "ms": _time_ms(gn.apply_affine, x, scale, bias, "swish"),
+                  "plain_ms": _time_ms(gn.apply_affine_plain, x, scale, bias, "swish"),
+                  "bound_ms": b4, "bound_by": by4, "library_ms": None}
+            # no single PyTorch call computes K3's or K4's function; the pair
+            # (GroupNorm + swish) is F.group_norm then F.silu
+            gamma = torch.rand(shape[1], generator=gen, device=dev) + 0.5
+            beta = torch.randn(shape[1], generator=gen, device=dev) * 0.1
+            pair = lambda: gn.group_norm(x, gamma, beta, 32, 1e-6, "swish")
+            lib = lambda: F.silu(F.group_norm(x, 32, gamma, beta, 1e-6))
+            torch.testing.assert_close(pair(), lib(), atol=2e-5, rtol=2e-5)
+            print(f"K3+K4 as GroupNorm+swish at {list(shape)}: {_time_ms(pair):.3f} ms; "
+                  f"F.silu(F.group_norm(.)) {_time_ms(lib):.3f} ms (2e-5 apart at most)")
+        del x, sums, plain, want, ref_scale
+    print(f"K3 at {list(GN_SHAPES[0][0])}: kernel {k3['ms']:.3f} ms, plain "
+          f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.3f} ms ({k3['bound_by']})")
+    print(f"K4 at {list(GN_SHAPES[0][0])}: kernel {k4['ms']:.3f} ms, plain "
+          f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.3f} ms ({k4['bound_by']})")
+    return k3, k4
+
+
+CONV_SHAPES = [((4, 128, 128, 768, 512), "float32"), ((4, 256, 256, 384, 256), "float32"),
+               ((4, 256, 128, 192, 128), "float32"), ((2, 128, 64, 13, 37), "float32"),
+               ((4, 128, 128, 192, 128), "bfloat16")]
+
+
+def check_conv(conv3x3, dev, gen):
+    """K5 and K6 (with and without the residual) at three planes of the main
+    path, an odd-sized plane whose tiles are ragged, and a bf16 plane,
+    against their plain versions (F.conv2d with TF32 off): atol = rtol =
+    1e-4 in f32 (another summation order over up to 2304 taps), 5e-2 in bf16
+    (steps of the output type), over the whole tensor and over the one-pixel
+    border alone. K6's affine has a bias near 2, so a halo that was not
+    zeroed after the swish would show in the border. Each twice: equal
+    bits. Timed at every f32 plane; the first is the one reported."""
+    import torch
+    import torch.nn.functional as F
+    k5 = k6 = None
+    for (B, C, Cout, H, W), dtype_name in CONV_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        tol = 1e-4 if dtype == torch.float32 else 5e-2
+        x = torch.randn(B, C, H, W, generator=gen, device=dev).to(dtype)
+        w = (torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
+        scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + 0.5
+        bias = torch.randn(B, C, generator=gen, device=dev) + 2.0
+        cbias = torch.randn(Cout, generator=gen, device=dev)
+        res = torch.randn(B, Cout, H, W, generator=gen, device=dev).to(dtype)
+        label = f"[{B},{C},{H},{W}]->{Cout} {dtype_name}"
+        cases = [("K5 conv3x3_same", lambda: conv3x3.conv3x3_same(x, w),
+                  lambda: conv3x3.conv3x3_same_plain(x, w)),
+                 ("K6 conv3x3_gn_swish", lambda: conv3x3.conv3x3_gn_swish(
+                     x, w, scale, bias, cbias, None),
+                  lambda: conv3x3.conv3x3_gn_swish_plain(x, w, scale, bias, cbias, None)),
+                 ("K6 conv3x3_gn_swish +res", lambda: conv3x3.conv3x3_gn_swish(
+                     x, w, scale, bias, cbias, res),
+                  lambda: conv3x3.conv3x3_gn_swish_plain(x, w, scale, bias, cbias, res))]
+        errs, times = [], []
+        for name, kernel, plain in cases:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            whole = float((got.float() - want.float()).abs().max())
+            edge = float((_border(got).float() - _border(want).float()).abs().max())
+            torch.testing.assert_close(_border(got), _border(want), atol=tol, rtol=tol)
+            torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+            if not torch.equal(got, kernel()):
+                raise AssertionError(f"{name} is not repeatable at {label}")
+            del got, want
+            line = (f"{name} {label}: max abs err {whole:.3e} whole, {edge:.3e} border "
+                    f"(tolerance {tol:g}); repeatable")
+            if dtype == torch.float32 and H * W > 1000:
+                times.append((_time_ms(kernel, reps=3), _time_ms(plain, reps=3)))
+                line += f"; kernel {times[-1][0]:.3f} ms, plain {times[-1][1]:.3f} ms"
+            print(line)
+            errs.append(max(whole, edge))
+        if k5 is None:
+            flops = 2 * 9 * C * Cout * B * H * W
+            b5, by5 = bound(_nbytes(x, w) + _nbytes(res), flops)
+            # K6 also reads the residual, scale, bias and the conv bias; the
+            # affine and swish add about 6 flops per input element
+            b6, by6 = bound(_nbytes(x, w, scale, bias, cbias, res) + _nbytes(res),
+                            flops + 6 * x.numel() + 2 * res.numel())
+            k5 = {"name": "conv3x3_same", "route": "cuda",
+                  "source": "dc_vic_tpu_torch/csrc/conv3x3.cu",
+                  "replaces": "dc_vic_tpu/ops/conv3x3.py:59", "max_abs_err": errs[0],
+                  "ms": times[0][0], "plain_ms": times[0][1],
+                  "bound_ms": b5, "bound_by": by5,
+                  "library_ms": _time_ms(lambda: F.conv2d(x, w, padding=1), reps=3)}
+            k6 = {"name": "conv3x3_gn_swish", "route": "cuda",
+                  "source": "dc_vic_tpu_torch/csrc/conv3x3.cu",
+                  "replaces": "dc_vic_tpu/ops/conv3x3.py:220",
+                  "max_abs_err": max(errs[1:]), "ms": times[2][0],
+                  "plain_ms": times[2][1], "bound_ms": b6, "bound_by": by6,
+                  "library_ms": None}
+        del x, w, res
+    for k in (k5, k6):
+        print(f"{k['name']} at [4,128,768,512]->128: kernel {k['ms']:.3f} ms, plain "
+              f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}), "
+              f"library {k['library_ms']}")
+    return k5, k6
+
+
+def drive(codec, images):
+    """The main path: compress -> bitstreams -> decompress. Returns
+    (results, decoded images, encode s, decode s)."""
+    import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = codec.compress(images, 0, debug=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    strings = [r["string_list"] for r in res]
-    out = codec.decompress(strings)
+    out = codec.decompress([r["string_list"] for r in res])
     torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    return res, out, t1 - t0, time.perf_counter() - t1
+
+
+def verify(codec, images, res, out, enc_s, dec_s, label):
+    """The decoder's y_hat equals the encoder's bitwise, and the decoded
+    images are the reconstruction of the encoder's y_hat. Returns y_hat on
+    the device."""
+    import torch
+    B, H, W = images.shape[:3]
     if out.shape != (B, H, W, 3) or out.dtype != np.uint8:
         raise AssertionError(f"{label}: decoded {out.shape} {out.dtype}")
     y_hat = np.stack([r["y_hat"] for r in res])
     if not np.isfinite(y_hat).all():
         raise AssertionError(f"{label}: non-finite y_hat")
-    return res, strings, out, t1 - t0, t2 - t1
+    if not codec.verify_roundtrip(res, [r["string_list"] for r in res], (H, W)):
+        raise AssertionError(f"{label}: decode-side y_hat differs from the encoder's")
+    y_hat = torch.from_numpy(np.ascontiguousarray(y_hat.transpose(0, 3, 1, 2))).to(codec.device)
+    b1, b2 = codec._betas(0)
+    with torch.no_grad():
+        recon = codec.module.reconstruct_uint8(y_hat, b1, b2)
+        recon = recon[:, :, :H, :W].permute(0, 2, 3, 1).cpu().numpy()
+    if not np.array_equal(out, recon):
+        raise AssertionError(f"{label}: decoded images differ from reconstruct_uint8(y_hat)")
+    bpp = float(np.mean([r["bpp"] for r in res]))
+    print(f"{label}: y_hat round trip bit-exact, decoded images equal "
+          f"reconstruct_uint8(y_hat), {bpp:.4f} bpp, encode {enc_s:.3f} s, "
+          f"decode {dec_s:.3f} s")
+    return y_hat
+
+
+def counters(vq, attention, gn, conv3x3):
+    return {"vq_argmin": vq.launches, "flash_attention": attention.launches,
+            **gn.launches, **conv3x3.launches}
+
+
+def reset_counters(vq, attention, gn, conv3x3):
+    vq.launches = 0
+    attention.launches = 0
+    for table in (gn.launches, conv3x3.launches):
+        for name in table:
+            table[name] = 0
+
+
+def expected_launch_recorder(module):
+    """Forward hooks that apply the shape rules to the shapes the modules
+    are really called with: the launches the rules give for this run,
+    counted apart from the wrappers' own counters. A module inside a block
+    that took the fused route is never called, so it counts nothing."""
+    from dc_vic_tpu_torch.models.vqgan import VQAttnBlock, VQResnetBlock
+    from dc_vic_tpu_torch.nn.layers import Conv2d, GroupNorm
+    from dc_vic_tpu_torch.ops import conv3x3, gn
+    want = {"vq_argmin": 0, "flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0,
+            "conv3x3_same": 0, "conv3x3_gn_swish": 0}
+
+    def hook(m, args):
+        shape = tuple(args[0].shape)
+        if isinstance(m, VQAttnBlock):
+            want["flash_attention"] += 1
+        elif isinstance(m, GroupNorm):
+            if m.recon_kernel and gn.use_kernel(shape):
+                want["gn_channel_sums"] += 1
+                want["gn_apply"] += 1
+        elif isinstance(m, Conv2d):
+            B, C, H, W = shape
+            if (m.recon_kernel and m.kernel_size == (3, 3) and m.stride == (1, 1)
+                    and conv3x3.use_kernel(B, C, m.out_channels, H, W)):
+                want["conv3x3_same"] += 1
+        elif isinstance(m, VQResnetBlock):
+            B, C, H, W = shape
+            if m.fused and conv3x3.use_kernel(B, C, m.conv1.out_channels, H, W):
+                want["conv3x3_gn_swish"] += 2
+        else:                                          # the quantizer
+            want["vq_argmin"] += 1
+
+    kinds = (VQAttnBlock, GroupNorm, Conv2d, VQResnetBlock)
+    handles = [m.register_forward_pre_hook(hook) for m in module.modules()
+               if isinstance(m, kinds) or m is module.vq_model.quantize]
+    return want, handles
+
+
+def counted_round_trip(codec, images, label, ops):
+    """The main path with every launch counter set to 0 just before it and
+    read just after, held against what the shape rules give for the modules
+    that ran in between; then the checks of what came out."""
+    want, handles = expected_launch_recorder(codec.module)
+    reset_counters(*ops)
+    res, out, enc_s, dec_s = drive(codec, images)
+    launches = counters(*ops)
+    for h in handles:
+        h.remove()
+    print(f"{label}: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, the shape rules "
+                             f"give {want}")
+    return verify(codec, images, res, out, enc_s, dec_s, label), launches
+
+
+def recon_parts(module, y_hat, b1, b2, indices=None):
+    """decode_from_y_hat step by step: (logits, indices, image in [-1, 1]).
+    With ``indices`` given, the VQGAN decoder is fed those instead of the
+    estimator's own argmax."""
+    feat, cond = module.decoder.get_feats(y_hat, b1, b2)
+    _, logits = module.vq_estimator(feat)
+    own = logits.argmax(1)
+    idx = own if indices is None else indices
+    latent = module.vq_model.post_quant_conv(module.vq_model.quantize.lookup(idx))
+    image = module.vq_model.decoder(latent, module.fusion_module.fusion_modules, cond, 1.0)
+    return logits, own, image.float()
+
+
+RECON_TOL = 1e-3   # [-1, 1] scale; about a tenth of one uint8 step (2 / 255)
+
+
+def compare_models(default, recon, images, y_hat):
+    """The model with the reconstruction kernels on against the default
+    model, same weights, same inputs. Decode side: the float reconstruction
+    of the same y_hat, with the VQGAN decoder of both fed the default
+    model's estimator indices (an argmax that flips on a near-tie would
+    swap a codeword and say nothing about the kernels; flips are counted
+    and printed). Encode side: how many VQ indices differ (printed only)."""
+    import torch
+    from dc_vic_tpu_torch.models.dc_vic import to_model_range
+    b1, b2 = default._betas(0)
+    with torch.no_grad():
+        logits0, idx0, img0 = recon_parts(default.module, y_hat, b1, b2)
+        logits1, idx1, img1 = recon_parts(recon.module, y_hat, b1, b2, indices=idx0)
+        diff = (img1 - img0).abs()
+        flips = int((idx1 != idx0).sum())
+        print(f"reconstruction kernels on vs default, same y_hat: image max abs diff "
+              f"{float(diff.max()):.3e}, mean {float(diff.mean()):.3e} on the [-1, 1] "
+              f"scale (tolerance {RECON_TOL:g}); estimator logits max abs diff "
+              f"{float((logits1 - logits0).abs().max()):.3e}; {flips} of {idx0.numel()} "
+              f"estimator indices differ")
+        if not torch.isfinite(img1).all() or float(diff.max()) > RECON_TOL:
+            raise AssertionError("the reconstruction with the kernels on is too far "
+                                 "from the default model's")
+        x = to_model_range(torch.from_numpy(images).to(default.device).permute(0, 3, 1, 2))
+        _, vq0 = default.module.vq_encode(x)
+        _, vq1 = recon.module.vq_encode(x)
+        print(f"encode side: {int((vq0 != vq1).sum())} of {vq0.numel()} VQ indices differ "
+              f"between the two models")
 
 
 def main():
@@ -128,8 +484,8 @@ def main():
         raise SystemExit("chip_smoke: CUDA is not available; this script runs on a GPU")
     sys.path.insert(0, ROOT)
     from dc_vic_tpu_torch.codec.driver import Codec
-    from dc_vic_tpu_torch.models import build_comp_model, init_weights
-    from dc_vic_tpu_torch.ops import attention, native, vq
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model, init_weights
+    from dc_vic_tpu_torch.ops import attention, conv3x3, gn, native, vq
     from dc_vic_tpu_torch.utils.config import load_config
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -146,16 +502,30 @@ def main():
         if "registers" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
+    # the numerics the codec runs with: f32 convolutions and products without
+    # TF32, deterministic cuDNN algorithms (Codec sets the same)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    vq_err, vq_ms, vq_plain_ms = check_vq(vq, dev, gen)
-    at_err, at_ms, at_plain_ms = check_attention(attention, dev, gen)
-    print(f"K1 at M=24576: kernel {vq_ms:.4f} ms, plain {vq_plain_ms:.4f} ms")
-    print(f"K2 at [4,6144,512]: kernel {at_ms:.3f} ms, plain {at_plain_ms:.3f} ms")
+    k1 = check_vq(vq, dev, gen)
+    k2 = check_attention(attention, dev, gen)
+    print(f"K1 at M=24576: kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
+          f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']})")
+    print(f"K2 at [4,6144,512]: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, "
+          f"bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}), "
+          f"F.scaled_dot_product_attention {k2['library_ms']:.3f} ms")
+    k3, k4 = check_gn(gn, dev, gen)
+    k5, k6 = check_conv(conv3x3, dev, gen)
+    torch.cuda.empty_cache()
+    ops = (vq, attention, gn, conv3x3)
 
     t = time.perf_counter()
-    spec = build_comp_model(load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml")),
-                            device=dev)
+    opt = load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
+    spec = build_comp_model(opt)
     init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
     codec = Codec(spec)
     print(f"flagship model: {sum(p.numel() for p in spec.module.parameters())} "
@@ -163,46 +533,36 @@ def main():
 
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (4, 768, 512, 3), dtype=np.uint8)
-    vq.launches = 0
-    attention.launches = 0
-    res, strings, out, enc_s, dec_s = round_trip(codec, images, "batch 4 768x512")
-    launches = {"vq_argmin": vq.launches, "flash_attention": attention.launches}
-    if not codec.verify_roundtrip(res, strings, (768, 512)):
-        raise AssertionError("batch 4: decode-side y_hat differs from the encoder's")
-    y_hat = torch.from_numpy(np.ascontiguousarray(
-        np.stack([r["y_hat"] for r in res]).transpose(0, 3, 1, 2))).to(dev)
-    b1, b2 = codec._betas(0)
-    with torch.no_grad():
-        recon = codec.module.reconstruct_uint8(y_hat, b1, b2).permute(0, 2, 3, 1).cpu().numpy()
-    if not np.array_equal(out, recon):
-        raise AssertionError("batch 4: decoded images differ from reconstruct_uint8(y_hat)")
-    bpp = float(np.mean([r["bpp"] for r in res]))
-    print(f"batch 4 768x512: y_hat round trip bit-exact, {bpp:.4f} bpp, "
-          f"encode {enc_s:.3f} s, decode {dec_s:.3f} s, launches {launches}")
-    from dc_vic_tpu_torch.models.vqgan import VQAttnBlock
-    expected = {"vq_argmin": 1, "flash_attention": sum(
-        isinstance(m, VQAttnBlock) for m in spec.module.vq_model.modules())}
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    y_hat, default_launches = counted_round_trip(
+        codec, images, "default path, batch 4 768x512", ops)
+    if any(default_launches[k] for k in (*gn.launches, *conv3x3.launches)):
+        raise AssertionError("the default path launched a reconstruction kernel")
+    if default_launches["vq_argmin"] != 1 or default_launches["flash_attention"] < 1:
+        raise AssertionError(f"the default path's launches: {default_launches}")
 
     img1 = rng.integers(0, 256, (1, 500, 740, 3), dtype=np.uint8)
-    res1, strings1, _, enc1, dec1 = round_trip(codec, img1, "batch 1 500x740")
-    if not codec.verify_roundtrip(res1, strings1, (500, 740)):
-        raise AssertionError("batch 1: decode-side y_hat differs from the encoder's")
-    print(f"batch 1 500x740: y_hat round trip bit-exact, {res1[0]['bpp']:.4f} bpp, "
-          f"encode {enc1:.3f} s, decode {dec1:.3f} s")
+    verify(codec, img1, *drive(codec, img1), "default path, batch 1 500x740")
 
+    # this slice's path: the same model with every reconstruction kernel on
+    spec_k = build_comp_model(opt, recon_kernels=RECON_KERNELS)
+    spec_k.module.load_state_dict(spec.module.state_dict(), strict=True)
+    codec_k = Codec(spec_k)
+    _, launches = counted_round_trip(
+        codec_k, images, "reconstruction kernels on, batch 4 768x512", ops)
+    missing = [k for k, n in launches.items() if n < 1]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    for k in ("vq_argmin", "flash_attention"):
+        if launches[k] != default_launches[k]:
+            raise AssertionError(f"{k}: {launches[k]} launches with the reconstruction "
+                                 f"kernels on, {default_launches[k]} on the default path")
+    compare_models(codec, codec_k, images, y_hat)
+
+    kernels = [k1, k2, k3, k4, k5, k6]
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     print(smi)
-    print(json.dumps({"kernels": [
-        {"name": "vq_argmin", "route": "cuda",
-         "source": "dc_vic_tpu_torch/csrc/vq_argmin.cu",
-         "replaces": "dc_vic_tpu/ops/vq.py:21", "launches": launches["vq_argmin"],
-         "max_abs_err": vq_err, "ms": vq_ms, "plain_ms": vq_plain_ms},
-        {"name": "flash_attention", "route": "cuda",
-         "source": "dc_vic_tpu_torch/csrc/flash_attn_f32.cu",
-         "replaces": "dc_vic_tpu/ops/attention.py:25",
-         "launches": launches["flash_attention"],
-         "max_abs_err": at_err, "ms": at_ms, "plain_ms": at_plain_ms}]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,23 +4,27 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import Iterable, List, Optional
 
 import torch
 from torch import nn
 
 from ..codec.bottleneck import EntropyBottleneck
 from ..codec.gaussian import GaussianConditional
-from ..nn.layers import GroupNorm
+from ..nn.layers import Conv2d, GroupNorm
 from ..nn.swin import WindowAttention
 from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               ENCODER_REGISTRY, HYPERDECODER_REGISTRY,
                               HYPERENCODER_REGISTRY, VQ_ESTIMATOR_REGISTRY)
 from . import subnets  # noqa: F401  (registers the subnets)
 from .dc_vic import DCVICModel, FusionModule
-from .vqgan import VQModel
+from .vqgan import VQModel, VQResnetBlock
 
 _DROP = {"type"}
+
+# build_comp_model's recon_kernels: each name switches on one family of
+# reconstruction kernels, the JAX package's three opt-ins one for one.
+RECON_KERNELS = ("gn", "conv3x3", "fused_resblock")
 
 
 def _clean(cfg, drop=()) -> dict:
@@ -45,10 +49,38 @@ class CompModelSpec:
                 self.selected_beta_vq[quality_ind])
 
 
-def build_comp_model(opt, device="cpu") -> CompModelSpec:
+def set_recon_kernels(module: nn.Module, recon_kernels: Iterable[str]) -> None:
+    """Store the choice of reconstruction kernels on the modules it
+    concerns: ``"gn"`` on every GroupNorm (kernels K3 and K4), ``"conv3x3"``
+    on every ``nn.layers.Conv2d`` (K5; the entropy-parameter convs are plain
+    ``nn.Conv2d`` and are never touched), ``"fused_resblock"`` on every
+    VQResnetBlock (K6). Each module still applies its shape rule per call."""
+    chosen = set(recon_kernels)
+    unknown = chosen - set(RECON_KERNELS)
+    if unknown:
+        raise ValueError(f"recon_kernels {sorted(unknown)}: expected a subset of "
+                         f"{RECON_KERNELS}")
+    for m in module.modules():
+        if isinstance(m, GroupNorm):
+            m.recon_kernel = "gn" in chosen
+        elif isinstance(m, Conv2d):
+            m.recon_kernel = "conv3x3" in chosen
+        elif isinstance(m, VQResnetBlock):
+            m.fused = "fused_resblock" in chosen
+
+
+def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> CompModelSpec:
     """opt: full experiment config (opt.model and opt.subnet). Builds the
-    model on ``device`` with placeholder weights: call ``init_weights`` or
-    load a state dict before use."""
+    model on ``device`` (the GPU unless the caller asks for another; without
+    CUDA the default raises) with placeholder weights: call ``init_weights``
+    or load a state dict before use. ``recon_kernels`` is a subset of
+    ``RECON_KERNELS``; the empty default leaves every module on its ordinary
+    PyTorch code."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_comp_model: CUDA is not available; pass device='cpu' to "
+            "build on the CPU")
     ep = opt.get("entropy_precision", "high")
     if ep not in (None, "high", "highest"):
         raise ValueError(f"entropy_precision={ep!r}: the port runs the entropy "
@@ -111,6 +143,7 @@ def build_comp_model(opt, device="cpu") -> CompModelSpec:
             entropy_model_z=EntropyBottleneck(bottleneck_z),
             gaussian=gaussian, n_embed=n_embed)
     module.to(device)  # buffers made from numpy start on the CPU
+    set_recon_kernels(module, recon_kernels)
     return CompModelSpec(
         module=module,
         selected_beta_rate=model_cfg.get("selected_beta_rate"),

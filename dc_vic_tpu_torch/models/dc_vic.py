@@ -17,6 +17,7 @@ from torch import nn
 from ..codec.bottleneck import EntropyBottleneck
 from ..codec.gaussian import GaussianConditional, get_scale_table
 from ..nn.layers import FuseSftBlock
+from ..ops.layout import row_major as _row_major
 from .vqgan import VQModel
 
 STRIDE = 64  # reflect-pad multiple of the image (4 stride-2 convs + 2 in the hyperprior)
@@ -33,22 +34,6 @@ def pad_image(x: torch.Tensor, stride: int = STRIDE) -> torch.Tensor:
 
 def crop_image(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
     return x[:, :, :H, :W]
-
-
-def _row_major(t: torch.Tensor) -> torch.Tensor:
-    """t with the row-major strides of its shape. The strides pick the
-    convolution kernel (a channels-last layout takes another kernel with
-    another summation order), and a view such as a permuted [B, C, 1, 1]
-    tensor counts as contiguous while it still reads as channels-last. The
-    entropy chain passes its inputs through this, so the encoder and the
-    decoder compute on the same layout whatever produced their tensors."""
-    want, step = [], 1
-    for n in reversed(t.shape):
-        want.append(step)
-        step *= n
-    if tuple(reversed(want)) == t.stride():
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def to_model_range(x: torch.Tensor) -> torch.Tensor:

@@ -152,7 +152,7 @@ class _HyperDecoderBlock(nn.Module):
         super().__init__()
         self.conv1 = deconv(in_ch, 192)
         self.conv2 = deconv(192, 256)
-        self.conv3 = conv(256, out_ch, 3)
+        self.conv3 = conv(256, out_ch, 3, entropy=True)
 
     def forward(self, z):
         z = F.relu(self.conv1(z))
@@ -176,9 +176,9 @@ class Minnen20HyperDecoder(nn.Module):
 class SliceTransform(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, mid_ch: Sequence[int] = (224, 128)):
         super().__init__()
-        self.model = nn.Sequential(conv(in_ch, mid_ch[0], 5), nn.ReLU(),
-                                   conv(mid_ch[0], mid_ch[1], 5), nn.ReLU(),
-                                   conv(mid_ch[1], out_ch, 3))
+        self.model = nn.Sequential(conv(in_ch, mid_ch[0], 5, entropy=True), nn.ReLU(),
+                                   conv(mid_ch[0], mid_ch[1], 5, entropy=True), nn.ReLU(),
+                                   conv(mid_ch[1], out_ch, 3, entropy=True))
 
     def forward(self, x):
         return self.model(x)

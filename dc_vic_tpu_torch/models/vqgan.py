@@ -3,7 +3,9 @@ fusion taps (port of dc_vic_tpu/models/vqgan.py).
 
 NCHW modules named as the latent-diffusion reference names them
 (``vq_model.encoder.down.{l}.block.{b}.conv1`` ...). The attention blocks
-call kernel K2 and the quantizer kernel K1.
+call kernel K2 and the quantizer kernel K1; a ``VQResnetBlock`` whose
+``fused`` flag is on (``build_comp_model``'s ``recon_kernels``) runs as two
+calls of the fused conv kernel K6 where the shape rule allows.
 """
 from __future__ import annotations
 
@@ -14,13 +16,36 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import GroupNorm, PointwiseLinear, conv, num_groups32
+from ..ops import conv3x3 as conv3x3_ops
 from ..ops.attention import flash_attention
 from ..ops.vq import vq_argmin
 
 
+def gn_fold(x: torch.Tensor, norm: GroupNorm):
+    """Fold GroupNorm statistics and gamma, beta into one per-(image,
+    channel) affine: GN(x) * gamma + beta == x * scale[b] + bias[b]. Both
+    [B, C] f32. The variance is the two-pass one, as in the JAX package's
+    fused block (its GroupNorm module uses the fast variance)."""
+    B, C = x.shape[:2]
+    G = norm.num_groups
+    xg = x.float().reshape(B, G, -1)
+    mean = xg.mean(-1)
+    var = torch.square(xg - mean[:, :, None]).mean(-1)
+    inv = torch.rsqrt(var + norm.eps)
+    rep = lambda a: a.repeat_interleave(C // G, dim=1)             # [B,G]->[B,C]
+    scale = norm.weight.float()[None] * rep(inv)
+    bias = norm.bias.float()[None] - rep(mean) * scale
+    return scale, bias
+
+
 class VQResnetBlock(nn.Module):
     """GroupNorm -> swish -> conv, twice, with a 1x1 shortcut on a channel
-    change."""
+    change. With ``fused`` on (the JAX package's DCVIC_FUSED_RESBLOCK=1) and
+    a shape that passes the conv kernels' rule, the same parameters run as
+    two calls of kernel K6: the affine, swish, conv bias and residual add
+    happen inside the conv, and only the statistics stay outside."""
+
+    fused = False
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
@@ -30,7 +55,21 @@ class VQResnetBlock(nn.Module):
         self.conv2 = conv(out_ch, out_ch, 3)
         self.nin_shortcut = conv(in_ch, out_ch, 1) if in_ch != out_ch else None
 
+    def takes_fused(self, shape) -> bool:
+        """Whether a forward on an input of ``shape`` runs as two K6 calls."""
+        B, C, H, W = shape
+        return self.fused and conv3x3_ops.use_kernel(B, C, self.conv1.out_channels, H, W)
+
+    def _fused(self, x):
+        s1, o1 = gn_fold(x, self.norm1)
+        h = conv3x3_ops.conv3x3_gn_swish(x, self.conv1.weight, s1, o1, self.conv1.bias, None)
+        s2, o2 = gn_fold(h, self.norm2)
+        res = self.nin_shortcut(x) if self.nin_shortcut is not None else x
+        return conv3x3_ops.conv3x3_gn_swish(h, self.conv2.weight, s2, o2, self.conv2.bias, res)
+
     def forward(self, x):
+        if self.takes_fused(x.shape):
+            return self._fused(x)
         h = self.conv1(self.norm1(x))
         h = self.conv2(self.norm2(h))
         if self.nin_shortcut is not None:

@@ -5,6 +5,14 @@ NCHW modules whose parameter names are the reference's torch keys. Convs use
 torch's symmetric padding k//2, which is what the JAX package's explicit
 padding reproduces; the JAX ``DeconvTorch`` is ``nn.ConvTranspose2d`` with
 kernel 5, stride 2, padding 2 and output_padding 1.
+
+Reconstruction kernels. ``GroupNorm`` and ``Conv2d`` each carry a
+``recon_kernel`` flag, off by default and set by ``build_comp_model``'s
+``recon_kernels`` argument (the JAX package's DCVIC_GN=pallas and
+DCVIC_PALLAS_CONV=1). With the flag on, a forward whose input shape passes
+the kernel's shape rule goes through ``ops/gn.py`` (kernels K3 and K4) or
+``ops/conv3x3.py`` (K5); any other shape takes the module's ordinary
+PyTorch code, as the JAX package routes it to XLA.
 """
 from __future__ import annotations
 
@@ -15,14 +23,48 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv3x3 as conv3x3_ops
+from ..ops import gn as gn_ops
+
 
 def num_groups32(channels: int) -> int:
     """GroupNorm group count: 32, or gcd(32, C) for narrow test widths."""
     return 32 if channels % 32 == 0 else math.gcd(32, channels)
 
 
-def conv(cin: int, cout: int, k: int = 3, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=(k - 1) // 2)
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters, same default forward) whose 3x3
+    stride-1 forward takes kernel K5 when ``recon_kernel`` is on and the
+    shape passes ``ops.conv3x3.use_kernel``; the bias is added after the
+    kernel, as the JAX package's PallasConv3 adds it."""
+
+    recon_kernel = False
+
+    def takes_kernel(self, shape) -> bool:
+        """Whether a forward on an input of ``shape`` goes through K5."""
+        B, C, H, W = shape
+        return (self.recon_kernel and self.kernel_size == (3, 3)
+                and self.stride == (1, 1) and self.padding == (1, 1)
+                and self.dilation == (1, 1) and self.groups == 1
+                and conv3x3_ops.use_kernel(B, C, self.out_channels, H, W))
+
+    def forward(self, x):
+        if not self.takes_kernel(x.shape):
+            return super().forward(x)
+        y = conv3x3_ops.conv3x3_same(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias[None, :, None, None]
+        return y
+
+
+def conv(cin: int, cout: int, k: int = 3, stride: int = 1,
+         entropy: bool = False) -> nn.Conv2d:
+    """A conv with torch's symmetric padding. ``entropy=True`` marks a conv
+    whose output decides rANS indexes (hyperdecoder, ChARM transforms; the
+    JAX package's ``precision='high'`` convs): it is a plain ``nn.Conv2d``
+    that no reconstruction kernel can ever take."""
+    cls = nn.Conv2d if entropy else Conv2d
+    return cls(cin, cout, k, stride=stride, padding=(k - 1) // 2)
 
 
 def deconv(cin: int, cout: int, k: int = 5) -> nn.ConvTranspose2d:
@@ -44,7 +86,11 @@ class GroupNorm(nn.Module):
     """GroupNorm with the JAX package's statistics: f32 per-(image, group)
     mean and the fast variance E[x^2] - E[x]^2 clipped at zero
     (dc_vic_tpu/ops/gn.py), folded into a per-(image, channel) affine, with
-    an optional fused swish."""
+    an optional fused swish. With ``recon_kernel`` on, a 4-D input that
+    passes ``ops.gn.use_kernel`` takes the same computation through kernels
+    K3 and K4."""
+
+    recon_kernel = False
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6,
                  act: Optional[str] = None):
@@ -55,7 +101,14 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
+    def takes_kernel(self, shape) -> bool:
+        """Whether a forward on an input of ``shape`` goes through K3/K4."""
+        return self.recon_kernel and gn_ops.use_kernel(shape)
+
     def forward(self, x):
+        if self.takes_kernel(x.shape):
+            return gn_ops.group_norm(x, self.weight, self.bias, self.num_groups,
+                                     self.eps, self.act)
         B, C = x.shape[:2]
         G = self.num_groups
         xg = x.float().reshape(B, G, -1)

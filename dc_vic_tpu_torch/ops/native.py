@@ -5,10 +5,11 @@ into ``dc_vic_tpu_torch/_build/`` at first use (and again whenever a source
 is newer than its library):
 
 * ``libdcvic_kernels.so``: the CUDA kernels under ``csrc/``, compiled for
-  ``sm_90a`` with ``nvcc``. Only a call on a CUDA tensor builds it.
-* ``libdcvic_rans.so``: the host rANS coder, compiled with ``g++`` from the
-  JAX package's ``dc_vic_tpu/ops/rans/rans.cpp`` by path, so both packages
-  code with one source.
+  ``sm_90a`` with one ``nvcc`` per source, all started together, and linked
+  once. Only a call on a CUDA tensor builds it.
+* ``libdcvic_rans.so``: the host rANS coder, compiled with ``g++`` from
+  ``csrc/rans.cpp``, the port's own copy of the JAX package's coder source
+  (a test keeps the two byte-equal).
 
 Builds write to a temporary file under an exclusive file lock and rename it
 into place, so concurrent processes (test workers) never load a partial
@@ -22,15 +23,15 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
-CUDA_SOURCES = [os.path.join(CSRC, "vq_argmin.cu"),
-                os.path.join(CSRC, "flash_attn_f32.cu")]
-RANS_SOURCE = os.path.join(os.path.dirname(_PKG), "dc_vic_tpu", "ops", "rans",
-                           "rans.cpp")
+CUDA_SOURCES = [os.path.join(CSRC, name) for name in (
+    "vq_argmin.cu", "flash_attn_f32.cu", "gn.cu", "conv3x3.cu")]
+RANS_SOURCE = os.path.join(CSRC, "rans.cpp")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -48,10 +49,20 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _run(command: List[str], name: str) -> str:
+    proc = subprocess.run(command, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"building {name} failed (exit {proc.returncode}):\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def _build(name: str, sources: List[str],
-           command: Callable[[str], List[str]]) -> str:
+           compile_to: Callable[[str], str]) -> str:
     """Build ``name`` from ``sources`` unless an up-to-date copy exists.
-    ``command(out_path)`` gives the compiler invocation."""
+    ``compile_to(out_path)`` writes the library and returns the compilers'
+    output."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, name)
     newest = max(os.path.getmtime(s) for s in sources)
@@ -60,14 +71,26 @@ def _build(name: str, sources: List[str],
         if os.path.exists(path) and os.path.getmtime(path) >= newest:
             return path
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run(command(tmp), capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name} failed (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        build_logs[name] = proc.stdout + proc.stderr
+        build_logs[name] = compile_to(tmp)
         os.replace(tmp, path)
     return path
+
+
+def _compile_kernels(out: str) -> str:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+    objects = [f"{out}.{os.path.basename(src)}.o" for src in CUDA_SOURCES]
+    with ThreadPoolExecutor(len(CUDA_SOURCES)) as pool:
+        logs = list(pool.map(
+            lambda so: _run([nvcc, *flags, "-c", "-o", so[1], so[0]],
+                            os.path.basename(so[0])),
+            zip(CUDA_SOURCES, objects)))
+    logs.append(_run([nvcc, "-shared", "-o", out, *objects], "libdcvic_kernels.so"))
+    for obj in objects:
+        os.remove(obj)
+    return "".join(logs)
 
 
 def _load(name: str, build: Callable[[], str],
@@ -81,21 +104,26 @@ def _load(name: str, build: Callable[[], str],
 
 
 def _bind_kernels(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dcvic_vq_argmin.restype = i
     lib.dcvic_vq_argmin.argtypes = [p, p, p, i, i, i, p]
     lib.dcvic_flash_attn_f32.restype = i
     lib.dcvic_flash_attn_f32.argtypes = [p, p, p, p, i, i, i, p]
+    lib.dcvic_gn_channel_sums.restype = i
+    lib.dcvic_gn_channel_sums.argtypes = [p, p, i, i, ll, i, p]
+    lib.dcvic_gn_apply.restype = i
+    lib.dcvic_gn_apply.argtypes = [p, p, p, p, i, i, ll, i, i, p]
+    lib.dcvic_conv3x3_same.restype = i
+    lib.dcvic_conv3x3_same.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.dcvic_conv3x3_gn_swish.restype = i
+    lib.dcvic_conv3x3_gn_swish.argtypes = [p, p, p, p, p, p, p, p,
+                                           i, i, i, i, i, i, p]
 
 
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (built with nvcc for sm_90a on first use)."""
     return _load("libdcvic_kernels.so", lambda: _build(
-        "libdcvic_kernels.so", CUDA_SOURCES,
-        lambda out: [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                     "-Xptxas", "-v", "-o", out, *CUDA_SOURCES]),
-        _bind_kernels)
+        "libdcvic_kernels.so", CUDA_SOURCES, _compile_kernels), _bind_kernels)
 
 
 def _bind_rans(lib: ctypes.CDLL) -> None:
@@ -117,11 +145,11 @@ def _bind_rans(lib: ctypes.CDLL) -> None:
 
 
 def rans() -> ctypes.CDLL:
-    """The host rANS coder (built with g++ from the JAX package's source)."""
+    """The host rANS coder (built with g++ from ``csrc/rans.cpp``)."""
     return _load("libdcvic_rans.so", lambda: _build(
         "libdcvic_rans.so", [RANS_SOURCE],
-        lambda out: ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                     "-fPIC", "-o", out, RANS_SOURCE]),
+        lambda out: _run(["g++", "-O3", "-march=native", "-std=c++17", "-shared",
+                          "-fPIC", "-o", out, RANS_SOURCE], "libdcvic_rans.so")),
         _bind_rans)
 
 

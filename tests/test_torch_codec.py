@@ -24,7 +24,7 @@ def _two_threads():
 def codec():
     from dc_vic_tpu_torch.codec.driver import Codec
     from dc_vic_tpu_torch.models import build_comp_model, init_weights
-    spec = build_comp_model(tiny_config())
+    spec = build_comp_model(tiny_config(), device="cpu")
     init_weights(spec.module, torch.Generator().manual_seed(0))
     return Codec(spec)
 

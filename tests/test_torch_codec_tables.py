@@ -13,15 +13,28 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("rel", ["utils/config.py", "utils/registry.py",
-                                 "codec/container.py"])
-def test_jax_free_copies_are_byte_equal(rel):
+@pytest.mark.parametrize("rel,port_rel", [
+    ("utils/config.py", "utils/config.py"),
+    ("utils/registry.py", "utils/registry.py"),
+    ("codec/container.py", "codec/container.py"),
+    ("ops/rans/rans.cpp", "csrc/rans.cpp")])
+def test_jax_free_copies_are_byte_equal(rel, port_rel):
     """The port carries its own copies of the JAX package's jax-free
-    modules (it cannot import that package); they must not drift."""
+    modules and of the host rANS coder's source (it cannot import that
+    package, and compiles nothing out of it); they must not drift."""
     with open(os.path.join(ROOT, "dc_vic_tpu", rel), "rb") as f:
         want = f.read()
-    with open(os.path.join(ROOT, "dc_vic_tpu_torch", rel), "rb") as f:
+    with open(os.path.join(ROOT, "dc_vic_tpu_torch", port_rel), "rb") as f:
         assert f.read() == want
+
+
+def test_native_sources_lie_inside_the_port():
+    """Every source the port compiles is its own file under csrc/."""
+    from dc_vic_tpu_torch.ops import native
+    pkg = os.path.join(ROOT, "dc_vic_tpu_torch", "csrc")
+    for src in [native.RANS_SOURCE, *native.CUDA_SOURCES]:
+        assert os.path.dirname(os.path.abspath(src)) == pkg, src
+        assert os.path.isfile(src), src
 
 
 def test_pmf_to_quantized_cdf_matches_jax():

@@ -55,3 +55,182 @@ def test_flash_attention_kernel_rejects_unsupported_width(dev):
     q = torch.zeros(1, 8, 516, device=dev)
     with pytest.raises(ValueError):
         attention.flash_attention(q, q, q)
+
+
+# ------------------------------------------------- K3, K4: GroupNorm kernels
+
+def _border(t):
+    """The one-pixel frame of the last two dims, flattened."""
+    return torch.cat([t[..., 0, :].flatten(), t[..., -1, :].flatten(),
+                      t[..., :, 0].flatten(), t[..., :, -1].flatten()])
+
+
+@pytest.mark.parametrize("shape,dtype", [((2, 128, 96, 64), torch.float32),
+                                         ((1, 24, 37, 53), torch.float32),
+                                         ((2, 128, 48, 64), torch.bfloat16)])
+def test_gn_channel_sums_kernel_matches_float64(dev, shape, dtype):
+    """Kernel and plain version both within 1e-5 of sum|x| (resp. sum x^2) of
+    a float64 sum of the same input; the kernel is bitwise repeatable."""
+    from dc_vic_tpu_torch.ops import gn
+    g = torch.Generator(device=dev).manual_seed(shape[2])
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    xd = x.double().flatten(2)
+    want = torch.stack([xd.sum(-1), (xd * xd).sum(-1)], 1)
+    scale = torch.stack([xd.abs().sum(-1), (xd * xd).sum(-1)], 1)
+    got = gn.channel_sums(x)
+    assert got.shape == (shape[0], 2, shape[1]) and got.dtype == torch.float32
+    for val in (got, gn.channel_sums_plain(x)):
+        assert bool(((val.double() - want).abs() <= 1e-5 * scale).all())
+    assert torch.equal(got, gn.channel_sums(x))
+
+
+@pytest.mark.parametrize("act", [None, "swish"])
+@pytest.mark.parametrize("shape,dtype", [((2, 128, 96, 64), torch.float32),
+                                         ((1, 24, 37, 53), torch.float32),
+                                         ((2, 128, 48, 64), torch.bfloat16)])
+def test_gn_apply_kernel_matches_plain(dev, shape, dtype, act):
+    """f32: atol = rtol = 1e-6 (the affine has the plain version's bits, the
+    sigmoid may differ in the last place); bf16: one ulp of the output."""
+    from dc_vic_tpu_torch.ops import gn
+    g = torch.Generator(device=dev).manual_seed(shape[3])
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    scale = torch.rand(shape[:2], generator=g, device=dev) * 1.5 + 0.5
+    bias = torch.randn(shape[:2], generator=g, device=dev)
+    got = gn.apply_affine(x, scale, bias, act)
+    want = gn.apply_affine_plain(x, scale, bias, act)
+    tol = 1e-6 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(got, gn.apply_affine(x, scale, bias, act))
+
+
+def test_group_norm_kernels_match_module_code(dev):
+    """K3 + K4 end to end against GroupNorm's ordinary PyTorch forward;
+    2e-5 as the JAX package holds its kernels to flax."""
+    from dc_vic_tpu_torch.nn.layers import GroupNorm
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(2, 128, 64, 48, generator=g, device=dev) * 3 + 2
+    norm = GroupNorm(32, 128, act="swish").to(dev)
+    with torch.no_grad():
+        norm.weight.copy_(torch.rand(128, generator=g, device=dev) + 0.5)
+        norm.bias.copy_(torch.randn(128, generator=g, device=dev) * 0.1)
+        want = norm(x)
+        norm.recon_kernel = True
+        assert norm.takes_kernel(x.shape)
+        got = norm(x)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_gn_kernels_reject_bad_input(dev):
+    from dc_vic_tpu_torch.ops import gn
+    x = torch.zeros(2, 8, 4, 4, device=dev)
+    with pytest.raises(ValueError):
+        gn.channel_sums(torch.zeros(2, 8, device=dev))
+    with pytest.raises(ValueError):
+        gn.apply_affine(x, torch.zeros(2, 4, device=dev), torch.zeros(2, 4, device=dev))
+    with pytest.raises(TypeError):
+        gn.channel_sums(x.to(torch.float16))
+
+
+# ---------------------------------------------------- K5, K6: conv kernels
+
+def _conv_case(dev, B, C, Cout, H, W, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(B, C, H, W, generator=g, device=dev).to(dtype)
+    w = (torch.randn(Cout, C, 3, 3, generator=g, device=dev) * 0.05).to(dtype)
+    scale = torch.rand(B, C, generator=g, device=dev) * 1.5 + 0.5
+    bias = torch.randn(B, C, generator=g, device=dev) + 2.0   # swish(bias) far from 0
+    cbias = torch.randn(Cout, generator=g, device=dev)
+    res = torch.randn(B, Cout, H, W, generator=g, device=dev).to(dtype)
+    return x, w, scale, bias, cbias, res
+
+
+CONV_SHAPES = [((2, 128, 128, 16, 64), torch.float32),
+               ((1, 256, 128, 24, 32), torch.float32),    # a channel change
+               ((1, 128, 64, 13, 37), torch.float32),     # odd plane: ragged tiles
+               ((1, 128, 128, 16, 32), torch.bfloat16)]
+
+
+@pytest.fixture()
+def no_tf32():
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("shape,dtype", CONV_SHAPES)
+def test_conv3x3_kernel_matches_plain(dev, no_tf32, shape, dtype):
+    """atol = rtol = 1e-4 in f32 against F.conv2d with TF32 off (another
+    summation order), 2e-2 in bf16 (the output's own rounding); border and
+    whole tensor; bitwise repeatable."""
+    from dc_vic_tpu_torch.ops import conv3x3
+    B, C, Cout, H, W = shape
+    x, w, *_ = _conv_case(dev, B, C, Cout, H, W, dtype, H)
+    got = conv3x3.conv3x3_same(x, w)
+    want = conv3x3.conv3x3_same_plain(x, w)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(_border(got), _border(want), atol=tol, rtol=tol)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(got, conv3x3.conv3x3_same(x, w))
+
+
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("shape,dtype", CONV_SHAPES)
+def test_conv3x3_gn_swish_kernel_matches_plain(dev, no_tf32, shape, dtype, with_res):
+    """As above for the fused kernel. The affine's bias is near 2, so a
+    halo that went through affine and swish instead of being zero would put
+    about 1.8 into every border tap: the border is checked on its own."""
+    from dc_vic_tpu_torch.ops import conv3x3
+    B, C, Cout, H, W = shape
+    x, w, scale, bias, cbias, res = _conv_case(dev, B, C, Cout, H, W, dtype, W)
+    res = res if with_res else None
+    got = conv3x3.conv3x3_gn_swish(x, w, scale, bias, cbias, res)
+    want = conv3x3.conv3x3_gn_swish_plain(x, w, scale, bias, cbias, res)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(_border(got), _border(want), atol=tol, rtol=tol)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(got, conv3x3.conv3x3_gn_swish(x, w, scale, bias, cbias, res))
+
+
+def test_conv3x3_kernels_take_channels_last_memory(dev, no_tf32):
+    """An input that is channels-last in memory is brought to row-major
+    before the kernel indexes it."""
+    from dc_vic_tpu_torch.ops import conv3x3
+    x, w, *_ = _conv_case(dev, 1, 128, 64, 8, 8, torch.float32, 3)
+    xl = x.to(memory_format=torch.channels_last)
+    assert torch.equal(conv3x3.conv3x3_same(xl, w), conv3x3.conv3x3_same(x, w))
+
+
+def test_conv3x3_kernels_reject_unsupported_shapes(dev):
+    from dc_vic_tpu_torch.ops import conv3x3
+    x = torch.zeros(1, 12, 8, 8, device=dev)
+    with pytest.raises(ValueError):                      # C % 8 != 0
+        conv3x3.conv3x3_same(x, torch.zeros(64, 12, 3, 3, device=dev))
+    x = torch.zeros(1, 16, 8, 8, device=dev)
+    with pytest.raises(ValueError):                      # Cout % 64 != 0
+        conv3x3.conv3x3_same(x, torch.zeros(32, 16, 3, 3, device=dev))
+    with pytest.raises(ValueError):                      # not a 3x3 kernel
+        conv3x3.conv3x3_same(x, torch.zeros(64, 16, 5, 5, device=dev))
+    with pytest.raises(ValueError):                      # scale of another batch
+        conv3x3.conv3x3_gn_swish(x, torch.zeros(64, 16, 3, 3, device=dev),
+                                 torch.zeros(2, 16, device=dev),
+                                 torch.zeros(2, 16, device=dev),
+                                 torch.zeros(64, device=dev))
+
+
+def test_fused_resblock_kernels_match_unfused_module(dev, no_tf32):
+    """VQResnetBlock through two K6 calls against its ordinary forward on
+    the same parameters; 2e-4 as the JAX package holds fused to unfused."""
+    from dc_vic_tpu_torch.models.vqgan import VQResnetBlock
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(2, 128, 128, 96, generator=g, device=dev) * 0.7
+    for out_ch in (128, 256):
+        blk = VQResnetBlock(128, out_ch).to(dev)
+        with torch.no_grad():
+            for p in blk.parameters():
+                p.add_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+            want = blk(x)
+            blk.fused = True
+            assert blk.takes_fused(x.shape)
+            got = blk(x)
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)

@@ -63,13 +63,13 @@ def models():
     template = jax.eval_shape(
         lambda r: m.init({"params": r}, x0, b, b, is_train=False),
         jax.random.PRNGKey(0))
-    seed_model = build_comp_model(tiny_config()).module
+    seed_model = build_comp_model(tiny_config(), device="cpu").module
     init_weights(seed_model, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     sd = {k: v.numpy() + rng.normal(0, 0.02, v.shape).astype(np.float32)
           for k, v in seed_model.state_dict().items()}
     params, _ = convert_state_dict(sd, template, strict=True)
-    port = build_comp_model(tiny_config()).module
+    port = build_comp_model(tiny_config(), device="cpu").module
     load_reference_state_dict(port, export_state_dict(params))
     return m, params, port.eval()
 
@@ -105,7 +105,7 @@ def test_reference_state_dict_loads_strictly(models):
     _, params, port = models
     sd = export_state_dict(params)
     assert set(sd) == set(port.state_dict())
-    fresh = build_comp_model(tiny_config()).module
+    fresh = build_comp_model(tiny_config(), device="cpu").module
     load_reference_state_dict(fresh, sd)
     for k, v in fresh.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), np.ascontiguousarray(sd[k]), err_msg=k)
