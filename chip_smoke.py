@@ -6,7 +6,7 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and times both: K1 vq_argmin, K2 flash attention, K3
    gn_channel_sums, K4 gn_apply, K5 conv3x3_same, K6 conv3x3_gn_swish. The
-   conv kernels are also compared on the one-pixel border alone, and K3 to
+   conv kernels are also compared on the one-pixel border alone, and K2 to
    K6 are run twice on the same input and must give the same bits.
 3. Drives the codec of the flagship model (config/dc_vic_patchgan.yaml,
    full width, random weights from a seed) on its default path: a batch of
@@ -18,12 +18,20 @@
 4. Drives the same batch through a second model with the same weights built
    with recon_kernels = gn, conv3x3, fused_resblock: the same checks, all six
    kernels launched as often as the shape rules say for the modules that
-   ran, and the reconstruction held against the default model's.
+   ran, and the reconstruction held against the default model's. The
+   distinct shapes of the K5 and K6 launches of that round trip are printed
+   with their counts, and K5 is timed beside F.conv2d at each of its shapes.
 
 For every kernel it prints the least time the card could take for the same
-work (each input read once, each output written once, over 3.35 TB/s; the
-operations over the 67 TFLOP/s f32 rate outside the tensor cores) and, where
-one PyTorch call computes the same function, that call's time.
+work: each input read once and each output written once over 3.35 TB/s, or
+the operations over the rate of the unit a correct kernel can use, whichever
+is larger. For K1, K3 and K4 that unit is the 67 TFLOP/s f32 rate outside the
+tensor cores. K2, K5 and K6 need f32-class results from matrix products,
+which the tensor cores give as an error-compensated split in three TF32
+products: three times the operations over the 495 TFLOP/s dense TF32 rate
+(bound_ms); the f32 figure is kept beside it (bound_ffma_ms). A kernel faster
+than its bound fails the run: the bound or the timing would be wrong. Where
+one PyTorch call computes the same function, that call's time is printed too.
 
 Any failure raises and the script exits non-zero. It needs CUDA and fails
 without it. The last line is a JSON object naming the device.
@@ -53,14 +61,26 @@ def _time_ms(fn, *args, reps=10):
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32 on the tensor cores
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
     """(ms, what binds): the larger of bytes over the memory rate and
-    operations over the f32 rate."""
+    operations over the given rate."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / F32_FLOPS_PER_S * 1e3
+    by_ops = flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def bounds(nbytes, flops, split_tf32=False):
+    """The bound keys of a kernel entry. ``split_tf32``: the kernel's
+    products can run as three TF32 products each on the tensor cores."""
+    ffma_ms, _ = bound(nbytes, flops)
+    if split_tf32:
+        ms, by = bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    else:
+        ms, by = bound(nbytes, flops)
+    return {"bound_ms": ms, "bound_by": by, "bound_ffma_ms": ffma_ms}
 
 
 def _nbytes(*tensors):
@@ -108,47 +128,86 @@ def check_vq(vq, dev, gen):
     M, D = z.shape
     N = cb.shape[0]
     # per row and codeword: D multiply-adds for the cross term, 2 more flops
-    b_ms, b_by = bound(_nbytes(z, cb) + M * 4, M * N * (2 * D + 2))
     return {"name": "vq_argmin", "route": "cuda",
             "source": "dc_vic_tpu_torch/csrc/vq_argmin.cu",
             "replaces": "dc_vic_tpu/ops/vq.py:21", "max_abs_err": worst,
             "ms": _time_ms(vq.vq_argmin, z, cb),
             "plain_ms": _time_ms(vq.vq_argmin_plain, z, cb),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            **bounds(_nbytes(z, cb) + M * 4, M * N * (2 * D + 2)), "library_ms": None}
+
+
+ATTENTION_CASES = [((4, 6144, 512), 1.0), ((2, 6144, 512), 1.0), ((1, 1000, 512), 1.0),
+                   ((1, 1024, 128), 3.0),
+                   ((1, 1037, 512), 1.0),      # N a multiple of no tile
+                   ((1, 2048, 512), 0.728)]    # scores over about +-60
+
+
+def _attention_float64(q, k, v):
+    """softmax(q k^T) v with every step in float64, one image at a time."""
+    import torch
+    out = torch.empty_like(q)
+    lo = hi = 0.0
+    for b in range(q.shape[0]):
+        s = q[b].double() @ k[b].double().t()
+        lo, hi = min(lo, float(s.min())), max(hi, float(s.max()))
+        out[b] = (torch.softmax(s, dim=-1) @ v[b].double()).float()
+    return out, lo, hi
 
 
 def check_attention(attention, dev, gen):
-    """K2 against its plain version (atol = rtol = 1e-4: the summation
-    order differs), first at the main path's shape [4, 6144, 512], where it
-    is also timed, beside F.scaled_dot_product_attention on the same f32
-    operands."""
+    """K2 against its plain version and against the same function in
+    float64 (atol = rtol = 1e-4: the summation order differs and the
+    products are three TF32 products each), first at the main path's shape
+    [4, 6144, 512], where it is also timed, beside
+    F.scaled_dot_product_attention on the same f32 operands. A scale other
+    than 1 multiplies q and k (instead of q's C^-1/2): 0.728 spreads the
+    scores of 512 channels over about +-60, where the running maximum moves
+    most and the rescale works hardest; 3.0 at C = 128 spreads them over
+    +-500, where an f32 score is only good to 1e-4 and the f32 plain version
+    itself leaves the tolerance against float64 on some inputs. So the
+    kernel is held to float64 always, and to the plain version wherever the
+    plain version is itself within the tolerance of float64; where it is
+    not, the line says how far off it is. Each case twice: equal bits."""
     import torch
     import torch.nn.functional as F
     worst = 0.0
     entry = None
-    for (B, N, C), scale in (((4, 6144, 512), 1.0), ((2, 6144, 512), 1.0),
-                             ((1, 1000, 512), 1.0), ((1, 1024, 128), 3.0)):
+    tol = dict(atol=1e-4, rtol=1e-4)
+    for (B, N, C), scale in ATTENTION_CASES:
         pre = C ** -0.5 if scale == 1.0 else scale
         q = torch.randn(B, N, C, generator=gen, device=dev) * pre
         k = torch.randn(B, N, C, generator=gen, device=dev) * scale
         v = torch.randn(B, N, C, generator=gen, device=dev)
         got = attention.flash_attention(q, k, v)
         want = attention.attention_plain(q, k, v)
+        exact, s_lo, s_hi = _attention_float64(q, k, v)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise AssertionError(f"flash_attention gave non-finite values at {(B, N, C)}")
+        torch.testing.assert_close(got, exact, **tol)
         err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-        print(f"K2 flash_attention [{B},{N},{C}] scores x{scale}: max abs err {err:.3e}")
+        plain_off = float((want - exact).abs().max())
+        if torch.allclose(want, exact, **tol):
+            torch.testing.assert_close(got, want, **tol)
+            note = ""
+        else:
+            note = (f"; the f32 plain version is {plain_off:.3e} from float64, outside the "
+                    f"tolerance: held to float64 alone")
+        if not torch.equal(got, attention.flash_attention(q, k, v)):
+            raise AssertionError(f"flash_attention is not repeatable at {(B, N, C)}")
+        print(f"K2 flash_attention [{B},{N},{C}] q,k x{scale}, scores in [{s_lo:.1f}, "
+              f"{s_hi:.1f}]: max abs err {err:.3e} to plain, "
+              f"{float((got - exact).abs().max()):.3e} to float64; repeatable{note}")
         worst = max(worst, err)
+        del exact
         if entry is None:
             lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
             torch.testing.assert_close(lib(), want, atol=1e-4, rtol=1e-4)
             # two products of 2*N*N*C flops per image
-            b_ms, b_by = bound(_nbytes(q, k, v, got), 4 * B * N * N * C)
             entry = {"ms": _time_ms(attention.flash_attention, q, k, v),
                      "plain_ms": _time_ms(attention.attention_plain, q, k, v),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": _time_ms(lib)}
+                     **bounds(_nbytes(q, k, v, got), 4 * B * N * N * C, split_tf32=True),
+                     "library_ms": _time_ms(lib)}
     return {"name": "flash_attention", "route": "cuda",
             "source": "dc_vic_tpu_torch/csrc/flash_attn_f32.cu",
             "replaces": "dc_vic_tpu/ops/attention.py:25", "max_abs_err": worst, **entry}
@@ -213,20 +272,20 @@ def check_gn(gn, dev, gen):
               f"(act none and swish, tolerance {tol:g}); repeatable")
         if k3 is None:
             n = x.numel()
-            b3, by3 = bound(_nbytes(x, sums), 3 * n)            # add, multiply-add
-            b4, by4 = bound(2 * _nbytes(x) + _nbytes(scale, bias), 6 * n)
+            b3 = bounds(_nbytes(x, sums), 3 * n)                # add, multiply-add
+            b4 = bounds(2 * _nbytes(x) + _nbytes(scale, bias), 6 * n)
             k3 = {"name": "gn_channel_sums", "route": "cuda",
                   "source": "dc_vic_tpu_torch/csrc/gn.cu",
                   "replaces": "dc_vic_tpu/ops/gn.py:52", "max_abs_err": err3,
                   "ms": _time_ms(gn.channel_sums, x),
                   "plain_ms": _time_ms(gn.channel_sums_plain, x),
-                  "bound_ms": b3, "bound_by": by3, "library_ms": None}
+                  **b3, "library_ms": None}
             k4 = {"name": "gn_apply", "route": "cuda",
                   "source": "dc_vic_tpu_torch/csrc/gn.cu",
                   "replaces": "dc_vic_tpu/ops/gn.py:117", "max_abs_err": err4,
                   "ms": _time_ms(gn.apply_affine, x, scale, bias, "swish"),
                   "plain_ms": _time_ms(gn.apply_affine_plain, x, scale, bias, "swish"),
-                  "bound_ms": b4, "bound_by": by4, "library_ms": None}
+                  **b4, "library_ms": None}
             # no single PyTorch call computes K3's or K4's function; the pair
             # (GroupNorm + swish) is F.group_norm then F.silu
             gamma = torch.rand(shape[1], generator=gen, device=dev) + 0.5
@@ -246,14 +305,16 @@ def check_gn(gn, dev, gen):
 
 CONV_SHAPES = [((4, 128, 128, 768, 512), "float32"), ((4, 256, 256, 384, 256), "float32"),
                ((4, 256, 128, 192, 128), "float32"), ((2, 128, 64, 13, 37), "float32"),
-               ((4, 128, 128, 192, 128), "bfloat16")]
+               ((4, 128, 128, 192, 128), "bfloat16"),
+               ((4, 512, 512, 192, 128), "float32")]    # the path's deepest reduction
 
 
 def check_conv(conv3x3, dev, gen):
-    """K5 and K6 (with and without the residual) at three planes of the main
+    """K5 and K6 (with and without the residual) at four planes of the main
     path, an odd-sized plane whose tiles are ragged, and a bf16 plane,
     against their plain versions (F.conv2d with TF32 off): atol = rtol =
-    1e-4 in f32 (another summation order over up to 2304 taps), 5e-2 in bf16
+    1e-4 in f32 (another summation order over up to 4608 taps, each product
+    three TF32 products), 5e-2 in bf16
     (steps of the output type), over the whole tensor and over the one-pixel
     border alone. K6's affine has a bias near 2, so a halo that was not
     zeroed after the swish would show in the border. Each twice: equal
@@ -299,29 +360,47 @@ def check_conv(conv3x3, dev, gen):
             errs.append(max(whole, edge))
         if k5 is None:
             flops = 2 * 9 * C * Cout * B * H * W
-            b5, by5 = bound(_nbytes(x, w) + _nbytes(res), flops)
+            b5 = bounds(_nbytes(x, w) + _nbytes(res), flops, split_tf32=True)
             # K6 also reads the residual, scale, bias and the conv bias; the
             # affine and swish add about 6 flops per input element
-            b6, by6 = bound(_nbytes(x, w, scale, bias, cbias, res) + _nbytes(res),
-                            flops + 6 * x.numel() + 2 * res.numel())
+            b6 = bounds(_nbytes(x, w, scale, bias, cbias, res) + _nbytes(res),
+                        flops + 6 * x.numel() + 2 * res.numel(), split_tf32=True)
             k5 = {"name": "conv3x3_same", "route": "cuda",
                   "source": "dc_vic_tpu_torch/csrc/conv3x3.cu",
                   "replaces": "dc_vic_tpu/ops/conv3x3.py:59", "max_abs_err": errs[0],
-                  "ms": times[0][0], "plain_ms": times[0][1],
-                  "bound_ms": b5, "bound_by": by5,
+                  "ms": times[0][0], "plain_ms": times[0][1], **b5,
                   "library_ms": _time_ms(lambda: F.conv2d(x, w, padding=1), reps=3)}
             k6 = {"name": "conv3x3_gn_swish", "route": "cuda",
                   "source": "dc_vic_tpu_torch/csrc/conv3x3.cu",
                   "replaces": "dc_vic_tpu/ops/conv3x3.py:220",
                   "max_abs_err": max(errs[1:]), "ms": times[2][0],
-                  "plain_ms": times[2][1], "bound_ms": b6, "bound_by": by6,
-                  "library_ms": None}
+                  "plain_ms": times[2][1], **b6, "library_ms": None}
         del x, w, res
     for k in (k5, k6):
         print(f"{k['name']} at [4,128,768,512]->128: kernel {k['ms']:.3f} ms, plain "
-              f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}), "
+              f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms ({k['bound_by']}, "
+              f"3xTF32; {k['bound_ffma_ms']:.3f} ms at the f32 rate), "
               f"library {k['library_ms']}")
     return k5, k6
+
+
+def time_conv_shapes(conv3x3, shapes, dev, gen):
+    """K5 beside F.conv2d (TF32 off) at each distinct shape the main path
+    launched it with: one printed line per shape, with its launch count."""
+    import torch
+    import torch.nn.functional as F
+    rows = []
+    for (B, C, Cout, H, W), count in sorted(shapes.items()):
+        x = torch.randn(B, C, H, W, generator=gen, device=dev)
+        w = torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05
+        ms = _time_ms(conv3x3.conv3x3_same, x, w, reps=3)
+        lib = _time_ms(lambda: F.conv2d(x, w, padding=1), reps=3)
+        rows.append({"shape": [B, C, Cout, H, W], "launches": count, "ms": ms,
+                     "library_ms": lib})
+        print(f"K5 at [{B},{C},{H},{W}]->{Cout}: {count} launches per round trip, kernel "
+              f"{ms:.3f} ms, F.conv2d {lib:.3f} ms")
+        del x, w
+    return rows
 
 
 def drive(codec, images):
@@ -388,6 +467,11 @@ def expected_launch_recorder(module):
     from dc_vic_tpu_torch.ops import conv3x3, gn
     want = {"vq_argmin": 0, "flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0,
             "conv3x3_same": 0, "conv3x3_gn_swish": 0}
+    # (B, C, Cout, H, W) -> launches, of the two conv kernels
+    shapes = {"conv3x3_same": {}, "conv3x3_gn_swish": {}}
+
+    def tally(kernel, key):
+        shapes[kernel][key] = shapes[kernel].get(key, 0) + 1
 
     def hook(m, args):
         shape = tuple(args[0].shape)
@@ -402,24 +486,29 @@ def expected_launch_recorder(module):
             if (m.recon_kernel and m.kernel_size == (3, 3) and m.stride == (1, 1)
                     and conv3x3.use_kernel(B, C, m.out_channels, H, W)):
                 want["conv3x3_same"] += 1
+                tally("conv3x3_same", (B, C, m.out_channels, H, W))
         elif isinstance(m, VQResnetBlock):
             B, C, H, W = shape
             if m.fused and conv3x3.use_kernel(B, C, m.conv1.out_channels, H, W):
                 want["conv3x3_gn_swish"] += 2
+                Cout = m.conv1.out_channels
+                tally("conv3x3_gn_swish", (B, C, Cout, H, W))       # conv1
+                tally("conv3x3_gn_swish", (B, Cout, Cout, H, W))    # conv2
         else:                                          # the quantizer
             want["vq_argmin"] += 1
 
     kinds = (VQAttnBlock, GroupNorm, Conv2d, VQResnetBlock)
     handles = [m.register_forward_pre_hook(hook) for m in module.modules()
                if isinstance(m, kinds) or m is module.vq_model.quantize]
-    return want, handles
+    return want, shapes, handles
 
 
 def counted_round_trip(codec, images, label, ops):
     """The main path with every launch counter set to 0 just before it and
     read just after, held against what the shape rules give for the modules
-    that ran in between; then the checks of what came out."""
-    want, handles = expected_launch_recorder(codec.module)
+    that ran in between; then the checks of what came out. Returns (y_hat,
+    launches, the conv kernels' launch shapes)."""
+    want, shapes, handles = expected_launch_recorder(codec.module)
     reset_counters(*ops)
     res, out, enc_s, dec_s = drive(codec, images)
     launches = counters(*ops)
@@ -429,7 +518,7 @@ def counted_round_trip(codec, images, label, ops):
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, the shape rules "
                              f"give {want}")
-    return verify(codec, images, res, out, enc_s, dec_s, label), launches
+    return verify(codec, images, res, out, enc_s, dec_s, label), launches, shapes
 
 
 def recon_parts(module, y_hat, b1, b2, indices=None):
@@ -478,6 +567,27 @@ def compare_models(default, recon, images, y_hat):
               f"between the two models")
 
 
+def report_ptxas(log):
+    """One line per kernel from the compiler's -Xptxas -v output: its name
+    with the template arguments as mangled, registers, spills."""
+    import re
+    name = None
+    facts = []
+    for line in log.splitlines() + ["Compiling entry function ''"]:
+        if "Compiling entry function" in line:
+            if name:
+                print(f"  ptxas: {name}: {'; '.join(facts)}")
+            name = None
+            for found in re.finditer(r"(?=(\d\d)([a-z][a-z0-9_]*?_kernel)(.*?)E(v|PK))", line):
+                if int(found.group(1)) == len(found.group(2)):     # <length><name>
+                    name = found.group(2) + found.group(3)
+            facts = []
+        elif "spill" in line:
+            facts.append(line.strip())
+        elif "registers" in line:
+            facts.append(line.split(":", 1)[1].strip())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -498,9 +608,7 @@ def main():
     native.kernels()
     native.rans()
     print(f"build: {time.perf_counter() - t:.1f} s (kernels + host rANS coder)")
-    for line in native.build_logs.get("libdcvic_kernels.so", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    report_ptxas(native.build_logs.get("libdcvic_kernels.so", ""))
 
     # the numerics the codec runs with: f32 convolutions and products without
     # TF32, deterministic cuDNN algorithms (Codec sets the same)
@@ -516,7 +624,8 @@ def main():
     print(f"K1 at M=24576: kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
           f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']})")
     print(f"K2 at [4,6144,512]: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, "
-          f"bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}), "
+          f"bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}, 3xTF32; "
+          f"{k2['bound_ffma_ms']:.3f} ms at the f32 rate), "
           f"F.scaled_dot_product_attention {k2['library_ms']:.3f} ms")
     k3, k4 = check_gn(gn, dev, gen)
     k5, k6 = check_conv(conv3x3, dev, gen)
@@ -533,7 +642,7 @@ def main():
 
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (4, 768, 512, 3), dtype=np.uint8)
-    y_hat, default_launches = counted_round_trip(
+    y_hat, default_launches, _ = counted_round_trip(
         codec, images, "default path, batch 4 768x512", ops)
     if any(default_launches[k] for k in (*gn.launches, *conv3x3.launches)):
         raise AssertionError("the default path launched a reconstruction kernel")
@@ -547,7 +656,7 @@ def main():
     spec_k = build_comp_model(opt, recon_kernels=RECON_KERNELS)
     spec_k.module.load_state_dict(spec.module.state_dict(), strict=True)
     codec_k = Codec(spec_k)
-    _, launches = counted_round_trip(
+    _, launches, conv_shapes = counted_round_trip(
         codec_k, images, "reconstruction kernels on, batch 4 768x512", ops)
     missing = [k for k, n in launches.items() if n < 1]
     if missing:
@@ -557,10 +666,20 @@ def main():
             raise AssertionError(f"{k}: {launches[k]} launches with the reconstruction "
                                  f"kernels on, {default_launches[k]} on the default path")
     compare_models(codec, codec_k, images, y_hat)
+    del codec, codec_k, spec, spec_k
+    torch.cuda.empty_cache()
+
+    print(json.dumps({"conv_launch_shapes": {
+        name: [{"shape": list(shape), "launches": n} for shape, n in sorted(table.items())]
+        for name, table in conv_shapes.items()}}))
+    time_conv_shapes(conv3x3, conv_shapes["conv3x3_same"], dev, gen)
 
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        if k["ms"] < k["bound_ms"]:
+            raise AssertionError(f"{k['name']}: {k['ms']:.4f} ms is under its bound of "
+                                 f"{k['bound_ms']:.4f} ms: the bound or the timing is wrong")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

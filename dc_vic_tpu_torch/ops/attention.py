@@ -2,7 +2,9 @@
 and its plain PyTorch version.
 
 Port of ``dc_vic_tpu/ops/attention.py`` (forward only: the codec path runs
-under ``torch.no_grad``). Dispatch is by device: a CPU tensor takes
+under ``torch.no_grad``). The kernel takes its products on the tensor cores
+as an error-compensated 3xTF32 split (``csrc/tf32x3.cuh``, ``ops/tf32.py``),
+so its results stay f32-class. Dispatch is by device: a CPU tensor takes
 ``attention_plain``; a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
@@ -29,8 +31,8 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
         raise ValueError(f"expected equal [B, N, C] shapes, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     B, N, C = q.shape
-    if C % 4 != 0 or C > 512:
-        raise ValueError(f"flash_attention kernel needs C % 4 == 0 and C <= 512, got C={C}")
+    if C not in (128, 256, 384, 512):
+        raise ValueError(f"flash_attention kernel needs C in (128, 256, 384, 512), got C={C}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -50,7 +52,9 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T) v for [B, N, C] operands with q pre-scaled by C^-1/2."""
+    """softmax(q k^T) v for [B, N, C] operands with q pre-scaled by C^-1/2.
+    On a CUDA tensor the kernel takes float32 operands with C one of 128,
+    256, 384, 512 (whole 128-channel chunks), any N, and raises for the rest."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type == "cuda":

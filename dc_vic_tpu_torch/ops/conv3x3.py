@@ -24,8 +24,8 @@ from .layout import row_major as _row_major
 launches = {"conv3x3_same": 0, "conv3x3_gn_swish": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# what the kernels' tiles need: input channels staged 8 at a time, output
-# channels in tiles of 64
+# what the kernels' tiles need: input channels staged 8 at a time (one
+# tensor-core k8 step per tap), output channels in tiles of 64 (a wgmma's N)
 _C_STEP, _COUT_STEP = 8, 64
 
 
@@ -55,6 +55,13 @@ def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> int:
     return _DTYPES[x.dtype]
 
 
+def _weight_scratch(C: int, Cout: int, device: torch.device) -> torch.Tensor:
+    """Where the kernels' first pass writes the weights as the operands the
+    tensor cores read from shared memory, each value split in a TF32 hi and
+    lo part: twice the weights' size in f32."""
+    return torch.empty(2 * C * 9 * Cout, dtype=torch.float32, device=device)
+
+
 # ------------------------------------------------------------------- K5
 
 def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -68,7 +75,7 @@ def _conv3x3_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Cout = w.shape[0]
     x, w = _row_major(x), _row_major(w)
     out = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
-    repacked = torch.empty(C * 9 * Cout, dtype=torch.float32, device=x.device)
+    repacked = _weight_scratch(C, Cout, x.device)
     lib = native.kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -120,7 +127,7 @@ def _conv3x3_gn_swish_cuda(x, w, scale, bias, cbias, res):
     scale, bias, cbias = (_row_major(t) for t in small)
     res = None if res is None else _row_major(res)
     out = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
-    repacked = torch.empty(C * 9 * Cout, dtype=torch.float32, device=x.device)
+    repacked = _weight_scratch(C, Cout, x.device)
     lib = native.kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -31,6 +31,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 CUDA_SOURCES = [os.path.join(CSRC, name) for name in (
     "vq_argmin.cu", "flash_attn_f32.cu", "gn.cu", "conv3x3.cu")]
+# included by the sources above; a change rebuilds the library
+CUDA_HEADERS = [os.path.join(CSRC, "tf32x3.cuh")]
 RANS_SOURCE = os.path.join(CSRC, "rans.cpp")
 
 _lock = threading.Lock()
@@ -123,7 +125,8 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
 def kernels() -> ctypes.CDLL:
     """The CUDA kernel library (built with nvcc for sm_90a on first use)."""
     return _load("libdcvic_kernels.so", lambda: _build(
-        "libdcvic_kernels.so", CUDA_SOURCES, _compile_kernels), _bind_kernels)
+        "libdcvic_kernels.so", CUDA_SOURCES + CUDA_HEADERS, _compile_kernels),
+        _bind_kernels)
 
 
 def _bind_rans(lib: ctypes.CDLL) -> None:

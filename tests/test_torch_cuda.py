@@ -36,25 +36,55 @@ def test_vq_argmin_kernel_ties_take_lower_index(dev):
 
 @pytest.mark.parametrize("shape,scale", [((2, 6144, 512), 1.0),
                                          ((1, 1000, 512), 1.0),
-                                         ((1, 1024, 128), 3.0)])
+                                         ((1, 1024, 128), 3.0),
+                                         ((1, 1037, 512), 1.0),    # N a multiple of no tile
+                                         ((2, 777, 256), 1.0),
+                                         ((1, 2048, 512), 0.728)])  # scores over about +-60
 def test_flash_attention_kernel_matches_plain(dev, shape, scale):
-    """atol = rtol = 1e-4: the kernel sums in another order than cuBLAS."""
+    """atol = rtol = 1e-4: the kernel sums in another order than cuBLAS and
+    takes each product as three TF32 products. A scale other than 1
+    multiplies q and k: wide scores move the running maximum often, so the
+    online rescale works hardest. At scores of +-500 (scale 3 at C = 128) an
+    f32 score is only good to 1e-4 and the f32 plain version itself can
+    leave the tolerance against float64, so the kernel is held to float64
+    always and to the plain version wherever that is within the tolerance of
+    float64 itself. Bitwise repeatable."""
     from dc_vic_tpu_torch.ops import attention
     g = torch.Generator(device=dev).manual_seed(shape[1])
     pre = shape[-1] ** -0.5 if scale == 1.0 else scale
     q = torch.randn(shape, generator=g, device=dev) * pre
     k = torch.randn(shape, generator=g, device=dev) * scale
     v = torch.randn(shape, generator=g, device=dev)
-    torch.testing.assert_close(attention.flash_attention(q, k, v),
-                               attention.attention_plain(q, k, v),
-                               atol=1e-4, rtol=1e-4)
+    got = attention.flash_attention(q, k, v)
+    assert bool(torch.isfinite(got).all())
+    want = attention.attention_plain(q, k, v)
+    exact = torch.bmm(torch.softmax(torch.bmm(q.double(), k.double().transpose(1, 2)), -1),
+                      v.double()).float()
+    torch.testing.assert_close(got, exact, atol=1e-4, rtol=1e-4)
+    if torch.allclose(want, exact, atol=1e-4, rtol=1e-4):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.equal(got, attention.flash_attention(q, k, v))
+
+
+def test_flash_attention_kernel_weights_sum_to_one_at_a_ragged_length(dev):
+    """With every value row equal to 1 the output is the sum of the softmax
+    weights: 1 in every row, also where the last key tile is cut short (keys
+    past N must weigh nothing, and the denominator must count the same keys)."""
+    from dc_vic_tpu_torch.ops import attention
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn(2, 1037, 128, generator=g, device=dev) * 0.3
+    k = torch.randn(2, 1037, 128, generator=g, device=dev)
+    got = attention.flash_attention(q, k, torch.ones_like(k))
+    torch.testing.assert_close(got, torch.ones_like(got), atol=1e-5, rtol=0)
 
 
 def test_flash_attention_kernel_rejects_unsupported_width(dev):
+    """The kernel takes C = 128, 256, 384 or 512 (whole 128-channel chunks)."""
     from dc_vic_tpu_torch.ops import attention
-    q = torch.zeros(1, 8, 516, device=dev)
-    with pytest.raises(ValueError):
-        attention.flash_attention(q, q, q)
+    for width in (516, 64, 640):
+        q = torch.zeros(1, 8, width, device=dev)
+        with pytest.raises(ValueError):
+            attention.flash_attention(q, q, q)
 
 
 # ------------------------------------------------- K3, K4: GroupNorm kernels
@@ -147,7 +177,8 @@ def _conv_case(dev, B, C, Cout, H, W, dtype, seed):
 CONV_SHAPES = [((2, 128, 128, 16, 64), torch.float32),
                ((1, 256, 128, 24, 32), torch.float32),    # a channel change
                ((1, 128, 64, 13, 37), torch.float32),     # odd plane: ragged tiles
-               ((1, 128, 128, 16, 32), torch.bfloat16)]
+               ((1, 128, 128, 16, 32), torch.bfloat16),
+               ((1, 512, 512, 24, 32), torch.float32)]    # the path's deepest reduction
 
 
 @pytest.fixture()
@@ -161,7 +192,7 @@ def no_tf32():
 @pytest.mark.parametrize("shape,dtype", CONV_SHAPES)
 def test_conv3x3_kernel_matches_plain(dev, no_tf32, shape, dtype):
     """atol = rtol = 1e-4 in f32 against F.conv2d with TF32 off (another
-    summation order), 2e-2 in bf16 (the output's own rounding); border and
+    summation order, each product three TF32 products), 2e-2 in bf16 (the output's own rounding); border and
     whole tensor; bitwise repeatable."""
     from dc_vic_tpu_torch.ops import conv3x3
     B, C, Cout, H, W = shape
