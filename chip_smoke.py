@@ -22,6 +22,23 @@
    distinct shapes of the K5 and K6 launches of that round trip are printed
    with their counts, and K5 is timed beside F.conv2d at each of its shapes.
 
+5. Holds the tpu stream format's coder kernels, R1 (rANS encode + pack) and
+   R2 (decode of one section), against their plain versions on the card and
+   against the host coder, at the main path's section shapes (six chained y
+   sections of [4, 32, 48, 32] and one z section [4, 192, 12, 8]) for lane
+   caps 128 and 512, with symbol mixes without escapes, with tier-1 escapes
+   and with tier-2 escapes: equal bytes, symbols, cursors and lane states,
+   all lanes back at 2^16 after the last section, equal bits on a second
+   run; a stream that breaks a header guarantee must fail the integrity
+   check. Integers: no tolerance.
+6. Drives the flagship model in the tpu format, host and device encode
+   backends (identical strings), lanes 128 and 512, default model and
+   reconstruction kernels on: R1 launches twice per compress (y and z), R2
+   seven times per decompress (z and six ChARM slices). A batch-4 stream
+   decoded as batch 2 must raise, and the decode chain must run under
+   torch.cuda.set_sync_debug_mode("error"). Warm encode and decode seconds of both
+   formats and Codec.bench_device_cycle are printed.
+
 For every kernel it prints the least time the card could take for the same
 work: each input read once and each output written once over 3.35 TB/s, or
 the operations over the rate of the unit a correct kernel can use, whichever
@@ -32,6 +49,13 @@ products: three times the operations over the 495 TFLOP/s dense TF32 rate
 (bound_ms); the f32 figure is kept beside it (bound_ffma_ms). A kernel faster
 than its bound fails the run: the bound or the timing would be wrong. Where
 one PyTorch call computes the same function, that call's time is printed too.
+K1 is one launch of a microsecond's arithmetic, so its entry also carries the
+launch-to-finish time of an empty kernel (launch_floor_ms) and the larger of
+that and the operation bound (bound_with_launch_ms). R1 and R2 are bound by
+neither bytes nor operations but by their dependent chain: their entries
+carry chain_ms, the steps of the longest chain times the time of one step as
+measured with a single warp (batch 1, 32 lanes), where nothing but latency
+is left.
 
 Any failure raises and the script exits non-zero. It needs CUDA and fails
 without it. The last line is a JSON object naming the device.
@@ -403,6 +427,241 @@ def time_conv_shapes(conv3x3, shapes, dev, gen):
     return rows
 
 
+def launch_floor_ms(native):
+    """Launch-to-finish time of an empty kernel, by the same CUDA-event
+    method as every other time here."""
+    import torch
+    lib = native.kernels()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        native.check(lib.dcvic_launch_floor(1, 32, stream), "launch_floor")
+    return _time_ms(launch, reps=200)
+
+
+Y_PLANES = (4, 192, 48, 32)     # y of four 768x512 images: six sections of 32 channels
+Z_PLANES = (4, 192, 12, 8)      # z of the same: one section, CDF row = channel
+RANS_MIXES = ("no escapes", "tier-1 escapes", "tier-2 escapes")
+
+
+def _rans_planes(rng, table, shape, mix, factorised):
+    """Symbol and index planes on the host: each symbol drawn inside its
+    row's range; then 2% of them up to +-20000 (one tier-1 word each), then
+    0.5% of them up to +-40000 (payloads past 0xFFFF: two tier-2 words)."""
+    B, C, H, W = shape
+    rows = len(table.offsets)
+    if factorised:
+        idx = np.broadcast_to(np.arange(C).reshape(1, C, 1, 1), shape)
+    else:
+        idx = rng.integers(0, rows, shape)
+    maxv = (np.asarray(table.cdf_lengths) - 2)[idx]
+    width = np.maximum(maxv // 6, 1)
+    centre = maxv // 2
+    value = np.clip(np.round(centre + rng.normal(0, 1, shape) * width), 0, maxv - 1)
+    sym = (value + np.asarray(table.offsets)[idx]).astype(np.int32)
+    if mix != "no escapes":
+        hot = rng.random(shape) < 0.02
+        sym = np.where(hot, rng.integers(-20000, 20000, shape), sym)
+    if mix == "tier-2 escapes":
+        hot = rng.random(shape) < 0.005
+        sym = np.where(hot, rng.integers(-40000, 40000, shape), sym)
+        sym[0, 0, 0, 1], sym[-1, -1, -1, -2] = 40000, -40000
+    return sym.astype(np.int32), (None if factorised else idx.astype(np.uint8))
+
+
+def _rans_case(rd, rans_host, dev, host_table, table, shape, S, lanes, mix, rng, label,
+               factorised=False):
+    """One stream per image through R1 and R2 and through everything they
+    are held against. Returns (sym, idx, packed words, base, counts) on the
+    card for the timings."""
+    import torch
+    B, C, H, W = shape
+    sc = C // S
+    sym_np, idx_np = _rans_planes(rng, host_table, shape, mix, factorised)
+    wide = mix == "tier-2 escapes"          # +-40000 does not fit the model's int16 planes
+    sym = torch.from_numpy(sym_np if wide else sym_np.astype(np.int16)).to(dev)
+    idx = None if idx_np is None else torch.from_numpy(idx_np).to(dev)
+    L = rd.section_lanes(sc * H * W, lanes)
+
+    packed, offsets, counts, esc, big = rd.encode_pack(sym, idx, S, lanes, table)
+    again = rd.encode_pack(sym, idx, S, lanes, table)
+    torch.cuda.synchronize()
+    rows = rd.channel_rows(B, C, H, W, dev) if idx is None else idx
+    sections = [(rd.to_stream(sym[:, s * sc:(s + 1) * sc], L),
+                 rd.to_stream(rows[:, s * sc:(s + 1) * sc], L)) for s in range(S)]
+    vals, mask, p_esc, p_big = rd.encode_stream_plain(sections, table)
+    p_packed, p_counts = rd.pack_streams_plain(vals, mask)
+    if not (torch.equal(counts, p_counts) and torch.equal(esc, p_esc)
+            and torch.equal(big, p_big)):
+        raise AssertionError(f"{label}: R1 counts differ from the plain version")
+    if not (torch.equal(again[2], counts) and all(
+            torch.equal(again[0][int(o):int(o) + int(n)], packed[int(o):int(o) + int(n)])
+            for o, n in zip(offsets, counts))):
+        raise AssertionError(f"{label}: R1 is not repeatable")
+    counts_np = counts.cpu().numpy()
+    p_base = np.cumsum(counts_np) - counts_np
+    words = torch.cat([packed[int(o):int(o) + int(n)] for o, n in zip(offsets, counts)])
+    if not torch.equal(words, p_packed[:words.numel()]):
+        raise AssertionError(f"{label}: R1 bytes differ from the plain version")
+    words_np = words.cpu().numpy().view(np.uint16)
+    for b in range(B):
+        secs = [(s[b].cpu().numpy(), i[b].cpu().numpy()) for s, i in sections]
+        data, esc_max, has_t2 = rans_host.tpu_encode_sections(secs, host_table, True)
+        if data != words_np[p_base[b]:p_base[b] + counts_np[b]].tobytes():
+            raise AssertionError(f"{label}: R1 bytes differ from the host coder, image {b}")
+        if esc_max != int(esc[b].max()) or has_t2 != bool(big[b] > 0):
+            raise AssertionError(f"{label}: R1 escape counts differ from the host coder")
+    if bool(esc.sum() > 0) != (mix != "no escapes") or bool(big.sum() > 0) != wide:
+        raise AssertionError(f"{label}: the symbol mix is not what its name says")
+
+    base = torch.from_numpy(p_base.astype(np.int32)).to(dev)
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    runs = []
+    for _ in range(2):
+        cur, state, p_cur, p_state, outs = zero, None, zero, None, []
+        for s in range(S):
+            sec_idx = None if idx is None else idx[:, s * sc:(s + 1) * sc].contiguous()
+            got, cur, state = rd.decode_section(words, base, cur, state, sec_idx,
+                                                (B, sc, H, W), lanes, table,
+                                                out_dtype=torch.int32)
+            want, p_cur, p_state = rd.decode_section_plain(
+                words, base, p_cur, p_state, sections[s][1], table)
+            if not (torch.equal(got, rd.from_stream(want, sc, H, W))
+                    and torch.equal(cur, p_cur) and torch.equal(state, p_state)):
+                raise AssertionError(f"{label}: R2 differs from the plain version, section {s}")
+            if not torch.equal(got, sym[:, s * sc:(s + 1) * sc].to(torch.int32)):
+                raise AssertionError(f"{label}: R2 does not return the symbols, section {s}")
+            outs.append(got)
+        if not torch.equal(cur, counts) or not bool((state == rd.RANS_L).all()):
+            raise AssertionError(f"{label}: the last section leaves words or lane states over")
+        runs.append(outs)
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError(f"{label}: R2 is not repeatable")
+    print(f"{label}: R1 bytes equal to plain and host coder ({int(counts.sum())} words, "
+          f"{int(esc.sum())} escapes, {int(big.sum())} tier-2), R2 symbols, cursors and "
+          f"states equal to plain over {S} sections, lanes back at 2^16; repeatable")
+    return sym, idx, words, base, counts
+
+
+def _rans_poison_cases(rd, Codec, dev, host_table, table):
+    """A stream that breaks what the flag promises must fail the integrity
+    check; without the flag the same stream passes it."""
+    import torch
+    B, C, H, W = 2, 32, 48, 32
+    rng = np.random.default_rng(7)
+    cases = {"escfree": ("tier-1 escapes", dict(escfree=True)),
+             "t2free": ("tier-2 escapes", dict(tier2=False)),
+             "esc_cap": (None, dict(sparse_esc=True))}
+    for name, (mix, flags) in cases.items():
+        if mix is None:
+            sym_np, idx_np = _rans_planes(rng, host_table, (B, C, H, W), "no escapes", False)
+            sym_np[1] = rng.integers(3000, 9000, sym_np[1].shape)    # every symbol escapes
+        else:
+            sym_np, idx_np = _rans_planes(rng, host_table, (B, C, H, W), mix, False)
+        sym, idx = torch.from_numpy(sym_np).to(dev), torch.from_numpy(idx_np).to(dev)
+        packed, offsets, counts, _, _ = rd.encode_pack(sym, idx, 1, 128, table)
+        words = torch.cat([packed[int(o):int(o) + int(n)] for o, n in zip(offsets, counts)])
+        base = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        strs = [b"\0\0" * int(n) for n in counts]
+        _, cur, _ = rd.decode_section(words, base, zero, None, idx, (B, C, H, W), 128, table)
+        Codec._check_consumed(torch.stack([cur, cur]).cpu().numpy(), strs, strs)
+        _, cur, _ = rd.decode_section(words, base, zero, None, idx, (B, C, H, W), 128, table,
+                                      **flags)
+        try:
+            Codec._check_consumed(torch.stack([cur, cur]).cpu().numpy(), strs, strs)
+        except RuntimeError:
+            continue
+        raise AssertionError(f"R2 did not poison the cursor of a stream that breaks {name}")
+    print("R2 poison: a stream with an escape under escfree, with a tier-2 marker under "
+          "t2free, and with more escapes than esc_cap each fail the integrity check")
+
+
+def check_rans(rd, rans_host, Codec, dev):
+    """R1 and R2 against their plain versions and the host coder (see the
+    module docstring, item 5), then their times at the main path's y
+    shapes, lanes 128: R1 over the whole six-section stream, R2 over one
+    section. Returns the two kernel entries."""
+    import torch
+    from dc_vic_tpu_torch.codec.bottleneck import EntropyBottleneck, build_bottleneck_cdf
+    from dc_vic_tpu_torch.codec.gaussian import GaussianConditional, get_scale_table
+    from dc_vic_tpu_torch.models import init_weights
+    y_host = GaussianConditional().build_cdf_table(get_scale_table())
+    eb = EntropyBottleneck(Z_PLANES[1])
+    init_weights(eb, torch.Generator().manual_seed(1))
+    z_host = build_bottleneck_cdf(eb)
+    y_table, z_table = rd.DeviceCdfTable(y_host, dev), rd.DeviceCdfTable(z_host, dev)
+    rng = np.random.default_rng(1)
+    kept = {}
+    for lanes in (128, 512):
+        for mix in RANS_MIXES:
+            kept[lanes, mix] = _rans_case(
+                rd, rans_host, dev, y_host, y_table, Y_PLANES, 6, lanes, mix, rng,
+                f"R1/R2 y {list(Y_PLANES)} six sections, lanes {lanes}, {mix}")
+        _rans_case(rd, rans_host, dev, z_host, z_table, Z_PLANES, 1, lanes, "tier-1 escapes",
+                   rng, f"R1/R2 z {list(Z_PLANES)}, lanes {lanes}, tier-1 escapes",
+                   factorised=True)
+    _rans_case(rd, rans_host, dev, y_host, y_table, (2, 12, 6, 8), 3, 4, "tier-1 escapes", rng,
+               "R1/R2 a small stream, three sections, lanes 4, tier-1 escapes")
+    _rans_case(rd, rans_host, dev, y_host, y_table, (1, 64, 96, 128), 1, 4096,
+               "tier-1 escapes", rng, "R1/R2 one wide section, lanes 4096, tier-1 escapes")
+    _rans_poison_cases(rd, Codec, dev, y_host, y_table)
+
+    B, C, H, W = Y_PLANES
+    S, sc = 6, C // 6
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    timed = {}
+    for lanes in (128, 512):
+        sym, idx, words, base, counts = kept[lanes, "no escapes"]
+        L = rd.section_lanes(sc * H * W, lanes)
+        idx0 = idx[:, :sc].contiguous()
+        sections = [(rd.to_stream(sym[:, s * sc:(s + 1) * sc], L),
+                     rd.to_stream(idx[:, s * sc:(s + 1) * sc], L)) for s in range(S)]
+        timed[lanes] = dict(
+            L=L, steps=sc * H * W // L, words=int(counts.sum()),
+            r1=_time_ms(rd.encode_pack, sym, idx, S, lanes, y_table),
+            r2=_time_ms(rd.decode_section, words, base, zero, None, idx0, (B, sc, H, W),
+                        lanes, y_table),
+            r1_plain=_time_ms(lambda: rd.pack_streams_plain(
+                *rd.encode_stream_plain(sections, y_table)[:2]), reps=1),
+            r2_plain=_time_ms(rd.decode_section_plain, words, base, zero, None,
+                              sections[0][1], y_table, reps=1))
+    # one step's latency: a single warp (batch 1, 32 lanes) leaves nothing else
+    sym1, idx1 = kept[128, "no escapes"][0][:1].contiguous(), kept[128, "no escapes"][1][:1].contiguous()
+    p1, o1, c1, _, _ = rd.encode_pack(sym1, idx1, S, 32, y_table)
+    w1 = p1[:int(c1[0])].contiguous()
+    one_steps = sc * H * W // 32
+    z1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    r1_step = _time_ms(rd.encode_pack, sym1, idx1, S, 32, y_table) / (S * one_steps)
+    r2_step = _time_ms(rd.decode_section, w1, z1, z1, None, idx1[:, :sc].contiguous(),
+                       (1, sc, H, W), 32, y_table) / one_steps
+    for lanes, t in timed.items():
+        print(f"R1 rans_encode_pack y {list(Y_PLANES)} lanes {lanes} ({S * t['steps']} steps): "
+              f"kernel {t['r1']:.4f} ms, plain {t['r1_plain']:.1f} ms; R2 rans_decode_section "
+              f"one section ({t['steps']} steps): kernel {t['r2']:.4f} ms, plain "
+              f"{t['r2_plain']:.1f} ms")
+    print(f"one step of the chain with a single warp: R1 {r1_step * 1e3:.3f} us, "
+          f"R2 {r2_step * 1e3:.3f} us")
+    t = timed[128]
+    n_sym = B * C * H * W
+    # bytes: each symbol (2) and index (1) read once, each word written (R1)
+    # or read (R2) once, R2's symbols written; operations: about 12 integer
+    # operations a symbol, held against the f32 rate outside the tensor cores
+    r1 = {"name": "rans_encode_pack", "route": "cuda",
+          "source": "dc_vic_tpu_torch/csrc/rans_device.cu",
+          "replaces": "dc_vic_tpu/ops/rans_device.py:222", "max_abs_err": 0.0,
+          "ms": t["r1"], "plain_ms": t["r1_plain"],
+          **bounds(3 * n_sym + 2 * t["words"], 12 * n_sym), "library_ms": None,
+          "chain_ms": S * t["steps"] * r1_step, "ms_lanes512": timed[512]["r1"]}
+    r2 = {"name": "rans_decode_section", "route": "cuda",
+          "source": "dc_vic_tpu_torch/csrc/rans_device.cu",
+          "replaces": "dc_vic_tpu/ops/rans_device.py:366", "max_abs_err": 0.0,
+          "ms": t["r2"], "plain_ms": t["r2_plain"],
+          **bounds((3 * n_sym + 2 * t["words"]) // S, 12 * n_sym // S), "library_ms": None,
+          "chain_ms": t["steps"] * r2_step, "ms_lanes512": timed[512]["r2"]}
+    return r1, r2
+
+
 def drive(codec, images):
     """The main path: compress -> bitstreams -> decompress. Returns
     (results, decoded images, encode s, decode s)."""
@@ -444,15 +703,15 @@ def verify(codec, images, res, out, enc_s, dec_s, label):
     return y_hat
 
 
-def counters(vq, attention, gn, conv3x3):
+def counters(vq, attention, gn, conv3x3, rans_device):
     return {"vq_argmin": vq.launches, "flash_attention": attention.launches,
-            **gn.launches, **conv3x3.launches}
+            **gn.launches, **conv3x3.launches, **rans_device.launches}
 
 
-def reset_counters(vq, attention, gn, conv3x3):
+def reset_counters(vq, attention, gn, conv3x3, rans_device):
     vq.launches = 0
     attention.launches = 0
-    for table in (gn.launches, conv3x3.launches):
+    for table in (gn.launches, conv3x3.launches, rans_device.launches):
         for name in table:
             table[name] = 0
 
@@ -509,6 +768,11 @@ def counted_round_trip(codec, images, label, ops):
     that ran in between; then the checks of what came out. Returns (y_hat,
     launches, the conv kernels' launch shapes)."""
     want, shapes, handles = expected_launch_recorder(codec.module)
+    # the coder kernels: y and z pack per compress on the device backend, z
+    # and one section per ChARM slice per decompress
+    tpu = codec.stream_format == "tpu"
+    want["rans_encode_pack"] = 2 if tpu and codec.encode_backend == "device" else 0
+    want["rans_decode_section"] = 1 + codec.num_slices if tpu else 0
     reset_counters(*ops)
     res, out, enc_s, dec_s = drive(codec, images)
     launches = counters(*ops)
@@ -593,9 +857,11 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script runs on a GPU")
     sys.path.insert(0, ROOT)
+    from dc_vic_tpu_torch.codec.container import HeaderHandler
     from dc_vic_tpu_torch.codec.driver import Codec
     from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model, init_weights
-    from dc_vic_tpu_torch.ops import attention, conv3x3, gn, native, vq
+    from dc_vic_tpu_torch.ops import (attention, conv3x3, gn, native, rans_device, rans_host,
+                                      vq)
     from dc_vic_tpu_torch.utils.config import load_config
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -620,9 +886,13 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     k1 = check_vq(vq, dev, gen)
+    k1["launch_floor_ms"] = launch_floor_ms(native)
+    k1["bound_with_launch_ms"] = max(k1["bound_ms"], k1["launch_floor_ms"])
     k2 = check_attention(attention, dev, gen)
     print(f"K1 at M=24576: kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
-          f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']})")
+          f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']}); an empty kernel takes "
+          f"{k1['launch_floor_ms']:.4f} ms from launch to finish, so the larger of the two "
+          f"is {k1['bound_with_launch_ms']:.4f} ms")
     print(f"K2 at [4,6144,512]: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, "
           f"bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}, 3xTF32; "
           f"{k2['bound_ffma_ms']:.3f} ms at the f32 rate), "
@@ -630,43 +900,135 @@ def main():
     k3, k4 = check_gn(gn, dev, gen)
     k5, k6 = check_conv(conv3x3, dev, gen)
     torch.cuda.empty_cache()
-    ops = (vq, attention, gn, conv3x3)
+    r1, r2 = check_rans(rans_device, rans_host, Codec, dev)
+    for r in (r1, r2):
+        print(f"{r['name']} at lanes 128: kernel {r['ms']:.4f} ms ({r['ms_lanes512']:.4f} ms "
+              f"at lanes 512), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), dependent chain {r['chain_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    ops = (vq, attention, gn, conv3x3, rans_device)
+    recon_names = (*gn.launches, *conv3x3.launches)
 
     t = time.perf_counter()
     opt = load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
     spec = build_comp_model(opt)
     init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
-    codec = Codec(spec)
+    codec = Codec(spec, stream_format="compressai")
     print(f"flagship model: {sum(p.numel() for p in spec.module.parameters())} "
           f"parameters, built in {time.perf_counter() - t:.1f} s")
 
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (4, 768, 512, 3), dtype=np.uint8)
     y_hat, default_launches, _ = counted_round_trip(
-        codec, images, "default path, batch 4 768x512", ops)
-    if any(default_launches[k] for k in (*gn.launches, *conv3x3.launches)):
+        codec, images, "compressai format, default path, batch 4 768x512", ops)
+    if any(default_launches[k] for k in recon_names):
         raise AssertionError("the default path launched a reconstruction kernel")
     if default_launches["vq_argmin"] != 1 or default_launches["flash_attention"] < 1:
         raise AssertionError(f"the default path's launches: {default_launches}")
 
     img1 = rng.integers(0, 256, (1, 500, 740, 3), dtype=np.uint8)
-    verify(codec, img1, *drive(codec, img1), "default path, batch 1 500x740")
+    verify(codec, img1, *drive(codec, img1), "compressai format, default path, batch 1 500x740")
 
-    # this slice's path: the same model with every reconstruction kernel on
+    # the tpu stream format on the same model: host and device encode backends
+    tpu = {(backend, lanes): Codec(spec, encode_backend=backend, lanes=lanes)
+           for backend, lanes in (("host", 128), ("device", 128), ("device", 512))}
+    strings = {}
+    for (backend, lanes), c in tpu.items():
+        label = f"tpu format, {backend} backend, lanes {lanes}, batch 4 768x512"
+        _, got, _ = counted_round_trip(c, images, label, ops)
+        for k in ("vq_argmin", "flash_attention", *recon_names):
+            if got[k] != default_launches[k]:
+                raise AssertionError(f"{label}: {k} launched {got[k]} times, "
+                                     f"{default_launches[k]} in the compressai format")
+        res = c.compress(images, 0)
+        strings[backend, lanes] = [r["string_list"] for r in res]
+        for r in res:
+            h = HeaderHandler.decode(r["string_list"][0])
+            want = dict(stream_format="tpu", lanes=lanes, encode_batch=4, portable=False,
+                        fast_entropy=False, bf16=False, t2free=True, img_size=(768, 512),
+                        quality_ind=0)
+            if len(r["string_list"][0]) != 9 or any(h[k] != v for k, v in want.items()):
+                raise AssertionError(f"{label}: header {h}")
+        print(f"{label}: header {HeaderHandler.decode(res[0]['string_list'][0])}; "
+              f"pred_y_bpp {res[0]['pred_y_bpp']:.4f}, pred_z_bpp {res[0]['pred_z_bpp']:.4f}")
+    if strings["host", 128] != strings["device", 128]:
+        raise AssertionError("the host and device encode backends wrote different streams")
+    print("tpu format: the host and device encode backends wrote identical strings")
+    try:
+        tpu["device", 128].decompress(strings["device", 128][:2])
+    except ValueError as e:
+        print(f"a batch-4 stream decoded as batch 2 raises: {str(e)[:90]}...")
+    else:
+        raise AssertionError("a batch-4 stream decoded as batch 2 did not raise")
+    # the decode chain must not wait for the card: PyTorch raises on any
+    # synchronising call while the debug mode is "error"
+    c = tpu["device", 128]
+    pipeline = c._decode_pipeline
+
+    def no_sync(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return pipeline(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    probe = torch.ones(1, device=dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        probe.cpu()
+    except RuntimeError:
+        pass                                   # the mode does see a fetch
+    else:
+        raise AssertionError("the sync debug mode let a device-to-host copy through")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    c._decode_pipeline = no_sync
+    out_tpu = c.decompress(strings["device", 128])
+    c._decode_pipeline = pipeline
+    print("tpu format: the decode chain ran with torch.cuda.set_sync_debug_mode('error'): "
+          "no host synchronisation between the upload and the final fetch")
+    pending = tpu["device", 128].decompress(strings["host", 128], defer_fetch=True)
+    if not np.array_equal(pending.fetch(), out_tpu):
+        raise AssertionError("defer_fetch returned other images")
+
+    # warm times of both formats in turns, this run, this card
+    codecs = {"compressai": codec, **{f"tpu/{b}/lanes {n}": c for (b, n), c in tpu.items()}}
+    seen = {name: [] for name in codecs}
+    for i in range(3):
+        for name in (list(codecs) if i % 2 == 0 else list(codecs)[::-1]):
+            seen[name].append(drive(codecs[name], images)[2:])
+    for name, runs in seen.items():
+        enc, dec = sorted(r[0] for r in runs)[1], sorted(r[1] for r in runs)[1]
+        bpp = float(np.mean([r["bpp"] for r in codecs[name].compress(images, 0)]))
+        print(f"warm round trip, {name}: encode {enc:.4f} s, decode {dec:.4f} s "
+              f"(medians of 3), {bpp:.4f} bpp")
+    for (backend, lanes), c in tpu.items():
+        if backend == "device":
+            cycle = c.bench_device_cycle(images, 0)
+            print(f"bench_device_cycle, lanes {lanes}: encode chain {cycle['enc_s']:.4f} s, "
+                  f"decode chain {cycle['dec_s']:.4f} s (device only, inputs on the card)")
+    del tpu, codecs, pending
+    torch.cuda.empty_cache()
+
+    # the same model with every reconstruction kernel on, in both formats
     spec_k = build_comp_model(opt, recon_kernels=RECON_KERNELS)
     spec_k.module.load_state_dict(spec.module.state_dict(), strict=True)
-    codec_k = Codec(spec_k)
-    _, launches, conv_shapes = counted_round_trip(
-        codec_k, images, "reconstruction kernels on, batch 4 768x512", ops)
+    codec_k = Codec(spec_k, stream_format="compressai")
+    _, launches_c, conv_shapes = counted_round_trip(
+        codec_k, images, "compressai format, reconstruction kernels on, batch 4 768x512", ops)
+    codec_kt = Codec(spec_k, encode_backend="device")
+    _, launches, _ = counted_round_trip(
+        codec_kt, images, "tpu format, device backend, reconstruction kernels on, "
+        "batch 4 768x512", ops)
     missing = [k for k, n in launches.items() if n < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    for k in ("vq_argmin", "flash_attention"):
-        if launches[k] != default_launches[k]:
-            raise AssertionError(f"{k}: {launches[k]} launches with the reconstruction "
-                                 f"kernels on, {default_launches[k]} on the default path")
+    for k in ("vq_argmin", "flash_attention", *recon_names):
+        want = default_launches[k] if k in ("vq_argmin", "flash_attention") else launches_c[k]
+        if launches[k] != want or launches_c[k] < 1:
+            raise AssertionError(f"{k}: {launches[k]} launches in the tpu format with the "
+                                 f"reconstruction kernels on, expected {want}")
     compare_models(codec, codec_k, images, y_hat)
-    del codec, codec_k, spec, spec_k
+    del codec, codec_k, codec_kt, spec, spec_k
     torch.cuda.empty_cache()
 
     print(json.dumps({"conv_launch_shapes": {
@@ -674,7 +1036,7 @@ def main():
         for name, table in conv_shapes.items()}}))
     time_conv_shapes(conv3x3, conv_shapes["conv3x3_same"], dev, gen)
 
-    kernels = [k1, k2, k3, k4, k5, k6]
+    kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["ms"] < k["bound_ms"]:

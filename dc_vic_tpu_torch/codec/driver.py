@@ -1,34 +1,74 @@
-"""Codec driver for the compressai stream format (port of the compressai
-part of dc_vic_tpu/codec/driver.py::Codec).
+"""Codec driver: compress / decompress orchestration (port of
+dc_vic_tpu/codec/driver.py::Codec, non-portable, single device).
 
 compress: image -> encode_front on the device -> the entropy-parameter chain
 (hyper_decode, charm_slice_params, then charm_symbolize and
-charm_decode_step per slice) on the device -> host rANS coding. decompress
+charm_decode_step per slice) on the device -> entropy coding. decompress
 runs the same chain with symbols read back from the streams, so both sides
 derive their CDF indexes from identical computations.
 
-Scope: the compressai stream format, the reference's own byte format, with
-a 6-byte header. Streams decode at the batch size they were encoded at, on
-the same card class: the entropy parameters are floats, and a different
-batch shape or device may pick different convolution algorithms (the tpu
-stream format and portable mode are not ported).
+Two stream formats; decode detects the format from the header, so one Codec
+reads both:
+
+* "tpu" (default): the interleaved 32-bit rANS format of
+  ``ops/rans_device.py``. Decode runs wholly on the device: z decode ->
+  hyper_decode -> per slice (section decode -> charm_decode_step) ->
+  reconstruction are queued on one stream, cursors and lane states stay on
+  the device, and the image comes back with the consumed-word counts in one
+  fetch: no host synchronisation inside the chain. Encode is on the device
+  too with ``encode_backend="device"`` (symbols never leave it), or through
+  the host coder with ``"host"``; both write the same bytes. Costs 4 bytes
+  per lane per stream in rate. The 9-byte header records lanes, the encode
+  batch, the numeric configuration and the escape guarantees, and the
+  decoder fails fast on a mismatch.
+* "compressai": the reference's own byte format with a 6-byte header; host
+  entropy coding, one host round trip per ChARM slice on decode.
+
+Streams decode at the batch size they were encoded at, on the same card
+class: the entropy parameters are floats, and a different batch shape or
+device may pick different convolution algorithms (portable mode is not
+ported; the tpu format's header makes a batch mismatch an error).
 """
 from __future__ import annotations
 
 import os
+import statistics
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.rans_host import RansDecoder, decode_with_indexes, encode_with_indexes
+from ..ops import rans_device as rd
+from ..ops.layout import row_major
+from ..ops.rans_host import (RansDecoder, decode_with_indexes, encode_with_indexes,
+                             tpu_encode_sections)
 from .bottleneck import build_bottleneck_cdf
 from .container import HeaderHandler
 from .gaussian import get_scale_table
 
 STRIDE = 64  # reflect-pad multiple of the image
 Y_STRIDE = 16  # image pixels per y position
+
+
+class PendingImages:
+    """A decoded batch still on the device: one flat uint8 buffer holding
+    the NHWC pixels followed by the consumed-word counts. ``fetch`` copies it
+    to the host once, runs the stream-integrity check on the counts, and
+    crops the images."""
+
+    def __init__(self, data: torch.Tensor, meta: Tuple[int, int, int, int, int], check):
+        self._data = data
+        self._meta = meta      # (B, padH, padW, H, W)
+        self._check = check    # called with the [2, B] consumed-word counts
+
+    def fetch(self) -> np.ndarray:
+        B, padH, padW, H, W = self._meta
+        host = self._data.cpu().numpy()
+        n = B * padH * padW * 3
+        self._check(host[n:].view(np.int32).reshape(2, B))
+        return host[:n].reshape(B, padH, padW, 3)[:, :H, :W]
 
 
 def _pad_np(x: np.ndarray, stride: int = STRIDE) -> np.ndarray:
@@ -50,9 +90,23 @@ def _nchw_tensor(a: np.ndarray, device) -> torch.Tensor:
         a.transpose(0, 3, 1, 2), dtype=np.int16)).to(device)
 
 
+def _geometry(H: int, W: int):
+    """(padH, padW, zH, zW, yH, yW) of an H x W image."""
+    padH, padW = -(-H // STRIDE) * STRIDE, -(-W // STRIDE) * STRIDE
+    return (padH, padW, padH // STRIDE, padW // STRIDE,
+            padH // Y_STRIDE, padW // Y_STRIDE)
+
+
 class Codec:
     """Compress and decompress with a built model (its device is the
     model's).
+
+    ``stream_format``: "tpu" (default) or "compressai", the format
+    ``compress`` writes. ``encode_backend``: "host" (default) or "device",
+    where tpu-format streams are entropy-coded. ``lanes``: cap on the
+    interleaved lanes of a tpu-format stream, a power of two in [1, 4096];
+    more lanes mean fewer sequential steps per section and 4 bytes each per
+    stream. It travels in the header.
 
     Numerics: constructing a Codec sets, process-wide,
     ``torch.backends.cudnn.allow_tf32 = False``,
@@ -64,28 +118,59 @@ class Codec:
     stream. The whole codec runs in f32 under ``torch.no_grad``.
 
     Result dicts: ``string_list`` [header, z_str, y_str], ``num_pixel``,
-    ``bpp`` (the container's actual bytes, length fields included), and
-    with ``debug=True`` the encoder's ``y_hat``/``z_hat`` (NHWC numpy) for
-    ``verify_roundtrip``. The JAX codec's ``pred_*_bpp`` estimates are not
-    produced."""
+    ``bpp`` (the container's actual bytes, length fields included); in the
+    tpu format also ``pred_y_bpp`` / ``pred_z_bpp`` (device backend: the
+    stream's words x 16 / pixels, exact; host backend: the table cost of the
+    symbols, flush excluded); with ``debug=True`` the encoder's
+    ``y_hat``/``z_hat`` (NHWC numpy) for ``verify_roundtrip``."""
 
-    def __init__(self, spec):
+    def __init__(self, spec, stream_format: str = "tpu", encode_backend: str = "host",
+                 lanes: int = 128):
+        if stream_format not in ("tpu", "compressai"):
+            raise ValueError(f"stream_format {stream_format!r}: 'tpu' or 'compressai'")
+        if encode_backend not in ("host", "device"):
+            raise ValueError(f"encode_backend {encode_backend!r}: 'host' or 'device'")
+        rd.check_lanes(lanes)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
         self.spec = spec
+        self.stream_format = stream_format
+        self.encode_backend = encode_backend
+        self.lanes = lanes
         self.module = spec.module.eval()
         self.device = next(self.module.parameters()).device
         self.num_slices = self.module.num_slices
+        self.bottleneck_y = self.module.context_model.slice_ch * self.num_slices
+        self.bottleneck_z = self.module.entropy_model_z.channels
+        # the numeric configuration a tpu-format header records: the port
+        # runs the entropy chain in full f32 only (build_comp_model refuses
+        # the other settings)
+        self._fast_entropy = False
+        self._bf16 = False
         self.z_table = build_bottleneck_cdf(self.module.entropy_model_z)
         self.y_table = self.module.gaussian.build_cdf_table(get_scale_table())
+        self._dtables: Dict[str, rd.DeviceCdfTable] = {}
         self._workers = min(16, os.cpu_count() or 1)
+
+    def _dtable(self, which: str) -> rd.DeviceCdfTable:
+        """The device copy of the y or z table, uploaded at first use."""
+        if which not in self._dtables:
+            host = self.y_table if which == "y" else self.z_table
+            self._dtables[which] = rd.DeviceCdfTable(host, self.device)
+        return self._dtables[which]
 
     def _betas(self, quality_ind: int):
         br, bv = self.spec.quality_betas(quality_ind)
         return (torch.tensor([br], dtype=torch.float32, device=self.device),
                 torch.tensor([bv], dtype=torch.float32, device=self.device))
+
+    def _tpu_y_sections(self, Cy: int) -> List[Tuple[int, int]]:
+        """Channel ranges of the y stream's sections in decode order: one
+        per ChARM slice."""
+        sc = Cy // self.num_slices
+        return [(s * sc, (s + 1) * sc) for s in range(self.num_slices)]
 
     # ------------------------------------------------------------ encode
     def _encode_param_chain(self, y, z_sym):
@@ -104,11 +189,50 @@ class Codec:
             y_prev, mu, idx = m.charm_decode_step(i, hyper_out, y_prev, sym, mu)
         return syms, idxs, y_prev, z_hat
 
+    def _tpu_pack(self, y_sym, y_idx, z_sym) -> Dict:
+        """Device entropy encode of the symbol planes (NCHW int16 / uint8):
+        one exact pack per stream kind, escapes and tier-2 words included.
+        Returns the packed word buffers and one int32 stats tensor
+        [6, B]: y words, z words, largest per-section y escapes, z escapes,
+        y tier-2 escapes, z tier-2 escapes."""
+        py, y_off, y_counts, y_esc, y_big = rd.encode_pack(
+            y_sym, y_idx, self.num_slices, self.lanes, self._dtable("y"))
+        pz, z_off, z_counts, z_esc, z_big = rd.encode_pack(
+            z_sym, None, 1, self.lanes, self._dtable("z"))
+        stats = torch.stack([y_counts, z_counts, y_esc.max(dim=1).values,
+                             z_esc.max(dim=1).values, y_big, z_big]).to(torch.int32)
+        return dict(packed_y=py, y_offsets=y_off, packed_z=pz, z_offsets=z_off, stats=stats)
+
+    def _encode_tail(self, x: torch.Tensor, b1, b2, fmt: str, debug: bool) -> Dict:
+        """Front, parameter chain and the format's tail, all queued on the
+        device without waiting. ``x``: padded NHWC images on the device."""
+        y, z_sym = self.module.encode_front(x.permute(0, 3, 1, 2), b1, b2)
+        syms, idxs, y_hat, z_hat = self._encode_param_chain(y, z_sym)
+        out = dict(max_abs_y=torch.max(torch.abs(y_hat)))
+        if fmt == "tpu_dev":
+            out.update(self._tpu_pack(torch.cat(syms, dim=1), torch.cat(idxs, dim=1),
+                                      row_major(z_sym)))
+        else:
+            out.update(syms=syms, idxs=idxs, z_sym=z_sym)
+            if fmt == "tpu_host":
+                B, Cz = z_sym.shape[:2]
+                out["y_bits"] = rd.coded_bits(torch.cat(syms, dim=1), torch.cat(idxs, dim=1),
+                                              self._dtable("y"))
+                out["z_bits"] = rd.coded_bits(
+                    z_sym, rd.channel_rows(B, Cz, *z_sym.shape[2:], z_sym.device),
+                    self._dtable("z"))
+        if debug:
+            out.update(y_hat=y_hat, z_hat=z_hat)
+        return out
+
     @torch.no_grad()
-    def compress(self, images: np.ndarray, quality_ind: int = 0,
-                 debug: bool = False) -> List[Dict]:
-        """images: [B, H, W, 3] uint8, or float in [-1, 1] (unpadded).
-        Returns one result dict per image."""
+    def compress_dispatch(self, images: np.ndarray, quality_ind: int = 0,
+                          debug: bool = False) -> Dict:
+        """Phase 1: queue the device encode and return a handle for
+        ``compress_finalize`` without waiting for the device. Dispatching
+        batch k + 1 before finalizing batch k overlaps device compute with
+        the host's work. images: [B, H, W, 3] uint8, or float in [-1, 1]
+        (unpadded)."""
         images = np.asarray(images)
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected [B, H, W, 3] images, got {images.shape}")
@@ -117,58 +241,179 @@ class Codec:
             images = images.astype(np.float32)
         x = torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
         b1, b2 = self._betas(quality_ind)
-        y, z_sym = self.module.encode_front(x.permute(0, 3, 1, 2), b1, b2)
-        syms, idxs, y_hat, z_hat = self._encode_param_chain(y, z_sym)
+        fmt = ("compressai" if self.stream_format == "compressai" else
+               "tpu_dev" if self.encode_backend == "device" else "tpu_host")
+        out = self._encode_tail(x, b1, b2, fmt, debug)
+        return dict(out=out, B=B, H=H, W=W, quality_ind=quality_ind, debug=debug, fmt=fmt)
+
+    def _esc_dense_flags(self, H: int, W: int, y_escmax, z_escmax) -> np.ndarray:
+        """Per image: some section holds more escapes than ``esc_cap``, so
+        the header must free the decoder from that guarantee."""
+        _, _, zH, zW, yH, yW = _geometry(H, W)
+        lo, hi = self._tpu_y_sections(self.bottleneck_y)[0]
+        ny, nz = yH * yW * (hi - lo), zH * zW * self.bottleneck_z
+        return ((np.asarray(y_escmax) > rd.esc_cap(ny))
+                | (np.asarray(z_escmax) > rd.esc_cap(nz)))
+
+    def _tpu_results(self, handle: Dict, z_strs, y_strs, y_bits, z_bits, escfree,
+                     esc_dense, t2free) -> List[Dict]:
+        B, H, W = handle["B"], handle["H"], handle["W"]
+        max_abs_y = int(handle["out"]["max_abs_y"])
+        results = []
+        for b in range(B):
+            header = HeaderHandler.encode(
+                (H, W), max_abs_y, handle["quality_ind"], tpu_format=True, lanes=self.lanes,
+                esc_dense=bool(esc_dense[b]), t2free=bool(t2free), escfree=bool(escfree[b]),
+                portable=False, encode_batch=B, fast_entropy=self._fast_entropy,
+                bf16=self._bf16)
+            strings = [header, z_strs[b], y_strs[b]]
+            results.append(dict(
+                string_list=strings, num_pixel=H * W,
+                bpp=8.0 * sum(4 + len(s) for s in strings) / (H * W),
+                pred_y_bpp=float(y_bits[b]) / (H * W), pred_z_bpp=float(z_bits[b]) / (H * W)))
+        return results
+
+    def _finalize_tpu(self, handle: Dict) -> List[Dict]:
+        """Fetch the device-coded streams: the stats, then each buffer's
+        real words in one copy."""
+        out = handle["out"]
+        B = handle["B"]
+        stats = out["stats"].cpu().numpy().astype(np.int64)
+        y_counts, z_counts, y_escmax, z_escmax, y_big, z_big = stats
+
+        def fetch(packed, offsets, counts):
+            offsets = offsets.cpu().numpy()
+            if (counts < 0).any() or (offsets + counts > packed.numel()).any():
+                raise RuntimeError("tpu-format stream word counts exceed the packed "
+                                   "buffer: corrupt encode stats")
+            words = torch.cat([packed[o:o + n] for o, n in zip(offsets, counts)]).cpu().numpy()
+            ends = np.cumsum(counts)
+            return [words[e - n:e].tobytes() for e, n in zip(ends, counts)]
+
+        y_strs = fetch(out["packed_y"], out["y_offsets"], y_counts)
+        z_strs = fetch(out["packed_z"], out["z_offsets"], z_counts)
+        return self._tpu_results(
+            handle, z_strs, y_strs, y_counts * 16.0, z_counts * 16.0,
+            escfree=(y_escmax == 0) & (z_escmax == 0),
+            esc_dense=self._esc_dense_flags(handle["H"], handle["W"], y_escmax, z_escmax),
+            t2free=not (y_big.any() or z_big.any()))
+
+    def _finalize_host(self, handle: Dict) -> List[Dict]:
+        """Symbol planes to the host, then the host coder of the format."""
+        out = handle["out"]
+        B, H, W = handle["B"], handle["H"], handle["W"]
+        tpu = handle["fmt"] == "tpu_host"
 
         def slice_major(planes):  # per image: slice, then (h, w, c) order
             return torch.stack([p.permute(0, 2, 3, 1) for p in planes], dim=1) \
-                .reshape(B, -1).to(torch.int32).cpu().numpy()
-        y_sym, y_idx = slice_major(syms), slice_major(idxs)
-        z_np = _nhwc(z_sym).astype(np.int32)
-        z_idx = np.broadcast_to(np.arange(z_np.shape[-1], dtype=np.int32),
-                                z_np.shape[1:]).reshape(-1)
-        max_abs_y = float(torch.max(torch.abs(y_hat)))
+                .reshape(B, self.num_slices, -1).to(torch.int32).cpu().numpy()
+        y_sym, y_idx = slice_major(out["syms"]), slice_major(out["idxs"])
+        z_np = _nhwc(out["z_sym"]).astype(np.int32).reshape(B, -1)
+        Cz = self.bottleneck_z
+        z_idx = np.broadcast_to(np.arange(Cz, dtype=np.int32),
+                                (z_np.shape[1] // Cz, Cz)).reshape(-1)
         with ThreadPoolExecutor(self._workers) as pool:
-            z_strs = list(pool.map(lambda b: encode_with_indexes(
-                z_np[b].reshape(-1), z_idx, self.z_table), range(B)))
-            y_strs = list(pool.map(lambda b: encode_with_indexes(
-                y_sym[b], y_idx[b], self.y_table), range(B)))
-
+            if tpu:
+                L = rd.section_lanes(y_sym.shape[2], self.lanes)
+                Lz = rd.section_lanes(z_np.shape[1], self.lanes)
+                z_enc = list(pool.map(lambda b: tpu_encode_sections(
+                    [(z_np[b].reshape(-1, Lz), z_idx.reshape(-1, Lz))], self.z_table, True),
+                    range(B)))
+                y_enc = list(pool.map(lambda b: tpu_encode_sections(
+                    [(y_sym[b, s].reshape(-1, L), y_idx[b, s].reshape(-1, L))
+                     for s in range(self.num_slices)], self.y_table, True), range(B)))
+            else:
+                z_strs = list(pool.map(lambda b: encode_with_indexes(
+                    z_np[b], z_idx, self.z_table), range(B)))
+                y_strs = list(pool.map(lambda b: encode_with_indexes(
+                    y_sym[b].reshape(-1), y_idx[b].reshape(-1), self.y_table), range(B)))
+        if tpu:
+            y_esc = np.array([e for _, e, _ in y_enc])
+            z_esc = np.array([e for _, e, _ in z_enc])
+            # per image, as the host coder sees one stream at a time
+            return self._tpu_results(
+                handle, [s for s, _, _ in z_enc], [s for s, _, _ in y_enc],
+                out["y_bits"].cpu().numpy(), out["z_bits"].cpu().numpy(),
+                escfree=(y_esc == 0) & (z_esc == 0),
+                esc_dense=self._esc_dense_flags(H, W, y_esc, z_esc),
+                t2free=not any(t for _, _, t in y_enc + z_enc))
+        max_abs_y = float(out["max_abs_y"])
         results = []
-        y_hat_np = _nhwc(y_hat) if debug else None
-        z_hat_np = _nhwc(z_hat) if debug else None
         for b in range(B):
-            header = HeaderHandler.encode((H, W), max_abs_y, quality_ind)
+            header = HeaderHandler.encode((H, W), max_abs_y, handle["quality_ind"])
             strings = [header, z_strs[b], y_strs[b]]
-            r = dict(string_list=strings, num_pixel=H * W,
-                     bpp=8.0 * sum(4 + len(s) for s in strings) / (H * W))
-            if debug:
-                r["y_hat"] = y_hat_np[b]
-                r["z_hat"] = z_hat_np[b]
-            results.append(r)
+            results.append(dict(string_list=strings, num_pixel=H * W,
+                                bpp=8.0 * sum(4 + len(s) for s in strings) / (H * W)))
         return results
 
+    @torch.no_grad()
+    def compress_finalize(self, handle: Dict) -> List[Dict]:
+        """Phase 2: fetch the device-coded streams (tpu format, device
+        backend), or the symbol planes and entropy-code them on the host.
+        Returns one result dict per image."""
+        results = (self._finalize_tpu(handle) if handle["fmt"] == "tpu_dev"
+                   else self._finalize_host(handle))
+        if handle["debug"]:
+            y_hat, z_hat = _nhwc(handle["out"]["y_hat"]), _nhwc(handle["out"]["z_hat"])
+            for b, r in enumerate(results):
+                r["y_hat"], r["z_hat"] = y_hat[b], z_hat[b]
+        return results
+
+    def compress(self, images: np.ndarray, quality_ind: int = 0,
+                 debug: bool = False) -> List[Dict]:
+        """images: [B, H, W, 3] uint8, or float in [-1, 1] (unpadded).
+        Returns one result dict per image."""
+        return self.compress_finalize(self.compress_dispatch(images, quality_ind, debug))
+
     # ------------------------------------------------------------ decode
-    def _parse(self, string_lists) -> Tuple[int, int, int]:
+    def _parse(self, string_lists) -> Dict:
+        """Headers of one decode batch, checked to agree with each other
+        and with this codec. Returns the first header's fields, with the
+        tpu format's per-stream guarantees merged over the batch."""
         headers = [HeaderHandler.decode(s[0]) for s in string_lists]
-        H, W = headers[0]["img_size"]
-        q = headers[0]["quality_ind"]
+        first = dict(headers[0])
         for h in headers:
-            if h["stream_format"] != "compressai" or h["portable"]:
-                raise ValueError("the port decodes non-portable compressai-format "
-                                 "streams only")
-            if h["img_size"] != (H, W) or h["quality_ind"] != q:
-                raise ValueError("a decode batch must share image size and quality")
-        return H, W, q
+            if h["portable"]:
+                raise ValueError("portable streams are not ported: the port decodes "
+                                 "non-portable streams only")
+            if any(h[k] != first[k] for k in ("img_size", "quality_ind", "stream_format",
+                                              "lanes")):
+                raise ValueError("a decode batch must share image size, quality, stream "
+                                 "format and lanes")
+        if first["stream_format"] != "tpu":
+            return first
+        run_B = len(string_lists)
+        for h in headers:
+            # the numeric configuration changes the entropy parameters a
+            # stream was coded with; a decoder built otherwise would desync
+            # silently (headers of 8 bytes or fewer carry no record)
+            for key, mine, knob in (("fast_entropy", self._fast_entropy, "entropy_precision"),
+                                    ("bf16", self._bf16, "codec_dtype")):
+                if h[key] is not None and h[key] != mine:
+                    raise ValueError(
+                        f"stream was encoded with {knob} "
+                        f"{'fast/bf16' if h[key] else 'high/f32'} but this codec is built "
+                        f"with the other setting: the entropy parameters would not "
+                        f"reproduce and the decode would desync")
+            eb = h["encode_batch"]
+            if eb and eb != run_B:
+                raise ValueError(
+                    f"non-portable tpu stream was encoded at batch {eb} but this decode "
+                    f"runs at batch {run_B}: another batch shape may pick other "
+                    f"convolution algorithms and the entropy parameters may not "
+                    f"reproduce. Decode in groups of {eb}")
+        first["esc_dense"] = any(bool(h["esc_dense"]) for h in headers)
+        first["t2free"] = all(bool(h["t2free"]) for h in headers)
+        first["escfree"] = all(bool(h["escfree"]) for h in headers)
+        return first
 
     def _decode_latents(self, z_strs, y_strs, H: int, W: int):
-        """Entropy-decode z and the ChARM slices of y; returns (y_hat, z_hat)."""
+        """compressai format: entropy-decode z and the ChARM slices of y on
+        the host; returns (y_hat, z_hat)."""
         m = self.module
         B = len(z_strs)
-        padH, padW = -(-H // STRIDE) * STRIDE, -(-W // STRIDE) * STRIDE
-        zH, zW = padH // STRIDE, padW // STRIDE
-        yH, yW = padH // Y_STRIDE, padW // Y_STRIDE
-        Cz = m.entropy_model_z.channels
+        _, _, zH, zW, yH, yW = _geometry(H, W)
+        Cz = self.bottleneck_z
         z_idx = np.broadcast_to(np.arange(Cz, dtype=np.int32), (zH, zW, Cz)).reshape(-1)
         with ThreadPoolExecutor(self._workers) as pool:
             z_np = np.stack(list(pool.map(
@@ -190,14 +435,126 @@ class Codec:
                 y_prev, mu, idx = m.charm_decode_step(i, hyper_out, y_prev, sym_t, mu)
         return y_prev, z_hat
 
+    def _tpu_caps(self, B: int, yH: int, yW: int, zH: int, zW: int, lanes: int):
+        """Most words the y and z buffers of a batch can hold."""
+        yN, zN = yH * yW * self.bottleneck_y, zH * zW * self.bottleneck_z
+        Ly = rd.section_lanes(yN // self.num_slices, lanes)
+        return (B * rd.word_capacity(yN, Ly),
+                B * rd.word_capacity(zN, rd.section_lanes(zN, lanes)))
+
+    def _upload_words(self, strings: List[bytes], cap: int):
+        """Host bytes -> (device word buffer, all streams back to back;
+        per-image word offsets int32). More words than the geometry can
+        hold means the streams belong to another (B, resolution, lanes)."""
+        lens = np.array([len(s) // 2 for s in strings], np.int64)
+        n = int(lens.sum())
+        if n > cap:
+            raise ValueError(
+                f"stream words ({n}) exceed the decode capacity ({cap}) for this "
+                "geometry: the streams do not belong to this (B, resolution, lanes) "
+                "configuration")
+        base = (np.cumsum(lens) - lens).astype(np.int32)
+        words = np.frombuffer(b"".join(s[:2 * k] for s, k in zip(strings, lens)), np.int16)
+        return (torch.from_numpy(words.copy()).to(self.device),
+                torch.from_numpy(base).to(self.device))
+
+    def _decode_pipeline(self, z_words, z_base, y_words, y_base, B: int, zH: int, zW: int,
+                         yH: int, yW: int, lanes: int, sparse_esc: bool, recon: bool,
+                         b1, b2, tier2: bool = True, escfree: bool = False) -> Dict:
+        """tpu-format decode as one chain on the device: z section decode ->
+        hyper_decode -> per slice (y section decode -> charm_decode_step) ->
+        optional reconstruction. Cursors and lane states stay on the device
+        and nothing here waits for it. Returns {y_hat, z_hat, consumed_words
+        [2, B] (z, y)[, img uint8 NCHW]}."""
+        m = self.module
+        dev = self.device
+        flags = dict(sparse_esc=sparse_esc, tier2=tier2, escfree=escfree)
+        zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        z_sym, z_cursor, _ = rd.decode_section(
+            z_words, z_base, zero, None, None, (B, self.bottleneck_z, zH, zW), lanes,
+            self._dtable("z"), **flags)
+        hyper_out, z_hat = m.hyper_decode(z_sym)
+        sc = self.bottleneck_y // self.num_slices
+        y_prev = torch.zeros((B, 0, yH, yW), dtype=torch.float32, device=dev)
+        mu, idx = m.charm_slice_params(0, hyper_out, y_prev)
+        cursor, state = zero, None
+        for i in range(self.num_slices):
+            sym, cursor, state = rd.decode_section(
+                y_words, y_base, cursor, state, idx, (B, sc, yH, yW), lanes,
+                self._dtable("y"), **flags)
+            y_prev, mu, idx = m.charm_decode_step(i, hyper_out, y_prev, sym, mu)
+        res = dict(y_hat=y_prev, z_hat=z_hat,
+                   consumed_words=torch.stack([z_cursor, cursor], dim=0))
+        if recon:
+            res["img"] = m.reconstruct_uint8(y_prev, b1, b2)
+        return res
+
+    def _decompress_tpu(self, z_strs: List[bytes], y_strs: List[bytes],
+                        img_size: Tuple[int, int], quality_ind: int, hdr: Dict,
+                        defer_fetch: bool = False, include_latents: bool = False):
+        """Decode device-coded streams: upload the word buffers, run the
+        decode chain, bring the pixels and the consumed-word counts back in
+        one copy. ``include_latents`` returns the chain's dict instead
+        (checked), without reconstruction."""
+        H, W = img_size
+        B = len(z_strs)
+        padH, padW, zH, zW, yH, yW = _geometry(H, W)
+        lanes = hdr["lanes"] or self.lanes
+        y_cap, z_cap = self._tpu_caps(B, yH, yW, zH, zW, lanes)
+        y_words, y_base = self._upload_words(y_strs, y_cap)
+        z_words, z_base = self._upload_words(z_strs, z_cap)
+        b1, b2 = self._betas(quality_ind)
+        out = self._decode_pipeline(
+            z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, lanes,
+            sparse_esc=not hdr["esc_dense"], recon=not include_latents, b1=b1, b2=b2,
+            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]))
+
+        def check(consumed):
+            self._check_consumed(consumed, z_strs, y_strs)
+        if include_latents:
+            check(out["consumed_words"].cpu().numpy())
+            return out
+        flat = torch.cat([out["img"].permute(0, 2, 3, 1).reshape(-1),
+                          out["consumed_words"].reshape(-1).view(torch.uint8)])
+        pending = PendingImages(flat, (B, padH, padW, H, W), check)
+        return pending if defer_fetch else pending.fetch()
+
+    @staticmethod
+    def _check_consumed(consumed, z_strs: List[bytes], y_strs: List[bytes]) -> None:
+        """Stream-integrity check: the decoder must have consumed exactly
+        the words each stream holds (flush, renorm and side-channel words
+        account for every word the encoder wrote). A truncated, corrupt or
+        mismatched stream desynchronises the renormalisation pattern and
+        fails here instead of decoding to garbage pixels."""
+        got = np.asarray(consumed)  # [2, B]: final (z, y) cursors
+        if np.any(got >= rd.ESC_POISON):
+            raise RuntimeError(
+                "tpu-format decode poison: a section has more escapes than its header "
+                "allows, or an escape or tier-2 marker appeared in a stream whose "
+                "header certifies there is none: corrupt stream or mis-flagged encoder")
+        want_z = np.array([len(s) // 2 for s in z_strs], got.dtype)
+        want_y = np.array([len(s) // 2 for s in y_strs], got.dtype)
+        if not (np.array_equal(got[0], want_z) and np.array_equal(got[1], want_y)):
+            raise RuntimeError(
+                "tpu-format stream integrity check failed: decode consumed "
+                f"z={got[0].tolist()} / y={got[1].tolist()} words, streams contain "
+                f"z={want_z.tolist()} / y={want_y.tolist()}: corrupt or mismatched bitstream")
+
     @torch.no_grad()
-    def decompress(self, string_lists: List[List[bytes]]) -> np.ndarray:
+    def decompress(self, string_lists: List[List[bytes]], defer_fetch: bool = False):
         """Decode same-size, same-quality streams, as one batch of the size
-        they were encoded at. Returns images [B, H, W, 3] uint8."""
-        H, W, q = self._parse(string_lists)
-        y_hat, _ = self._decode_latents([s[1] for s in string_lists],
-                                        [s[2] for s in string_lists], H, W)
-        b1, b2 = self._betas(q)
+        they were encoded at. Returns images [B, H, W, 3] uint8. With
+        ``defer_fetch`` a tpu-format decode returns a ``PendingImages``
+        whose ``fetch()`` gives the images later, so that the copy overlaps
+        the next batch's compute."""
+        hdr = self._parse(string_lists)
+        H, W = hdr["img_size"]
+        z_strs, y_strs = [s[1] for s in string_lists], [s[2] for s in string_lists]
+        if hdr["stream_format"] == "tpu":
+            return self._decompress_tpu(z_strs, y_strs, (H, W), hdr["quality_ind"], hdr,
+                                        defer_fetch=defer_fetch)
+        y_hat, _ = self._decode_latents(z_strs, y_strs, H, W)
+        b1, b2 = self._betas(hdr["quality_ind"])
         img = self.module.reconstruct_uint8(y_hat, b1, b2)
         return _nhwc(img[:, :, :H, :W])
 
@@ -207,12 +564,60 @@ class Codec:
         """True when the decoder's y_hat and z_hat equal the encoder's
         bitwise. ``results`` come from ``compress(..., debug=True)``;
         ``img_size`` is the original (H, W)."""
-        H, W, _ = self._parse(string_lists)
+        hdr = self._parse(string_lists)
+        H, W = hdr["img_size"]
         if tuple(img_size) != (H, W):
             raise ValueError(f"img_size {img_size} != header size {(H, W)}")
-        y_hat, z_hat = self._decode_latents([s[1] for s in string_lists],
-                                            [s[2] for s in string_lists], H, W)
+        z_strs, y_strs = [s[1] for s in string_lists], [s[2] for s in string_lists]
+        if hdr["stream_format"] == "tpu":
+            out = self._decompress_tpu(z_strs, y_strs, (H, W), hdr["quality_ind"], hdr,
+                                       include_latents=True)
+            y_hat, z_hat = out["y_hat"], out["z_hat"]
+        else:
+            y_hat, z_hat = self._decode_latents(z_strs, y_strs, H, W)
         y_hat, z_hat = _nhwc(y_hat), _nhwc(z_hat)
         return all(np.array_equal(y_hat[b], r["y_hat"])
                    and np.array_equal(z_hat[b], r["z_hat"])
                    for b, r in enumerate(results))
+
+    @torch.no_grad()
+    def bench_device_cycle(self, images: np.ndarray, quality_ind: int = 0,
+                           iters: int = 3) -> Dict[str, float]:
+        """Time the device's share of one codec cycle in the tpu format:
+        the encode chain (front -> parameter chain -> device pack) and the
+        decode chain, each with its inputs already on the device, queued
+        end to end and waited for once. Host entropy coding and the copies
+        to and from the host are outside. Returns the median seconds per
+        batch of each chain. Needs a CUDA device."""
+        if self.stream_format != "tpu":
+            raise ValueError("the device cycle needs stream_format='tpu'")
+        if self.device.type != "cuda":
+            raise RuntimeError("bench_device_cycle times the card: build the model on cuda")
+        images = np.asarray(images)
+        B, H, W = images.shape[:3]
+        x = torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
+        b1, b2 = self._betas(quality_ind)
+
+        def timed(fn):
+            fn()
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times)
+
+        enc_s = timed(lambda: self._encode_tail(x, b1, b2, "tpu_dev", False))
+        res = self.compress(images, quality_ind)
+        hdr = self._parse([r["string_list"] for r in res])
+        _, _, zH, zW, yH, yW = _geometry(H, W)
+        y_cap, z_cap = self._tpu_caps(B, yH, yW, zH, zW, self.lanes)
+        y_words, y_base = self._upload_words([r["string_list"][2] for r in res], y_cap)
+        z_words, z_base = self._upload_words([r["string_list"][1] for r in res], z_cap)
+        dec_s = timed(lambda: self._decode_pipeline(
+            z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, self.lanes,
+            sparse_esc=not hdr["esc_dense"], recon=True, b1=b1, b2=b2,
+            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"])))
+        return {"enc_s": enc_s, "dec_s": dec_s}

@@ -61,13 +61,22 @@ class GaussianConditional:
     def dequantize(self, symbols, means):
         return symbols.to(means.dtype) + means
 
-    def build_indexes(self, scales, scale_table: np.ndarray) -> torch.Tensor:
+    def build_indexes(self, scales, scale_table) -> torch.Tensor:
         """Index of the smallest table scale >= scale (after bounding): the
         count of table entries strictly below the scale (compressai's rule)."""
         scales = torch.clamp(scales, min=self.scale_bound).contiguous()
-        table = torch.as_tensor(np.asarray(scale_table[:-1], np.float32),
-                                device=scales.device)
-        return torch.bucketize(scales, table, right=False).to(torch.int32)
+        return torch.bucketize(scales, self.index_boundaries(scale_table, scales.device),
+                               right=False).to(torch.int32)
+
+    @staticmethod
+    def index_boundaries(scale_table, device) -> torch.Tensor:
+        """The table's first n - 1 entries as f32 on ``device``. A tensor
+        passes through: a caller on a hot path uploads the boundaries once
+        and hands them in, because a copy from host memory waits for the
+        device's queue."""
+        if isinstance(scale_table, torch.Tensor):
+            return scale_table
+        return torch.as_tensor(np.asarray(scale_table[:-1], np.float32), device=device)
 
     def build_cdf_table(self, scale_table: Optional[np.ndarray] = None) -> CdfTable:
         """Quantized CDF rows per table scale (GaussianConditional.update)."""

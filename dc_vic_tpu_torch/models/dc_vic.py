@@ -79,6 +79,7 @@ class DCVICModel(nn.Module):
         self.n_embed = n_embed
         self.num_slices = context_model.num_slices
         self._scale_table = get_scale_table()
+        self._index_boundaries = {}   # device -> the scale table's boundaries there
 
     # ------------------------------------------------------------------ VQ
     def vq_encode(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -115,7 +116,12 @@ class DCVICModel(nn.Module):
         return _row_major(self.gaussian.quantize_symbols(y_slice, mu).to(torch.int16))
 
     def y_indexes(self, sigma):
-        return self.gaussian.build_indexes(sigma, self._scale_table)
+        """CDF rows of the given scales. The table's boundaries are uploaded
+        once per device, so that the decode chain never waits for a copy."""
+        dev = sigma.device
+        if dev not in self._index_boundaries:
+            self._index_boundaries[dev] = self.gaussian.index_boundaries(self._scale_table, dev)
+        return self.gaussian.build_indexes(sigma, self._index_boundaries[dev])
 
     def charm_slice_params(self, slice_ind: int, hyper_out, y_hat_prev):
         """(mu, CDF indexes uint8) of one slice."""

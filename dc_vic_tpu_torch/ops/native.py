@@ -30,7 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 CUDA_SOURCES = [os.path.join(CSRC, name) for name in (
-    "vq_argmin.cu", "flash_attn_f32.cu", "gn.cu", "conv3x3.cu")]
+    "vq_argmin.cu", "flash_attn_f32.cu", "gn.cu", "conv3x3.cu", "rans_device.cu",
+    "launch_floor.cu")]
 # included by the sources above; a change rebuilds the library
 CUDA_HEADERS = [os.path.join(CSRC, "tf32x3.cuh")]
 RANS_SOURCE = os.path.join(CSRC, "rans.cpp")
@@ -120,6 +121,14 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.dcvic_conv3x3_gn_swish.restype = i
     lib.dcvic_conv3x3_gn_swish.argtypes = [p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, p]
+    lib.dcvic_launch_floor.restype = i
+    lib.dcvic_launch_floor.argtypes = [i, i, p]
+    lib.dcvic_rans_encode_pack.restype = i
+    lib.dcvic_rans_encode_pack.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i,
+                                           p, p, p, i, p, p, p, p]
+    lib.dcvic_rans_decode_section.restype = i
+    lib.dcvic_rans_decode_section.argtypes = [p, ll, p, p, p, p, p, p, p, p, i, i,
+                                              i, i, i, i, i, i, p, p, p, p, p]
 
 
 def kernels() -> ctypes.CDLL:
@@ -145,6 +154,10 @@ def _bind_rans(lib: ctypes.CDLL) -> None:
     lib.dcvic_rans_decoder_free.argtypes = [p]
     lib.dcvic_rans_decode_stream.restype = None
     lib.dcvic_rans_decode_stream.argtypes = [p, p, i, p, p]
+    lib.dcvic_tpu_encode_stream.restype = i
+    lib.dcvic_tpu_encode_stream.argtypes = [p, p, p, i, i, p, p, i, p]
+    lib.dcvic_tpu_decode_stream.restype = i
+    lib.dcvic_tpu_decode_stream.argtypes = [p, i, p, p, i, i, p, p]
 
 
 def rans() -> ctypes.CDLL:

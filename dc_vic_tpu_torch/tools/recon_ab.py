@@ -2,6 +2,7 @@
 on, on one GPU: end-to-end times in turns, and where the device time goes.
 
     python -m dc_vic_tpu_torch.tools.recon_ab [--runs 6] [--out FILE]
+        [--stream-format compressai|tpu] [--encode-backend host|device] [--lanes 128]
 
 Two models with the same seed-0 weights (config/dc_vic_patchgan.yaml, full
 width and depth, f32): the default one, and one built with
@@ -19,6 +20,11 @@ time is summed by kernel name and by group:
 * elementwise and reductions: PyTorch's own pointwise and reduce kernels
   (GroupNorm statistics and affine, FiLM, SFT, residual adds, activations);
 * other: copies, index kernels and what no pattern matched.
+
+``--stream-format`` picks the format both models write (default
+compressai, the format of the earlier breakdowns); with ``tpu`` the coder
+kernels R1 and R2 appear among the port's kernels, and ``--encode-backend``
+and ``--lanes`` are the Codec's arguments of those names.
 
 The grouping is by substrings of the kernel names and is printed in full
 (top kernels by time), so a wrong guess shows. Needs CUDA; fails without.
@@ -43,7 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 OWN = ("vq_argmin_kernel", "flash_attn_f32_kernel", "gn_channel_sums_kernel",
        "gn_apply_kernel", "conv3x3_same_kernel", "conv3x3_gn_swish_kernel",
-       "repack_weights_kernel")
+       "repack_weights_kernel", "rans_encode_pack_kernel", "rans_decode_section_kernel")
 LIBRARY = ("cudnn", "cutlass", "gemm", "gemv", "fft", "DSE::", "region_transform", "conv",
            "nchwToNhwc", "nhwcToNchw", "implicit", "xmma", "dgrad", "sm90_", "sm80_")
 POINTWISE = ("elementwise", "reduce", "Reduce", "vectorized", "softmax", "layer_norm",
@@ -113,6 +119,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=6, help="timed round trips per model")
     ap.add_argument("--out", default=None, help="also write the report to this file")
+    ap.add_argument("--stream-format", default="compressai", choices=("compressai", "tpu"))
+    ap.add_argument("--encode-backend", default="device", choices=("host", "device"),
+                    help="where tpu-format streams are entropy-coded")
+    ap.add_argument("--lanes", type=int, default=128, help="lane cap of tpu-format streams")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("recon_ab: CUDA is not available; this script runs on a GPU")
@@ -131,7 +141,10 @@ def main() -> None:
     init_weights(off.module, torch.Generator(device="cuda").manual_seed(0))
     on = build_comp_model(opt, recon_kernels=RECON_KERNELS)
     on.module.load_state_dict(off.module.state_dict(), strict=True)
-    codecs = {"off": Codec(off), "on": Codec(on)}
+    kw = dict(stream_format=args.stream_format, encode_backend=args.encode_backend,
+              lanes=args.lanes)
+    emit(f"codec: {kw}")
+    codecs = {"off": Codec(off, **kw), "on": Codec(on, **kw)}
     images = np.random.default_rng(0).integers(0, 256, (4, 768, 512, 3), dtype=np.uint8)
     for name, codec in codecs.items():
         enc, dec = round_trip(codec, images)

@@ -265,3 +265,101 @@ def test_fused_resblock_kernels_match_unfused_module(dev, no_tf32):
             assert blk.takes_fused(x.shape)
             got = blk(x)
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+# ------------------------------------------- R1, R2: the tpu format's coder
+
+def _rans_case(dev, shape, S, lanes, factorised, big, seed):
+    """Symbol and index planes on the card with 3% escapes (``big``: some
+    past +-32768, which need tier-2 words and int32 planes), and the table."""
+    import numpy as np
+    from dc_vic_tpu_torch.codec.gaussian import GaussianConditional, get_scale_table
+    from dc_vic_tpu_torch.ops import rans_device as rd
+    host = GaussianConditional().build_cdf_table(get_scale_table())
+    rng = np.random.default_rng(seed)
+    idx = None if factorised else rng.integers(0, 64, shape).astype(np.uint8)
+    sym = rng.integers(-3, 4, shape)
+    sym = np.where(rng.random(shape) < 0.03, rng.integers(-20000, 20000, shape), sym)
+    if big:
+        sym = np.where(rng.random(shape) < 0.01, rng.integers(-40000, 40000, shape), sym)
+    sym = torch.from_numpy(sym.astype(np.int32 if big else np.int16)).to(dev)
+    return sym, (None if idx is None else torch.from_numpy(idx).to(dev)), \
+        host, rd.DeviceCdfTable(host, dev)
+
+
+@pytest.mark.parametrize("shape,S,lanes,factorised,big", [
+    ((2, 12, 16, 32), 3, 128, False, False),
+    ((2, 12, 16, 32), 3, 128, False, True),
+    ((1, 8, 4, 4), 2, 4, False, False),          # fewer lanes than a warp
+    ((2, 64, 8, 8), 1, 512, True, False),        # CDF row = channel
+    ((1, 16, 64, 128), 1, 4096, False, True)])   # more lanes than a block
+def test_rans_kernels_match_plain_and_host_coder(dev, shape, S, lanes, factorised, big):
+    """R1's words, counts and escape counts equal the plain version's and
+    the host coder's bytes; R2's symbols, cursors and lane states equal the
+    plain version's section by section; integers, no tolerance."""
+    from dc_vic_tpu_torch.ops import rans_device as rd
+    from dc_vic_tpu_torch.ops.rans_host import tpu_encode_sections
+    sym, idx, host, table = _rans_case(dev, shape, S, lanes, factorised, big, shape[2])
+    B, C, H, W = shape
+    sc = C // S
+    L = rd.section_lanes(sc * H * W, lanes)
+    packed, offsets, counts, esc, t2 = rd.encode_pack(sym, idx, S, lanes, table)
+    rows = rd.channel_rows(B, C, H, W, dev) if idx is None else idx
+    sections = [(rd.to_stream(sym[:, s * sc:(s + 1) * sc], L),
+                 rd.to_stream(rows[:, s * sc:(s + 1) * sc], L)) for s in range(S)]
+    vals, mask, p_esc, p_t2 = rd.encode_stream_plain(sections, table)
+    p_packed, p_counts = rd.pack_streams_plain(vals, mask)
+    assert torch.equal(counts, p_counts) and torch.equal(esc, p_esc) and torch.equal(t2, p_t2)
+    assert bool(t2.sum() > 0) == big
+    words = torch.cat([packed[int(o):int(o) + int(n)] for o, n in zip(offsets, counts)])
+    assert torch.equal(words, p_packed[:words.numel()])
+    base = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    for b in range(B):
+        data = tpu_encode_sections([(s[b].cpu().numpy(), i[b].cpu().numpy())
+                                    for s, i in sections], host)
+        o, n = int(base[b]), int(counts[b])
+        assert words[o:o + n].cpu().numpy().tobytes() == data
+    cur = p_cur = torch.zeros(B, dtype=torch.int32, device=dev)
+    state = p_state = None
+    for s in range(S):
+        sec_idx = None if idx is None else idx[:, s * sc:(s + 1) * sc].contiguous()
+        got, cur, state = rd.decode_section(words, base, cur, state, sec_idx, (B, sc, H, W),
+                                            lanes, table, out_dtype=torch.int32)
+        want, p_cur, p_state = rd.decode_section_plain(words, base, p_cur, p_state,
+                                                       sections[s][1], table)
+        assert torch.equal(got, rd.from_stream(want, sc, H, W))
+        assert torch.equal(got, sym[:, s * sc:(s + 1) * sc].to(torch.int32))
+        assert torch.equal(cur, p_cur) and torch.equal(state, p_state)
+    assert torch.equal(cur, counts) and bool((state == rd.RANS_L).all())
+
+
+def test_rans_decode_kernel_survives_a_truncated_stream(dev):
+    """Reads past the buffer give zero words: no fault, and a cursor that
+    the integrity check refuses."""
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.ops import rans_device as rd
+    shape = (2, 8, 16, 16)
+    sym, idx, _, table = _rans_case(dev, shape, 1, 128, False, False, 5)
+    packed, offsets, counts, _, _ = rd.encode_pack(sym, idx, 1, 128, table)
+    words = packed[:int(counts[0]) // 2].contiguous()
+    base = torch.tensor([0, 10 ** 6], dtype=torch.int32, device=dev)
+    zero = torch.zeros(2, dtype=torch.int32, device=dev)
+    _, cur, _ = rd.decode_section(words, base, zero, None, idx, shape, 128, table)
+    torch.cuda.synchronize()
+    strs = [b"\0\0" * words.numel(), b""]
+    with pytest.raises(RuntimeError):
+        Codec._check_consumed(torch.stack([cur, cur]).cpu().numpy(), strs, strs)
+
+
+def test_rans_wrappers_reject_bad_input(dev):
+    from dc_vic_tpu_torch.ops import rans_device as rd
+    sym, idx, _, table = _rans_case(dev, (1, 4, 4, 4), 1, 128, False, False, 1)
+    with pytest.raises(TypeError):                      # indexes on another device
+        rd.encode_pack(sym, idx.cpu(), 1, 128, table)
+    words = torch.zeros(8, dtype=torch.int16, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):                      # cursor of another type
+        rd.decode_section(words, zero, zero.long(), None, idx, (1, 4, 4, 4), 128, table)
+    with pytest.raises(TypeError):                      # state of another shape
+        rd.decode_section(words, zero, zero, torch.zeros((1, 3), dtype=torch.int32, device=dev),
+                          idx, (1, 4, 4, 4), 128, table)
