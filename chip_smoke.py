@@ -38,6 +38,39 @@
    decoded as batch 2 must raise, and the decode chain must run under
    torch.cuda.set_sync_debug_mode("error"). Warm encode and decode seconds of both
    formats and Codec.bench_device_cycle are printed.
+7. Holds K3 to K6 in bf16 at the path's largest plane, [4, 128, 768, 512]
+   (128 output channels), against their plain versions, with times, the bf16
+   bounds (half the bytes; one product per multiply over the 989 TFLOP/s
+   dense bf16 rate) and the library calls in bf16: F.conv2d for K5,
+   F.silu(F.group_norm(.)) for the pair K3 + K4. K1 and K2 are also held to
+   their plain versions at the deployment batch (M = 98304; [16, 6144, 512]).
+8. Drives the deployment configuration: codec_dtype bfloat16,
+   entropy_precision default, tpu format, device backend, lanes 512, a batch
+   of sixteen 768x512 images (smooth content plus noise, from
+   numpy.random.default_rng(0)), encoder weights scaled by 0.55, with the
+   reconstruction kernels off and on: compress -> decompress -> bit-exact
+   latents and pixels, consumed words checked, launch counts held against the
+   shape rules (K1 1, K2 7, R1 2, R2 7), bpp, peak memory and
+   Codec.bench_device_cycle printed, the f32 model's device cycle at the same
+   batch beside it, and the entropy chain timed with the TF32 allowance on
+   and off. The bf16 reconstruction with the kernels on and the one
+   with the kernels off, of the same y_hat and codeword indices, are both
+   held against the f32 model's: image by image the kernels' route may be at
+   most BF16_NOISE_RATIO times as far from it as the default route.
+9. Runs the pipelined cycle for three batches (dispatch k + 1, fetch k - 1,
+   finalize k, decompress k with the fetch deferred), prints its seconds and
+   holds every decoded batch against a plain round trip of the same images.
+10. Portable streams of the same configuration: a batch-16 stream decoded as
+   16, as 4 x 4 and as 16 x 1, and by another Codec, latents bit-exact in
+   every grouping. Pixels are not part of the guarantee (the reconstruction
+   runs at the decode batch, and the estimator's argmax turns rounding into
+   other codewords): their distance between groupings is printed, and with
+   the batch-16 codeword indices fed, a batch-1 reconstruction must be no
+   further from the f32 model's than BF16_NOISE_RATIO times the batch-16
+   reconstruction's distance. The header's portable bit is set; a non-portable batch-16 stream decoded as batch 4 raises; the
+   portable decode chain runs under torch.cuda.set_sync_debug_mode("error").
+11. Holds K3 to K6 in bf16 against their plain versions at every distinct
+   shape that round trip launched them with, at batch 16, image by image.
 
 For every kernel it prints the least time the card could take for the same
 work: each input read once and each output written once over 3.35 TB/s, or
@@ -51,7 +84,11 @@ than its bound fails the run: the bound or the timing would be wrong. Where
 one PyTorch call computes the same function, that call's time is printed too.
 K1 is one launch of a microsecond's arithmetic, so its entry also carries the
 launch-to-finish time of an empty kernel (launch_floor_ms) and the larger of
-that and the operation bound (bound_with_launch_ms). R1 and R2 are bound by
+that and the operation bound (bound_with_launch_ms). The bf16 entries
+(names ending in _bf16) are bound by bytes or by their operations over the
+bf16 rate; their launches are those of the deployment configuration's round
+trip with the reconstruction kernels on, which the other entries carry as
+launches_bf16_batch16. R1 and R2 are bound by
 neither bytes nor operations but by their dependent chain: their entries
 carry chain_ms, the steps of the longest chain times the time of one step as
 measured with a single warp (batch 1, 32 lanes), where nothing but latency
@@ -86,6 +123,7 @@ def _time_ms(fn, *args, reps=10):
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12     # H100 SXM data sheet, dense TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 on the tensor cores
 
 
 def bound(nbytes, flops, flops_per_s=F32_FLOPS_PER_S):
@@ -119,8 +157,9 @@ def _border(t):
 
 
 def check_vq(vq, dev, gen):
-    """K1 against its plain version: random rows at the main-path M, a
-    ragged M and exact-tie rows."""
+    """K1 against its plain version: random rows at the main-path M (batch
+    4, where it is timed), a ragged M, exact-tie rows, and the M of the
+    deployment configuration's batch of 16."""
     import torch
     worst = 0.0
     near_ties = 0
@@ -129,7 +168,8 @@ def check_vq(vq, dev, gen):
     dup[100], dup[255] = dup[7], dup[0]
     cases = [(torch.randn(4 * 96 * 64, 4, generator=gen, device=dev) * 0.05, cb),
              (torch.randn(1037, 4, generator=gen, device=dev) * 0.05, cb),
-             (dup.repeat_interleave(8, 0), dup)]
+             (dup.repeat_interleave(8, 0), dup),
+             (torch.randn(16 * 96 * 64, 4, generator=gen, device=dev) * 0.05, cb)]
     for z, book in cases:
         got = vq.vq_argmin(z, book)
         want = vq.vq_argmin_plain(z, book)
@@ -163,7 +203,8 @@ def check_vq(vq, dev, gen):
 ATTENTION_CASES = [((4, 6144, 512), 1.0), ((2, 6144, 512), 1.0), ((1, 1000, 512), 1.0),
                    ((1, 1024, 128), 3.0),
                    ((1, 1037, 512), 1.0),      # N a multiple of no tile
-                   ((1, 2048, 512), 0.728)]    # scores over about +-60
+                   ((1, 2048, 512), 0.728),    # scores over about +-60
+                   ((16, 6144, 512), 1.0)]     # the deployment configuration's batch
 
 
 def _attention_float64(q, k, v):
@@ -662,6 +703,371 @@ def check_rans(rd, rans_host, Codec, dev):
     return r1, r2
 
 
+BF16_PLANE = (4, 128, 768, 512)     # the largest plane of the path; 128 output channels
+
+
+def check_bf16_kernels(gn, conv3x3, dev, gen):
+    """K3 to K6 in bf16 at the path's largest plane against their plain
+    versions: K3 within 1e-5 of sum|x| and sum x^2 against float64 (f32
+    sums of bf16 values), K4 atol = rtol = 1e-2 (one step of the output
+    type), K5 and K6 atol = rtol = 5e-2 (steps of the output type after 1152
+    taps), whole tensor and border; each twice: equal bits. Times, bf16
+    bounds, and the library calls in bf16. Returns the four entries."""
+    import torch
+    import torch.nn.functional as F
+    B, C, H, W = BF16_PLANE
+    Cout = C
+    bf = torch.bfloat16
+    x = (torch.randn(B, C, H, W, generator=gen, device=dev) * 2 + 0.5).to(bf)
+    scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + 0.5
+    bias = torch.randn(B, C, generator=gen, device=dev)
+    label = f"{list(BF16_PLANE)} bfloat16"
+
+    sums, plain = gn.channel_sums(x), gn.channel_sums_plain(x)
+    want = torch.empty(B, 2, C, dtype=torch.float64, device=dev)
+    ref_scale = torch.empty_like(want)
+    for b in range(B):
+        xd = x[b].double().flatten(1)
+        sq = (xd * xd).sum(-1)
+        want[b, 0], want[b, 1] = xd.sum(-1), sq
+        ref_scale[b, 0], ref_scale[b, 1] = xd.abs().sum(-1), sq
+        del xd
+    rel = float(((sums.double() - want).abs() / ref_scale).max())
+    if not rel <= 1e-5 or not torch.equal(sums, gn.channel_sums(x)):
+        raise AssertionError(f"gn_channel_sums bf16: {rel:.2e} of the scale off float64, "
+                             f"or not repeatable, at {label}")
+    err3 = float((sums - plain).abs().max())
+    print(f"K3 gn_channel_sums {label}: {rel:.2e} of sum|x| / sum x^2 off float64; max abs "
+          f"diff to plain {err3:.3e}; repeatable")
+    err4 = 0.0
+    for act in (None, "swish"):
+        got, ref = gn.apply_affine(x, scale, bias, act), gn.apply_affine_plain(x, scale, bias, act)
+        torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
+        if not torch.equal(got, gn.apply_affine(x, scale, bias, act)):
+            raise AssertionError(f"gn_apply bf16 is not repeatable at {label}")
+        err4 = max(err4, float((got.float() - ref.float()).abs().max()))
+        del got, ref
+    print(f"K4 gn_apply {label}: max abs err {err4:.3e} (act none and swish, tolerance "
+          f"0.01); repeatable")
+    n = x.numel()
+    b3, _ = bound(_nbytes(x, sums), 3 * n)
+    b4, _ = bound(2 * _nbytes(x) + _nbytes(scale, bias), 6 * n)
+    common = {"route": "cuda", "library_ms": None, "dtype": "bfloat16",
+              "shape": list(BF16_PLANE)}
+    k3 = {"name": "gn_channel_sums_bf16", "source": "dc_vic_tpu_torch/csrc/gn.cu",
+          "replaces": "dc_vic_tpu/ops/gn.py:52", "max_abs_err": err3,
+          "ms": _time_ms(gn.channel_sums, x), "plain_ms": _time_ms(gn.channel_sums_plain, x),
+          "bound_ms": b3, "bound_by": "bytes", **common}
+    k4 = {"name": "gn_apply_bf16", "source": "dc_vic_tpu_torch/csrc/gn.cu",
+          "replaces": "dc_vic_tpu/ops/gn.py:117", "max_abs_err": err4,
+          "ms": _time_ms(gn.apply_affine, x, scale, bias, "swish"),
+          "plain_ms": _time_ms(gn.apply_affine_plain, x, scale, bias, "swish"),
+          "bound_ms": b4, "bound_by": "bytes", **common}
+    gamma = torch.rand(C, generator=gen, device=dev) + 0.5
+    beta = torch.randn(C, generator=gen, device=dev) * 0.1
+    pair = lambda: gn.group_norm(x, gamma, beta, 32, 1e-6, "swish")
+    lib = lambda: F.silu(F.group_norm(x, 32, gamma.to(bf), beta.to(bf), 1e-6))
+    torch.testing.assert_close(pair(), lib(), atol=5e-2, rtol=5e-2)
+    pair_ms, lib_ms = _time_ms(pair), _time_ms(lib)
+    k3["pair_ms"], k3["pair_library_ms"] = pair_ms, lib_ms
+    print(f"K3+K4 as GroupNorm+swish at {label}: {pair_ms:.3f} ms; F.silu(F.group_norm(.)) in "
+          f"bf16 {lib_ms:.3f} ms (0.05 apart at most: the library rounds to bf16 twice)")
+
+    x = torch.randn(B, C, H, W, generator=gen, device=dev).to(bf)
+    w = (torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05).to(bf)
+    bias = torch.randn(B, C, generator=gen, device=dev) + 2.0
+    cbias = torch.randn(Cout, generator=gen, device=dev)
+    res = torch.randn(B, Cout, H, W, generator=gen, device=dev).to(bf)
+    cases = [("K5 conv3x3_same", lambda: conv3x3.conv3x3_same(x, w),
+              lambda: conv3x3.conv3x3_same_plain(x, w)),
+             ("K6 conv3x3_gn_swish +res", lambda: conv3x3.conv3x3_gn_swish(
+                 x, w, scale, bias, cbias, res),
+              lambda: conv3x3.conv3x3_gn_swish_plain(x, w, scale, bias, cbias, res))]
+    out = []
+    for name, kernel, plain_fn in cases:
+        got, ref = kernel(), plain_fn()
+        torch.testing.assert_close(_border(got), _border(ref), atol=5e-2, rtol=5e-2)
+        torch.testing.assert_close(got, ref, atol=5e-2, rtol=5e-2)
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"{name} bf16 is not repeatable at {label}")
+        err = float((got.float() - ref.float()).abs().max())
+        del got, ref
+        ms, plain_ms = _time_ms(kernel, reps=5), _time_ms(plain_fn, reps=5)
+        print(f"{name} {label}->{Cout}: max abs err {err:.3e} (tolerance 0.05, whole and "
+              f"border); repeatable; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        out.append((err, ms, plain_ms))
+    flops = 2 * 9 * C * Cout * B * H * W
+    b5, by5 = bound(_nbytes(x, w) + _nbytes(res), flops, BF16_FLOPS_PER_S)
+    b6, by6 = bound(_nbytes(x, w, scale, bias, cbias, res) + _nbytes(res),
+                    flops + 6 * x.numel() + 2 * res.numel(), BF16_FLOPS_PER_S)
+    k5 = {"name": "conv3x3_same_bf16", "source": "dc_vic_tpu_torch/csrc/conv3x3.cu",
+          "replaces": "dc_vic_tpu/ops/conv3x3.py:59", "max_abs_err": out[0][0],
+          "ms": out[0][1], "plain_ms": out[0][2], "bound_ms": b5, "bound_by": by5,
+          **common, "library_ms": _time_ms(lambda: F.conv2d(x, w, padding=1), reps=5)}
+    k6 = {"name": "conv3x3_gn_swish_bf16", "source": "dc_vic_tpu_torch/csrc/conv3x3.cu",
+          "replaces": "dc_vic_tpu/ops/conv3x3.py:220", "max_abs_err": out[1][0],
+          "ms": out[1][1], "plain_ms": out[1][2], "bound_ms": b6, "bound_by": by6, **common}
+    for k in (k3, k4, k5, k6):
+        print(f"{k['name']} at {label}: kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, "
+              f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}), library {k['library_ms']}")
+    return k3, k4, k5, k6
+
+
+def _held_per_image(got, plain_one, tol, what):
+    """``got`` [B, ...] of one launch over the whole batch against
+    ``plain_one(b)`` [1, ...], the plain version of image b alone, whole and
+    border, atol = rtol = ``tol``. Returns the largest absolute error."""
+    import torch
+    worst = 0.0
+    for b in range(got.shape[0]):
+        ref = plain_one(b)[0]
+        try:
+            torch.testing.assert_close(_border(got[b]), _border(ref), atol=tol, rtol=tol)
+            torch.testing.assert_close(got[b], ref, atol=tol, rtol=tol)
+        except AssertionError as e:
+            raise AssertionError(f"{what}, image {b} of the batch: {e}") from None
+        worst = max(worst, float((got[b].float() - ref.float()).abs().max()))
+    return worst
+
+
+def _repeatable(kernel, first, what):
+    import torch
+    if not torch.equal(first, kernel()):
+        raise AssertionError(f"{what} is not repeatable")
+
+
+def check_bf16_path_shapes(gn, conv3x3, shapes, dev, gen):
+    """K3 to K6 in bf16 at every distinct shape the deployment
+    configuration's batch-16 round trip launched them with (``shapes`` as
+    expected_launch_recorder tallied them). The kernel takes the whole batch
+    in one launch; its plain version takes one image at a time, so the
+    reference never forms a batch offset and an index that wraps beyond the
+    first images (a [16, 256, 768, 512] plane has 1.6 G elements) shows as a
+    mismatch in the later ones. Tolerances as in check_bf16_kernels: K3
+    1e-5 of sum|x| and sum x^2 against float64, K4 1e-2, K5 and K6 (with and
+    without the residual) 5e-2, whole and border; each launch twice: equal
+    bits."""
+    import torch
+    bf = torch.bfloat16
+    for (B, C, H, W), count in sorted(shapes["gn"].items()):
+        label = f"[{B},{C},{H},{W}] bfloat16 ({count} launches per round trip)"
+        x = torch.randn(B, C, H, W, generator=gen, device=dev, dtype=bf) * 2 + 0.5
+        scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + 0.5
+        bias = torch.randn(B, C, generator=gen, device=dev)
+        sums = gn.channel_sums(x)
+        rel = 0.0
+        for b in range(B):
+            xd = x[b].double().flatten(1)
+            sq = (xd * xd).sum(-1)
+            off = torch.stack([(sums[b, 0].double() - xd.sum(-1)).abs() / xd.abs().sum(-1),
+                               (sums[b, 1].double() - sq).abs() / sq])
+            rel = max(rel, float(off.max()))
+            del xd, sq
+        if not rel <= 1e-5:
+            raise AssertionError(f"gn_channel_sums off float64 by {rel:.2e} of the scale "
+                                 f"at {label}")
+        _repeatable(lambda: gn.channel_sums(x), sums, f"gn_channel_sums at {label}")
+        got = gn.apply_affine(x, scale, bias, "swish")
+        err4 = _held_per_image(got, lambda b: gn.apply_affine_plain(
+            x[b:b + 1], scale[b:b + 1], bias[b:b + 1], "swish"), 1e-2, f"gn_apply at {label}")
+        _repeatable(lambda: gn.apply_affine(x, scale, bias, "swish"), got,
+                    f"gn_apply at {label}")
+        print(f"K3, K4 at {label}: sums {rel:.2e} of the scale off float64; apply max abs "
+              f"err {err4:.3e} to plain (tolerance 0.01); every image; repeatable")
+        del x, got, sums
+    for name in ("conv3x3_same", "conv3x3_gn_swish"):
+        for (B, C, Cout, H, W), count in sorted(shapes[name].items()):
+            label = f"[{B},{C},{H},{W}]->{Cout} bfloat16 ({count} launches per round trip)"
+            x = torch.randn(B, C, H, W, generator=gen, device=dev, dtype=bf)
+            w = (torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05).to(bf)
+            if name == "conv3x3_same":
+                cases = [("K5 conv3x3_same", lambda: conv3x3.conv3x3_same(x, w),
+                          lambda b: conv3x3.conv3x3_same_plain(x[b:b + 1], w))]
+            else:
+                scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + 0.5
+                bias = torch.randn(B, C, generator=gen, device=dev) + 2.0
+                cbias = torch.randn(Cout, generator=gen, device=dev)
+                res = torch.randn(B, Cout, H, W, generator=gen, device=dev, dtype=bf)
+                cases = [(f"K6 conv3x3_gn_swish{'' if r is None else ' +res'}",
+                          lambda r=r: conv3x3.conv3x3_gn_swish(x, w, scale, bias, cbias, r),
+                          lambda b, r=r: conv3x3.conv3x3_gn_swish_plain(
+                              x[b:b + 1], w, scale[b:b + 1], bias[b:b + 1], cbias,
+                              None if r is None else r[b:b + 1]))
+                         for r in (None, res)]
+            for what, kernel, plain_one in cases:
+                got = kernel()
+                err = _held_per_image(got, plain_one, 5e-2, f"{what} at {label}")
+                _repeatable(kernel, got, f"{what} at {label}")
+                print(f"{what} at {label}: max abs err {err:.3e} to plain (atol = rtol = "
+                      f"0.05, whole and border, every image); repeatable")
+                del got
+            del x, w, cases
+            scale = bias = cbias = res = None
+            torch.cuda.empty_cache()
+
+
+def pipelined_cycle(codec, images, n_batches=3):
+    """The serving loop: per cycle k dispatch batch k + 1's encode, fetch
+    batch k - 1's decoded images, finalize batch k's streams and dispatch its
+    decode with the fetch deferred. Returns the cycles' seconds (the drain of
+    the last fetch folded into the last) and checks every decoded batch
+    against a plain round trip of the same images."""
+    import torch
+    batches = [np.ascontiguousarray(np.roll(images, i, axis=0)) for i in range(n_batches)]
+    want = [codec.decompress([r["string_list"] for r in codec.compress(b, 0)])
+            for b in batches]
+    torch.cuda.synchronize()
+    handle = codec.compress_dispatch(batches[0], 0)
+    pending, outs, cycles = None, [], []
+    for k in range(n_batches):
+        t0 = time.perf_counter()
+        nxt = codec.compress_dispatch(batches[k + 1], 0) if k + 1 < n_batches else None
+        if pending is not None:
+            outs.append(pending.fetch())
+        res = codec.compress_finalize(handle)
+        pending = codec.decompress([r["string_list"] for r in res], defer_fetch=True)
+        handle = nxt
+        cycles.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    outs.append(pending.fetch())
+    cycles[-1] += time.perf_counter() - t0
+    for k in range(n_batches):
+        if not np.array_equal(outs[k], want[k]):
+            raise AssertionError(f"the pipelined cycle decoded batch {k} to other pixels than "
+                                 f"a plain round trip of the same images")
+    return cycles
+
+
+def entropy_chain_ms(codec, images):
+    """The entropy-parameter chain of one encode (hyper_decode, slice
+    parameters, six decode steps, batch as given) with the module's
+    entropy_precision as built and with "high", on the same y and z symbols:
+    (ms as built, ms with "high")."""
+    import torch
+    m = codec.module
+    x = torch.from_numpy(np.ascontiguousarray(images)).to(codec.device)
+    with torch.no_grad():
+        y, z_sym = m.encode_front(x.permute(0, 3, 1, 2), *codec._betas(0))
+        built = m.entropy_precision
+        out = []
+        for precision in (built, "high"):
+            m.entropy_precision = precision
+            out.append(_time_ms(codec._encode_param_chain, y, z_sym, reps=5))
+        m.entropy_precision = built
+    return tuple(out)
+
+
+def check_portable(spec, fresh_spec, plain_codec, plain_strings, images, parts16, ref):
+    """Portable streams of the deployment configuration (module docstring,
+    item 10). ``fresh_spec``: a second model built from the same weights,
+    for the decoder that never saw the encoder. ``plain_codec`` /
+    ``plain_strings``: the non-portable codec of ``spec`` and its batch-16
+    streams. ``parts16``, ``ref``: what bf16_against_f32 returned for
+    ``spec``'s model."""
+    import torch
+    from dc_vic_tpu_torch.codec.container import HeaderHandler
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.tools.workload import DEPLOYMENT
+    B, H, W = images.shape[:3]
+    codec = Codec(spec, encode_backend="device", lanes=DEPLOYMENT["lanes"], portable=True)
+    res = codec.compress(images, 0, debug=True)
+    strings = [r["string_list"] for r in res]
+    hdr = HeaderHandler.decode(strings[0][0])
+    if not (hdr["portable"] and hdr["bf16"] and hdr["fast_entropy"]
+            and hdr["lanes"] == DEPLOYMENT["lanes"] and hdr["encode_batch"] == B):
+        raise AssertionError(f"portable header {hdr}")
+    fresh = Codec(fresh_spec, lanes=128)     # built non-portable: the header decides
+    whole = codec.decompress(strings)
+    if not np.array_equal(fresh.decompress(strings), whole):
+        raise AssertionError("another codec decoded the same batch to other pixels")
+    differing = {}
+    for name, size in (("16", B), ("4 x 4", 4), ("16 x 1", 1)):
+        for dec in (codec, fresh):
+            for lo in range(0, B, size):
+                if not dec.verify_roundtrip(res[lo:lo + size], strings[lo:lo + size], (H, W)):
+                    raise AssertionError(f"portable stream decoded as {name}: latents differ "
+                                         f"from the encoder's (images {lo}..{lo + size - 1})")
+        parts = np.concatenate([codec.decompress(strings[lo:lo + size])
+                                for lo in range(0, B, size)])
+        diff = np.abs(parts.astype(np.int16) - whole.astype(np.int16))
+        differing[name] = (float((diff > 1).mean()), float(diff.mean()))
+    if differing["16"] != (0.0, 0.0):
+        raise AssertionError("decoding the same batch twice gave other pixels")
+    # where the groupings' pixels part: the VQ estimator, in the batch of 16
+    # and alone, on the same y_hat. With the batch's estimator indices fed to
+    # the batch-1 reconstruction, what is left is rounding: for the first, a
+    # middle and the last image it must be within BF16_NOISE_RATIO of the
+    # batch-16 reconstruction's distance to the f32 model's
+    y_hat = torch.from_numpy(np.ascontiguousarray(
+        np.stack([r["y_hat"] for r in res]).transpose(0, 3, 1, 2))).to(codec.device)
+    b1, b2 = codec._betas(0)
+    logits16, idx16, img16 = parts16
+    flips = gap = spread = 0.0
+    fed = []
+    with torch.no_grad():
+        for b in (0, B // 2, B - 1):
+            one = slice(b, b + 1)
+            logits1, idx1, img1 = recon_parts(codec.module, y_hat[one].clone(), b1, b2,
+                                              indices=idx16[one].clone())
+            flips = max(flips, float((idx16[one] != idx1).float().mean()))
+            gap = max(gap, float((logits16[one].float() - logits1.float()).abs().max()))
+            spread = float(logits1.float().std())
+            fed.append((b, float(_per_image_mean(img1, ref[one])),
+                        float(_per_image_mean(img16[one], ref[one])),
+                        float(_per_image_mean(img1, img16[one])) * 127.5))
+    del y_hat, logits1, img1
+    for b, e1, e16, _ in fed:
+        if not e1 <= BF16_NOISE_RATIO * e16:
+            raise AssertionError(f"image {b} reconstructed alone with the batch-16 codeword "
+                                 f"indices is {e1:.5f} from the f32 model's, the batch-16 "
+                                 f"reconstruction {e16:.5f}: more than rounding explains")
+    print(f"portable, batch {B} lanes {DEPLOYMENT['lanes']}: header {hdr}; decoded as 16, 4 x 4 "
+          f"and 16 x 1 by the encoding codec and by another one: y_hat and z_hat equal the "
+          f"encoder's bitwise in every grouping, and the same grouping gives the same pixels. "
+          f"Pixels against the batch-16 decode (share over one step apart, mean steps apart): "
+          + "; ".join(f"{k}: {a:.4f}, {b:.3f}" for k, (a, b) in differing.items())
+          + " (the reconstruction is not part of the guarantee: it runs at the decode batch, "
+            "another batch picks other bf16 kernels, and with random weights the estimator's "
+            "argmax turns such differences into other codewords: for images 0, "
+            f"{B // 2} and {B - 1} the estimator's logits differ by at most {gap:.3e} between "
+            f"batch 16 and batch 1, against a spread of {spread:.3e}, and up to {flips:.4f} of "
+            f"an image's indices differ; with the batch-16 indices fed to the batch-1 "
+            f"reconstruction, (image, its mean distance to the f32 model's reconstruction "
+            f"on the [-1, 1] scale, the batch-16 reconstruction's, mean uint8 steps between "
+            f"the two): {[(b, round(a, 5), round(c, 5), round(d, 3)) for b, a, c, d in fed]}, "
+            f"ratio allowed {BF16_NOISE_RATIO:g})")
+    try:
+        plain_codec.decompress(plain_strings[:4])
+    except ValueError as e:
+        print(f"a non-portable batch-16 stream decoded as batch 4 raises: {str(e)[:80]}...")
+    else:
+        raise AssertionError("a non-portable batch-16 stream decoded as batch 4 did not raise")
+    try:
+        codec.decompress([strings[0], plain_strings[1]])
+    except ValueError as e:
+        print(f"a portable and a non-portable stream in one batch raise: {str(e)[:60]}...")
+    else:
+        raise AssertionError("mixed portable and non-portable streams did not raise")
+    pipeline = codec._decode_pipeline
+    seen = []
+
+    def no_sync(*args, **kwargs):
+        seen.append(kwargs.get("portable"))
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return pipeline(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    codec._decode_pipeline = no_sync
+    again = codec.decompress(strings)
+    codec._decode_pipeline = pipeline
+    if seen != [True] or not np.array_equal(again, whole):
+        raise AssertionError("the portable decode chain did not run, or is not repeatable")
+    print("portable: the decode chain (16 per-image parameter chains, 7 batched section "
+          "decodes) ran with torch.cuda.set_sync_debug_mode('error') and gave the same pixels")
+    return codec, float(np.mean([r["bpp"] for r in res]))
+
+
 def drive(codec, images):
     """The main path: compress -> bitstreams -> decompress. Returns
     (results, decoded images, encode s, decode s)."""
@@ -726,8 +1132,9 @@ def expected_launch_recorder(module):
     from dc_vic_tpu_torch.ops import conv3x3, gn
     want = {"vq_argmin": 0, "flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0,
             "conv3x3_same": 0, "conv3x3_gn_swish": 0}
-    # (B, C, Cout, H, W) -> launches, of the two conv kernels
-    shapes = {"conv3x3_same": {}, "conv3x3_gn_swish": {}}
+    # (B, C, Cout, H, W) -> launches of the two conv kernels, (B, C, H, W) ->
+    # launches of the GroupNorm pair
+    shapes = {"conv3x3_same": {}, "conv3x3_gn_swish": {}, "gn": {}}
 
     def tally(kernel, key):
         shapes[kernel][key] = shapes[kernel].get(key, 0) + 1
@@ -740,6 +1147,7 @@ def expected_launch_recorder(module):
             if m.recon_kernel and gn.use_kernel(shape):
                 want["gn_channel_sums"] += 1
                 want["gn_apply"] += 1
+                tally("gn", shape)
         elif isinstance(m, Conv2d):
             B, C, H, W = shape
             if (m.recon_kernel and m.kernel_size == (3, 3) and m.stride == (1, 1)
@@ -831,6 +1239,49 @@ def compare_models(default, recon, images, y_hat):
               f"between the two models")
 
 
+# Two bf16 reconstructions of one y_hat and one set of codeword indices differ
+# by rounding alone (every layer rounds to 8 bits, each route in its own
+# order), which random weights carry to the pixels: no fixed tolerance says
+# how far. The f32 model's reconstruction of the same inputs does: per image,
+# a bf16 route may be at most this many times as far from it (mean absolute
+# difference) as the bf16 default model at batch 16 is (measured: 0.99 to
+# 1.01 for every image and route, all about 0.014 on the [-1, 1] scale).
+BF16_NOISE_RATIO = 1.25
+
+
+def _per_image_mean(a, b):
+    return (a - b).abs().flatten(1).mean(1)
+
+
+def bf16_against_f32(f32, off, on, y_hat):
+    """The bf16 reconstruction with the kernels on, with the kernels off and
+    the f32 model's, all of the same y_hat at batch 16 and all fed the
+    codeword indices of the bf16 default model's estimator. Image by image
+    the kernels' route must be within BF16_NOISE_RATIO of the default
+    route's distance to the f32 reconstruction: a kernel that mixed up one
+    image's planes would be off by the image's own scale. Returns the
+    default route's (logits, indices, image) and the f32 image."""
+    import torch
+    with torch.no_grad():
+        logits, idx, img_off = recon_parts(off.module, y_hat, *off._betas(0))
+        _, own, img_on = recon_parts(on.module, y_hat, *on._betas(0), indices=idx)
+        _, _, ref = recon_parts(f32.module, y_hat, *f32._betas(0), indices=idx)
+    e_off, e_on = _per_image_mean(img_off, ref), _per_image_mean(img_on, ref)
+    apart = _per_image_mean(img_on, img_off)
+    print(f"bf16 reconstructions of one y_hat and one set of codeword indices, batch "
+          f"{y_hat.shape[0]}, mean absolute distance per image on the [-1, 1] scale: kernels "
+          f"off to the f32 model's {[round(float(v), 5) for v in e_off]}, kernels on to the "
+          f"f32 model's {[round(float(v), 5) for v in e_on]}, on to off "
+          f"{[round(float(v), 5) for v in apart]}; the largest ratio on / off is "
+          f"{float((e_on / e_off).max()):.3f} (allowed {BF16_NOISE_RATIO:g}); "
+          f"{int((own != idx).sum())} of {idx.numel()} estimator indices differ between the "
+          f"two bf16 models")
+    if not torch.isfinite(img_on).all() or bool((e_on > BF16_NOISE_RATIO * e_off).any()):
+        raise AssertionError("the bf16 reconstruction with the kernels on is further from the "
+                             "f32 model's than rounding explains")
+    return (logits, idx, img_off), ref
+
+
 def report_ptxas(log):
     """One line per kernel from the compiler's -Xptxas -v output: its name
     with the template arguments as mangled, registers, spills."""
@@ -852,6 +1303,95 @@ def report_ptxas(log):
             facts.append(line.split(":", 1)[1].strip())
 
 
+def check_deployment(deployment_sd, ops):
+    """Items 8 to 10 of the module docstring. ``deployment_sd``: the f32
+    weights of the workload (seed 0, encoder scaled). Returns the launch
+    counts of the bf16 round trip with the reconstruction kernels on, and
+    the shapes its reconstruction kernels were launched with."""
+    import torch
+    from dc_vic_tpu_torch.codec.container import HeaderHandler
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model
+    from dc_vic_tpu_torch.ops import conv3x3, gn
+    from dc_vic_tpu_torch.tools.workload import (DEPLOYMENT, deployment_config,
+                                                 deployment_images)
+    from dc_vic_tpu_torch.utils.config import load_config
+    recon_names = (*gn.launches, *conv3x3.launches)
+    opt = load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
+    images16 = deployment_images()
+    B16, lanes = DEPLOYMENT["batch"], DEPLOYMENT["lanes"]
+    opt16 = deployment_config(opt)
+    kept = {}
+    for dtype_name, o in (("bfloat16", opt16), ("float32", opt)):
+        for names in ((), RECON_KERNELS):
+            label = (f"{dtype_name}, entropy_precision {o.get('entropy_precision', 'high')}, "
+                     f"recon_kernels {'on' if names else 'off'}, tpu format, device backend, "
+                     f"lanes {lanes}, batch {B16} 768x512")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            spec_c = build_comp_model(o, recon_kernels=names)
+            spec_c.module.load_state_dict(deployment_sd, strict=True)
+            codec_c = Codec(spec_c, encode_backend="device", lanes=lanes)
+            y_hat, got, shapes = counted_round_trip(codec_c, images16, label, ops)
+            if (got["vq_argmin"], got["flash_attention"], got["rans_encode_pack"],
+                    got["rans_decode_section"]) != (1, 7, 2, 7):
+                raise AssertionError(f"{label}: launches {got}")
+            if names == RECON_KERNELS and any(got[k] < 1 for k in recon_names):
+                raise AssertionError(f"{label}: a reconstruction kernel never launched: {got}")
+            res, _, enc, dec = drive(codec_c, images16)
+            strings16 = [r["string_list"] for r in res]
+            bpp = float(np.mean([r["bpp"] for r in res]))
+            if not bpp > 0.03:
+                raise AssertionError(f"{label}: {bpp} bpp: a near-empty stream idles the coder")
+            h = HeaderHandler.decode(strings16[0][0])
+            want = dict(stream_format="tpu", lanes=lanes, encode_batch=B16, portable=False,
+                        fast_entropy=dtype_name == "bfloat16", bf16=dtype_name == "bfloat16")
+            if any(h[k] != v for k, v in want.items()):
+                raise AssertionError(f"{label}: header {h}")
+            cycle = codec_c.bench_device_cycle(images16, 0, iters=3 if dtype_name == "bfloat16"
+                                               else 2)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"{label}: warm encode {enc:.4f} s, decode {dec:.4f} s (host clock, one "
+                  f"run); bench_device_cycle encode chain {cycle['enc_s']:.4f} s, decode chain "
+                  f"{cycle['dec_s']:.4f} s; {bpp:.4f} bpp"
+                  f"{' (over the 0.8 the reference workload stays under)' if bpp > 0.8 else ''}"
+                  f"; peak memory {peak:.2f} GiB; header {h}")
+            if dtype_name == "bfloat16" or not names:
+                kept[dtype_name, bool(names)] = (spec_c, codec_c, strings16, got, shapes, y_hat)
+            del spec_c, codec_c, y_hat
+    _, codec16k, _, launches16, shapes16, _ = kept["bfloat16", True]
+    spec16, codec16, strings16, _, _, y_hat = kept["bfloat16", False]
+    parts16, ref = bf16_against_f32(kept.pop(("float32", False))[1], codec16, codec16k, y_hat)
+    del y_hat
+    torch.cuda.empty_cache()
+    fast_ms, high_ms = entropy_chain_ms(codec16, images16)
+    print(f"entropy chain of one batch-{B16} encode (hyper_decode, slice parameters, six "
+          f"decode steps): {fast_ms:.3f} ms with entropy_precision default (TF32 allowed in "
+          f"its convs), {high_ms:.3f} ms with high")
+    for on in (False, True):
+        cycles = pipelined_cycle(kept["bfloat16", on][1], images16)
+        print(f"pipelined cycle, recon_kernels {'on' if on else 'off'}, 3 batches of {B16}: "
+              f"{', '.join(f'{c:.4f}' for c in cycles)} s per cycle (the first waits for no "
+              f"decode and the last also drains, so the middle one is the steady state: "
+              f"{B16 / cycles[1]:.2f} images/s; all three batches {sum(cycles):.4f} s, "
+              f"{3 * B16 / sum(cycles):.2f} images/s)")
+    fresh_spec = build_comp_model(opt16)
+    fresh_spec.module.load_state_dict(deployment_sd, strict=True)
+    pcodec, pbpp = check_portable(spec16, fresh_spec, codec16, strings16, images16, parts16,
+                                  ref)
+    del fresh_spec, parts16, ref
+    torch.cuda.reset_peak_memory_stats()
+    pcycle = pcodec.bench_device_cycle(images16, 0)
+    cycle = codec16.bench_device_cycle(images16, 0)
+    print(f"bench_device_cycle, bf16 recon_kernels off, batch {B16}: portable encode chain "
+          f"{pcycle['enc_s']:.4f} s, decode chain {pcycle['dec_s']:.4f} s; non-portable "
+          f"{cycle['enc_s']:.4f} s / {cycle['dec_s']:.4f} s (same run, in turn); portable "
+          f"{pbpp:.4f} bpp; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del kept, pcodec, codec16, codec16k, spec16
+    torch.cuda.empty_cache()
+    return launches16, shapes16
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -862,6 +1402,7 @@ def main():
     from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model, init_weights
     from dc_vic_tpu_torch.ops import (attention, conv3x3, gn, native, rans_device, rans_host,
                                       vq)
+    from dc_vic_tpu_torch.tools.workload import scale_encoder
     from dc_vic_tpu_torch.utils.config import load_config
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -990,17 +1531,13 @@ def main():
     if not np.array_equal(pending.fetch(), out_tpu):
         raise AssertionError("defer_fetch returned other images")
 
-    # warm times of both formats in turns, this run, this card
+    # one warm round trip of each format, this run, this card
     codecs = {"compressai": codec, **{f"tpu/{b}/lanes {n}": c for (b, n), c in tpu.items()}}
-    seen = {name: [] for name in codecs}
-    for i in range(3):
-        for name in (list(codecs) if i % 2 == 0 else list(codecs)[::-1]):
-            seen[name].append(drive(codecs[name], images)[2:])
-    for name, runs in seen.items():
-        enc, dec = sorted(r[0] for r in runs)[1], sorted(r[1] for r in runs)[1]
-        bpp = float(np.mean([r["bpp"] for r in codecs[name].compress(images, 0)]))
+    for name, c in codecs.items():
+        res, _, enc, dec = drive(c, images)
+        bpp = float(np.mean([r["bpp"] for r in res]))
         print(f"warm round trip, {name}: encode {enc:.4f} s, decode {dec:.4f} s "
-              f"(medians of 3), {bpp:.4f} bpp")
+              f"(one run), {bpp:.4f} bpp")
     for (backend, lanes), c in tpu.items():
         if backend == "device":
             cycle = c.bench_device_cycle(images, 0)
@@ -1028,6 +1565,8 @@ def main():
             raise AssertionError(f"{k}: {launches[k]} launches in the tpu format with the "
                                  f"reconstruction kernels on, expected {want}")
     compare_models(codec, codec_k, images, y_hat)
+    # the deployment workload's weights: the same seed, encoder scaled
+    deployment_sd = scale_encoder(spec.module.state_dict())
     del codec, codec_k, codec_kt, spec, spec_k
     torch.cuda.empty_cache()
 
@@ -1036,9 +1575,21 @@ def main():
         for name, table in conv_shapes.items()}}))
     time_conv_shapes(conv3x3, conv_shapes["conv3x3_same"], dev, gen)
 
+    bf16_kernels = check_bf16_kernels(gn, conv3x3, dev, gen)
+    torch.cuda.empty_cache()
+
+    launches16, shapes16 = check_deployment(deployment_sd, ops)
+    check_bf16_path_shapes(gn, conv3x3, shapes16, dev, gen)
+    torch.cuda.empty_cache()
+
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_bf16_batch16"] = launches16[k["name"]]
+    for k in bf16_kernels:
+        k["launches"] = launches16[k["name"][:-len("_bf16")]]
+    kernels += bf16_kernels
+    for k in kernels:
         if k["ms"] < k["bound_ms"]:
             raise AssertionError(f"{k['name']}: {k['ms']:.4f} ms is under its bound of "
                                  f"{k['bound_ms']:.4f} ms: the bound or the timing is wrong")

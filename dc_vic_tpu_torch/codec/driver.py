@@ -1,5 +1,5 @@
 """Codec driver: compress / decompress orchestration (port of
-dc_vic_tpu/codec/driver.py::Codec, non-portable, single device).
+dc_vic_tpu/codec/driver.py::Codec, single device).
 
 compress: image -> encode_front on the device -> the entropy-parameter chain
 (hyper_decode, charm_slice_params, then charm_symbolize and
@@ -24,16 +24,26 @@ reads both:
 * "compressai": the reference's own byte format with a 6-byte header; host
   entropy coding, one host round trip per ChARM slice on decode.
 
-Streams decode at the batch size they were encoded at, on the same card
-class: the entropy parameters are floats, and a different batch shape or
-device may pick different convolution algorithms (portable mode is not
-ported; the tpu format's header makes a batch mismatch an error).
+A stream decodes on the card class that encoded it: the entropy parameters
+are floats, and another device may round them otherwise. By default it also
+decodes only at the batch size it was encoded at, because another batch
+shape may pick other convolution algorithms (the tpu format's header makes a
+mismatch an error). ``portable=True`` lifts the batch coupling: every float
+that gates symbol interpretation (hyper_out, per-slice mu, y_hat_prev) is
+derived per image at the batch-1 shape on both sides, each operand in fresh
+row-major storage of its own, and only integers (symbol planes, CDF indexes)
+and the encoder-only y cross between the per-image chain and the batched
+stages (front, device pack, section decodes, reconstruction). A portable
+stream decodes bit-exactly alone or in any grouping, at the price of B times
+the launches of the parameter chain. The header's portable bit chooses the
+decode path, so any Codec reads both kinds.
 """
 from __future__ import annotations
 
 import os
 import statistics
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
@@ -90,6 +100,64 @@ def _nchw_tensor(a: np.ndarray, device) -> torch.Tensor:
         a.transpose(0, 3, 1, 2), dtype=np.int16)).to(device)
 
 
+def _split(t: torch.Tensor, per_image: bool) -> List[torch.Tensor]:
+    """The operands of one run of the entropy-parameter chain: the batch as
+    it is, or (portable streams) each image alone. A slice of the batch
+    would be a view at a storage offset, and alignment is one of the things
+    a convolution algorithm is chosen by; a clone is what a batch-1 decoder
+    would hold."""
+    if not per_image:
+        return [t]
+    return [t[b:b + 1].clone(memory_format=torch.contiguous_format)
+            for b in range(t.shape[0])]
+
+
+def _join(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Back to one batch: pure data movement, exact for floats too."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+class _ParamChain:
+    """The entropy-parameter chain both sides run on the z symbols:
+    hyper_decode, the first slice's parameters, then one charm_decode_step
+    per slice. It runs over the whole batch, or with ``per_image`` (portable
+    streams) once per image at the batch-1 shape; either way the caller sees
+    batch planes: ``indexes()`` of the slice to come, ``step`` with that
+    slice's symbols, ``y_hat()`` and ``z_hat()`` at the end. Nothing here
+    waits for the device."""
+
+    def __init__(self, module, z_sym: torch.Tensor, y_plane: Tuple[int, int],
+                 per_image: bool):
+        self.m, self.per_image = module, per_image
+        self.hyper = [module.hyper_decode(z) for z in _split(z_sym, per_image)]
+        n = z_sym.shape[0] // len(self.hyper)
+        self.prevs = [torch.zeros((n, 0) + tuple(y_plane), dtype=torch.float32,
+                                  device=z_sym.device) for _ in self.hyper]
+        self.params = [module.charm_slice_params(0, ho, prev)
+                       for (ho, _), prev in zip(self.hyper, self.prevs)]
+
+    def indexes(self) -> torch.Tensor:
+        return _join([idx for _, idx in self.params])
+
+    def symbolize(self, i: int, ys: List[torch.Tensor]) -> torch.Tensor:
+        """Encode side: slice i's symbols of y (split as the chain is)."""
+        return _join([self.m.charm_symbolize(i, y, mu)
+                      for y, (mu, _) in zip(ys, self.params)])
+
+    def step(self, i: int, sym: torch.Tensor) -> None:
+        steps = [self.m.charm_decode_step(i, ho, prev, part, mu)
+                 for (ho, _), prev, part, (mu, _) in zip(
+                     self.hyper, self.prevs, _split(sym, self.per_image), self.params)]
+        self.prevs = [s[0] for s in steps]
+        self.params = [s[1:] for s in steps]
+
+    def y_hat(self) -> torch.Tensor:
+        return _join(self.prevs)
+
+    def z_hat(self) -> torch.Tensor:
+        return _join([z_hat for _, z_hat in self.hyper])
+
+
 def _geometry(H: int, W: int):
     """(padH, padW, zH, zW, yH, yW) of an H x W image."""
     padH, padW = -(-H // STRIDE) * STRIDE, -(-W // STRIDE) * STRIDE
@@ -106,7 +174,9 @@ class Codec:
     where tpu-format streams are entropy-coded. ``lanes``: cap on the
     interleaved lanes of a tpu-format stream, a power of two in [1, 4096];
     more lanes mean fewer sequential steps per section and 4 bytes each per
-    stream. It travels in the header.
+    stream. It travels in the header. ``portable``: write streams that
+    decode in any batch grouping (module docstring); decode follows each
+    stream's header whatever this is.
 
     Numerics: constructing a Codec sets, process-wide,
     ``torch.backends.cudnn.allow_tf32 = False``,
@@ -115,7 +185,11 @@ class Codec:
     ``torch.backends.cudnn.benchmark = False``. cuDNN would otherwise run
     f32 convolutions in TF32 and may choose algorithms per call; a different
     algorithm between the encode and decode chains desynchronizes the
-    stream. The whole codec runs in f32 under ``torch.no_grad``.
+    stream. The model's ``entropy_precision: default`` re-allows TF32 for
+    the entropy-parameter convs only, inside the three chain methods. The
+    codec runs under ``torch.no_grad``; the model's ``codec_dtype`` decides
+    whether the conv stacks compute in f32 or bf16, the entropy chain is f32
+    either way, and both settings travel in the tpu format's header.
 
     Result dicts: ``string_list`` [header, z_str, y_str], ``num_pixel``,
     ``bpp`` (the container's actual bytes, length fields included); in the
@@ -125,7 +199,7 @@ class Codec:
     ``y_hat``/``z_hat`` (NHWC numpy) for ``verify_roundtrip``."""
 
     def __init__(self, spec, stream_format: str = "tpu", encode_backend: str = "host",
-                 lanes: int = 128):
+                 lanes: int = 128, portable: bool = False):
         if stream_format not in ("tpu", "compressai"):
             raise ValueError(f"stream_format {stream_format!r}: 'tpu' or 'compressai'")
         if encode_backend not in ("host", "device"):
@@ -139,16 +213,22 @@ class Codec:
         self.stream_format = stream_format
         self.encode_backend = encode_backend
         self.lanes = lanes
+        self.portable = bool(portable)
         self.module = spec.module.eval()
         self.device = next(self.module.parameters()).device
         self.num_slices = self.module.num_slices
         self.bottleneck_y = self.module.context_model.slice_ch * self.num_slices
         self.bottleneck_z = self.module.entropy_model_z.channels
-        # the numeric configuration a tpu-format header records: the port
-        # runs the entropy chain in full f32 only (build_comp_model refuses
-        # the other settings)
-        self._fast_entropy = False
-        self._bf16 = False
+        # the numeric configuration a tpu-format header records and a
+        # decoder must share
+        self._fast_entropy = (self.module.entropy_precision or "high") != "high"
+        self._bf16 = self.module.codec_dtype == "bfloat16"
+        if stream_format == "compressai" and self._fast_entropy:
+            warnings.warn(
+                "stream_format='compressai' with entropy_precision="
+                f"'{self.module.entropy_precision}': parity streams are only guaranteed "
+                "with entropy_precision='high' (the fast entropy-parameter mode is scoped "
+                "to the tpu stream format)", stacklevel=2)
         self.z_table = build_bottleneck_cdf(self.module.entropy_model_z)
         self.y_table = self.module.gaussian.build_cdf_table(get_scale_table())
         self._dtables: Dict[str, rd.DeviceCdfTable] = {}
@@ -174,20 +254,18 @@ class Codec:
 
     # ------------------------------------------------------------ encode
     def _encode_param_chain(self, y, z_sym):
-        """The decoder's own chain, driven with the encoder's symbols.
+        """The decoder's own chain, driven with the encoder's symbols: over
+        the whole batch, or in portable mode per image at the batch-1 shape
+        (``_split``), the per-slice integers joined back into batch planes.
         Returns (per-slice symbols, per-slice indexes, y_hat, z_hat)."""
-        m = self.module
-        hyper_out, z_hat = m.hyper_decode(z_sym)
-        B, _, yH, yW = y.shape
-        y_prev = torch.zeros((B, 0, yH, yW), dtype=torch.float32, device=y.device)
-        mu, idx = m.charm_slice_params(0, hyper_out, y_prev)
+        chain = _ParamChain(self.module, z_sym, y.shape[2:], self.portable)
+        ys = _split(y, self.portable)
         syms, idxs = [], []
         for i in range(self.num_slices):
-            sym = m.charm_symbolize(i, y, mu)
-            syms.append(sym)
-            idxs.append(idx)
-            y_prev, mu, idx = m.charm_decode_step(i, hyper_out, y_prev, sym, mu)
-        return syms, idxs, y_prev, z_hat
+            idxs.append(chain.indexes())
+            syms.append(chain.symbolize(i, ys))
+            chain.step(i, syms[-1])
+        return syms, idxs, chain.y_hat(), chain.z_hat()
 
     def _tpu_pack(self, y_sym, y_idx, z_sym) -> Dict:
         """Device entropy encode of the symbol planes (NCHW int16 / uint8):
@@ -264,7 +342,7 @@ class Codec:
             header = HeaderHandler.encode(
                 (H, W), max_abs_y, handle["quality_ind"], tpu_format=True, lanes=self.lanes,
                 esc_dense=bool(esc_dense[b]), t2free=bool(t2free), escfree=bool(escfree[b]),
-                portable=False, encode_batch=B, fast_entropy=self._fast_entropy,
+                portable=self.portable, encode_batch=B, fast_entropy=self._fast_entropy,
                 bf16=self._bf16)
             strings = [header, z_strs[b], y_strs[b]]
             results.append(dict(
@@ -340,7 +418,8 @@ class Codec:
         max_abs_y = float(out["max_abs_y"])
         results = []
         for b in range(B):
-            header = HeaderHandler.encode((H, W), max_abs_y, handle["quality_ind"])
+            header = HeaderHandler.encode((H, W), max_abs_y, handle["quality_ind"],
+                                          portable=self.portable)
             strings = [header, z_strs[b], y_strs[b]]
             results.append(dict(string_list=strings, num_pixel=H * W,
                                 bpp=8.0 * sum(4 + len(s) for s in strings) / (H * W)))
@@ -373,13 +452,13 @@ class Codec:
         headers = [HeaderHandler.decode(s[0]) for s in string_lists]
         first = dict(headers[0])
         for h in headers:
-            if h["portable"]:
-                raise ValueError("portable streams are not ported: the port decodes "
-                                 "non-portable streams only")
             if any(h[k] != first[k] for k in ("img_size", "quality_ind", "stream_format",
                                               "lanes")):
                 raise ValueError("a decode batch must share image size, quality, stream "
                                  "format and lanes")
+            if h["portable"] != first["portable"]:
+                raise ValueError("mixed portable and non-portable streams in one decode "
+                                 "batch")
         if first["stream_format"] != "tpu":
             return first
         run_B = len(string_lists)
@@ -396,21 +475,22 @@ class Codec:
                         f"with the other setting: the entropy parameters would not "
                         f"reproduce and the decode would desync")
             eb = h["encode_batch"]
-            if eb and eb != run_B:
+            if not h["portable"] and eb and eb != run_B:
                 raise ValueError(
                     f"non-portable tpu stream was encoded at batch {eb} but this decode "
                     f"runs at batch {run_B}: another batch shape may pick other "
                     f"convolution algorithms and the entropy parameters may not "
-                    f"reproduce. Decode in groups of {eb}")
+                    f"reproduce. Decode in groups of {eb}, or encode with "
+                    f"Codec(portable=True) for streams that decode in any grouping")
         first["esc_dense"] = any(bool(h["esc_dense"]) for h in headers)
         first["t2free"] = all(bool(h["t2free"]) for h in headers)
         first["escfree"] = all(bool(h["escfree"]) for h in headers)
         return first
 
-    def _decode_latents(self, z_strs, y_strs, H: int, W: int):
+    def _decode_latents(self, z_strs, y_strs, H: int, W: int, portable: bool = False):
         """compressai format: entropy-decode z and the ChARM slices of y on
-        the host; returns (y_hat, z_hat)."""
-        m = self.module
+        the host; returns (y_hat, z_hat). The symbol decode is per image
+        either way; ``portable`` runs the parameter chain per image too."""
         B = len(z_strs)
         _, _, zH, zW, yH, yW = _geometry(H, W)
         Cz = self.bottleneck_z
@@ -419,21 +499,17 @@ class Codec:
             z_np = np.stack(list(pool.map(
                 lambda s: decode_with_indexes(s, z_idx, self.z_table)
                 .reshape(zH, zW, Cz), z_strs)))
-            z_sym = _nchw_tensor(z_np, self.device)
-            hyper_out, z_hat = m.hyper_decode(z_sym)
-
+            chain = _ParamChain(self.module, _nchw_tensor(z_np, self.device), (yH, yW),
+                                portable)
             decoders = [RansDecoder(s) for s in y_strs]
-            y_prev = torch.zeros((B, 0, yH, yW), dtype=torch.float32, device=self.device)
-            mu, idx = m.charm_slice_params(0, hyper_out, y_prev)
             for i in range(self.num_slices):
-                idx_np = _nhwc(idx).astype(np.int32)
+                idx_np = _nhwc(chain.indexes()).astype(np.int32)
                 sc = idx_np.shape[-1]
                 sym = np.stack(list(pool.map(
                     lambda b: decoders[b].decode_stream(idx_np[b].reshape(-1), self.y_table)
                     .reshape(yH, yW, sc), range(B))))
-                sym_t = _nchw_tensor(sym, self.device)
-                y_prev, mu, idx = m.charm_decode_step(i, hyper_out, y_prev, sym_t, mu)
-        return y_prev, z_hat
+                chain.step(i, _nchw_tensor(sym, self.device))
+        return chain.y_hat(), chain.z_hat()
 
     def _tpu_caps(self, B: int, yH: int, yW: int, zH: int, zW: int, lanes: int):
         """Most words the y and z buffers of a batch can hold."""
@@ -460,11 +536,15 @@ class Codec:
 
     def _decode_pipeline(self, z_words, z_base, y_words, y_base, B: int, zH: int, zW: int,
                          yH: int, yW: int, lanes: int, sparse_esc: bool, recon: bool,
-                         b1, b2, tier2: bool = True, escfree: bool = False) -> Dict:
+                         b1, b2, tier2: bool = True, escfree: bool = False,
+                         portable: bool = False) -> Dict:
         """tpu-format decode as one chain on the device: z section decode ->
         hyper_decode -> per slice (y section decode -> charm_decode_step) ->
         optional reconstruction. Cursors and lane states stay on the device
-        and nothing here waits for it. Returns {y_hat, z_hat, consumed_words
+        and nothing here waits for it. With ``portable`` the float chain runs
+        per image (``_split``) while the section decodes, which are integer
+        programs, and the reconstruction stay batched: B times the chain's
+        launches, no wait more. Returns {y_hat, z_hat, consumed_words
         [2, B] (z, y)[, img uint8 NCHW]}."""
         m = self.module
         dev = self.device
@@ -473,20 +553,19 @@ class Codec:
         z_sym, z_cursor, _ = rd.decode_section(
             z_words, z_base, zero, None, None, (B, self.bottleneck_z, zH, zW), lanes,
             self._dtable("z"), **flags)
-        hyper_out, z_hat = m.hyper_decode(z_sym)
+        chain = _ParamChain(m, z_sym, (yH, yW), portable)
         sc = self.bottleneck_y // self.num_slices
-        y_prev = torch.zeros((B, 0, yH, yW), dtype=torch.float32, device=dev)
-        mu, idx = m.charm_slice_params(0, hyper_out, y_prev)
         cursor, state = zero, None
         for i in range(self.num_slices):
             sym, cursor, state = rd.decode_section(
-                y_words, y_base, cursor, state, idx, (B, sc, yH, yW), lanes,
+                y_words, y_base, cursor, state, chain.indexes(), (B, sc, yH, yW), lanes,
                 self._dtable("y"), **flags)
-            y_prev, mu, idx = m.charm_decode_step(i, hyper_out, y_prev, sym, mu)
-        res = dict(y_hat=y_prev, z_hat=z_hat,
+            chain.step(i, sym)
+        y_hat = chain.y_hat()
+        res = dict(y_hat=y_hat, z_hat=chain.z_hat(),
                    consumed_words=torch.stack([z_cursor, cursor], dim=0))
         if recon:
-            res["img"] = m.reconstruct_uint8(y_prev, b1, b2)
+            res["img"] = m.reconstruct_uint8(y_hat, b1, b2)
         return res
 
     def _decompress_tpu(self, z_strs: List[bytes], y_strs: List[bytes],
@@ -507,7 +586,8 @@ class Codec:
         out = self._decode_pipeline(
             z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, lanes,
             sparse_esc=not hdr["esc_dense"], recon=not include_latents, b1=b1, b2=b2,
-            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]))
+            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]),
+            portable=bool(hdr["portable"]))
 
         def check(consumed):
             self._check_consumed(consumed, z_strs, y_strs)
@@ -542,8 +622,9 @@ class Codec:
 
     @torch.no_grad()
     def decompress(self, string_lists: List[List[bytes]], defer_fetch: bool = False):
-        """Decode same-size, same-quality streams, as one batch of the size
-        they were encoded at. Returns images [B, H, W, 3] uint8. With
+        """Decode same-size, same-quality streams as one batch: of the size
+        they were encoded at, or of any size if they are portable (all or
+        none of a batch). Returns images [B, H, W, 3] uint8. With
         ``defer_fetch`` a tpu-format decode returns a ``PendingImages``
         whose ``fetch()`` gives the images later, so that the copy overlaps
         the next batch's compute."""
@@ -553,7 +634,7 @@ class Codec:
         if hdr["stream_format"] == "tpu":
             return self._decompress_tpu(z_strs, y_strs, (H, W), hdr["quality_ind"], hdr,
                                         defer_fetch=defer_fetch)
-        y_hat, _ = self._decode_latents(z_strs, y_strs, H, W)
+        y_hat, _ = self._decode_latents(z_strs, y_strs, H, W, bool(hdr["portable"]))
         b1, b2 = self._betas(hdr["quality_ind"])
         img = self.module.reconstruct_uint8(y_hat, b1, b2)
         return _nhwc(img[:, :, :H, :W])
@@ -574,7 +655,7 @@ class Codec:
                                        include_latents=True)
             y_hat, z_hat = out["y_hat"], out["z_hat"]
         else:
-            y_hat, z_hat = self._decode_latents(z_strs, y_strs, H, W)
+            y_hat, z_hat = self._decode_latents(z_strs, y_strs, H, W, bool(hdr["portable"]))
         y_hat, z_hat = _nhwc(y_hat), _nhwc(z_hat)
         return all(np.array_equal(y_hat[b], r["y_hat"])
                    and np.array_equal(z_hat[b], r["z_hat"])
@@ -619,5 +700,6 @@ class Codec:
         dec_s = timed(lambda: self._decode_pipeline(
             z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, self.lanes,
             sparse_esc=not hdr["esc_dense"], recon=True, b1=b1, b2=b2,
-            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"])))
+            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]),
+            portable=bool(hdr["portable"])))
         return {"enc_s": enc_s, "dec_s": dec_s}

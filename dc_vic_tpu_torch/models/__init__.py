@@ -37,7 +37,8 @@ def _clean(cfg, drop=()) -> dict:
 @dataclasses.dataclass
 class CompModelSpec:
     """A built model plus the host-side codec metadata (quality-level beta
-    tables)."""
+    tables). The numeric configuration (``codec_dtype``,
+    ``entropy_precision``) is carried by ``module``."""
     module: DCVICModel
     selected_beta_rate: Optional[List[float]] = None
     selected_beta_vq: Optional[List[float]] = None
@@ -69,24 +70,47 @@ def set_recon_kernels(module: nn.Module, recon_kernels: Iterable[str]) -> None:
             m.fused = "fused_resblock" in chosen
 
 
+# the stacks that compute in the codec dtype; the hyperdecoder, the context
+# model and the entropy bottleneck stay f32 whatever it is
+_CODEC_DTYPE_STACKS = ("encoder", "decoder", "hyperencoder", "vq_estimator", "vq_model",
+                       "fusion_module")
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Round the conv and dense weights (and biases) under ``module`` to
+    ``dtype``, once: each such layer then computes in that dtype. GroupNorm
+    and LayerNorm parameters, the relative-position biases and the codebook
+    stay f32, as their arithmetic does."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            m.to(dtype)
+
+
 def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> CompModelSpec:
     """opt: full experiment config (opt.model and opt.subnet). Builds the
     model on ``device`` (the GPU unless the caller asks for another; without
     CUDA the default raises) with placeholder weights: call ``init_weights``
     or load a state dict before use. ``recon_kernels`` is a subset of
     ``RECON_KERNELS``; the empty default leaves every module on its ordinary
-    PyTorch code."""
+    PyTorch code. The config keys ``codec_dtype`` (null / "float32" /
+    "bfloat16": the compute dtype of the conv stacks) and
+    ``entropy_precision`` ("high" / "default": the products of the
+    entropy-parameter convs) are validated here and carried by the module."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "build_comp_model: CUDA is not available; pass device='cpu' to "
             "build on the CPU")
     ep = opt.get("entropy_precision", "high")
-    if ep not in (None, "high", "highest"):
-        raise ValueError(f"entropy_precision={ep!r}: the port runs the entropy "
-                         "chain in full f32 ('high')")
-    if opt.get("codec_dtype") not in (None, "float32"):
-        raise NotImplementedError("the port runs f32 only (codec_dtype null/float32)")
+    if ep not in (None, "high", "highest", "default"):
+        raise ValueError(
+            f"entropy_precision={ep!r}: expected 'high' (full f32, required for "
+            "compressai-format parity streams), 'highest', or 'default' (single-pass "
+            "tensor-core products in the entropy-parameter convs, scoped to the tpu "
+            "stream format)")
+    cd = opt.get("codec_dtype")
+    if cd not in (None, "bfloat16", "float32"):
+        raise ValueError(f"codec_dtype={cd!r}: expected 'bfloat16' or 'float32'/null")
     model_cfg = dict(opt["model"])
     if model_cfg.get("type") != "HyperpriorCharmDualCondVicModel":
         raise NotImplementedError(f"model type {model_cfg.get('type')!r} is not ported")
@@ -141,8 +165,11 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
             vq_model=VQModel(n_embed, embed_dim, dict(vq.get("ddconfig") or {})),
             fusion_module=FusionModule(sched),
             entropy_model_z=EntropyBottleneck(bottleneck_z),
-            gaussian=gaussian, n_embed=n_embed)
+            gaussian=gaussian, n_embed=n_embed, codec_dtype=cd, entropy_precision=ep)
     module.to(device)  # buffers made from numpy start on the CPU
+    if cd == "bfloat16":
+        for name in _CODEC_DTYPE_STACKS:
+            set_compute_dtype(getattr(module, name), torch.bfloat16)
     set_recon_kernels(module, recon_kernels)
     return CompModelSpec(
         module=module,
@@ -156,10 +183,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     initialisers: lecun-normal conv/linear weights (truncated at two
     standard deviations), zero biases, unit norms, U(-1/n, 1/n) codebook,
     N(0, 0.02) relative-position biases and the entropy bottleneck's own
-    scheme. The generator must live on the model's device."""
+    scheme. The generator must live on the model's device. Weights held in
+    bf16 are drawn in f32 and rounded, so a bf16 model gets the f32 model's
+    weights of the same seed, rounded once."""
     def lecun(w, fan_in):
         std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
-        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+        draw = torch.empty_like(w, dtype=torch.float32)
+        nn.init.trunc_normal_(draw, 0.0, std, -2 * std, 2 * std, generator=generator)
+        w.copy_(draw)
 
     for m in model.modules():
         if isinstance(m, nn.Conv2d):

@@ -5,10 +5,23 @@ The codec drives these methods; the encoder derives its entropy parameters
 through the same methods the decoder calls (hyper_decode,
 charm_slice_params, charm_decode_step), so with deterministic kernels both
 sides compute bitwise identical mu and CDF indexes. Tensors are NCHW.
+
+Numeric configuration. ``codec_dtype`` "bfloat16" puts the conv stacks whose
+outputs never have to repeat between two runs of the chain (VQGAN encode,
+analysis and synthesis transforms, hyperencoder, VQ estimator, fused VQGAN
+decode) in bf16; the hyperdecoder and the context model stay f32, and every
+tensor that crosses into entropy coding is widened to f32 exactly once (the
+VQGAN latent before the quantizer, y before symbolisation and y_hat, z
+before its symbols). ``entropy_precision`` "default" lets the
+entropy-parameter convs multiply in one tensor-core pass (TF32 with f32
+accumulation) instead of full f32: the counterpart of the JAX package's
+single-pass products. It is scoped to the three entropy-chain methods, which
+both sides call, and is a no-op on the CPU.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +77,12 @@ class DCVICModel(nn.Module):
                  context_model: nn.Module, vq_estimator: nn.Module,
                  vq_model: VQModel, fusion_module: FusionModule,
                  entropy_model_z: EntropyBottleneck,
-                 gaussian: GaussianConditional, n_embed: int = 256):
+                 gaussian: GaussianConditional, n_embed: int = 256,
+                 codec_dtype: Optional[str] = None,
+                 entropy_precision: Optional[str] = "high"):
         super().__init__()
+        self.codec_dtype = codec_dtype
+        self.entropy_precision = entropy_precision
         self.encoder = encoder
         self.decoder = decoder
         self.hyperencoder = hyperencoder
@@ -104,10 +121,27 @@ class DCVICModel(nn.Module):
         z_sym = self.entropy_model_z.quantize_symbols(z)
         return y, z_sym.to(torch.int16)
 
+    @contextlib.contextmanager
+    def _entropy_convs(self):
+        """The products of the entropy-parameter convs: with
+        ``entropy_precision`` "default" cuDNN may run them in TF32 inside
+        this block (still deterministic algorithms); the process-wide
+        setting is put back on the way out, also after an exception."""
+        if (self.entropy_precision or "high") != "default":
+            yield
+            return
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+
     def hyper_decode(self, z_symbols):
         """z symbols -> (hyper_out, z_hat)."""
         z_hat = self.entropy_model_z.dequantize(_row_major(z_symbols).to(torch.int32))
-        return _row_major(self.hyperdecoder(z_hat)), z_hat
+        with self._entropy_convs():
+            return _row_major(self.hyperdecoder(z_hat)), z_hat
 
     def charm_symbolize(self, slice_ind: int, y, mu):
         """clip(round(y_i - mu)) of slice slice_ind, as int16."""
@@ -125,8 +159,9 @@ class DCVICModel(nn.Module):
 
     def charm_slice_params(self, slice_ind: int, hyper_out, y_hat_prev):
         """(mu, CDF indexes uint8) of one slice."""
-        mu, sigma = self.context_model.slice_params(
-            slice_ind, _row_major(hyper_out), _row_major(y_hat_prev))
+        with self._entropy_convs():
+            mu, sigma = self.context_model.slice_params(
+                slice_ind, _row_major(hyper_out), _row_major(y_hat_prev))
         return _row_major(mu), self.y_indexes(sigma).to(torch.uint8)
 
     def charm_decode_step(self, slice_ind: int, hyper_out, y_hat_prev, symbols, mu):
@@ -134,9 +169,10 @@ class DCVICModel(nn.Module):
         indexes) of the next slice. Returns (y_hat_prev, mu_next, idx_next),
         the last two None after the final slice."""
         hyper_out, y_hat_prev = _row_major(hyper_out), _row_major(y_hat_prev)
-        y_hat_slice = self.context_model.slice_reconstruct(
-            slice_ind, hyper_out, y_hat_prev, _row_major(symbols).to(torch.int32),
-            _row_major(mu))
+        with self._entropy_convs():
+            y_hat_slice = self.context_model.slice_reconstruct(
+                slice_ind, hyper_out, y_hat_prev, _row_major(symbols).to(torch.int32),
+                _row_major(mu))
         y_hat_prev = torch.cat([y_hat_prev, y_hat_slice], dim=1)
         if slice_ind + 1 >= self.num_slices:
             return y_hat_prev, None, None
@@ -145,7 +181,9 @@ class DCVICModel(nn.Module):
 
     # -------------------------------------------------------------- decode
     def decode_from_y_hat(self, y_hat, beta_rate, beta_vq, w: float = 1.0):
-        """y_hat -> (image [-1, 1], vq_latent_pred, vq_logits, vq_indices)."""
+        """y_hat -> (image [-1, 1] f32, vq_latent_pred, vq_logits,
+        vq_indices). y_hat comes in f32; the decoder's first conv casts it
+        to the codec dtype."""
         feat, cond_feats = self.decoder.get_feats(y_hat, beta_rate, beta_vq)
         pred_embed, logits = self.vq_estimator(feat)
         indices = torch.argmax(logits, dim=1)

@@ -6,6 +6,10 @@ NCHW modules named as the latent-diffusion reference names them
 call kernel K2 and the quantizer kernel K1; a ``VQResnetBlock`` whose
 ``fused`` flag is on (``build_comp_model``'s ``recon_kernels``) runs as two
 calls of the fused conv kernel K6 where the shape rule allows.
+
+Under a bf16 compute dtype the convs and the two dense layers hold bf16
+weights; GroupNorm statistics, the folded affine of the fused block, the
+attention operands (K2) and the quantizer's input (K1) stay f32.
 """
 from __future__ import annotations
 
@@ -61,11 +65,15 @@ class VQResnetBlock(nn.Module):
         return self.fused and conv3x3_ops.use_kernel(B, C, self.conv1.out_channels, H, W)
 
     def _fused(self, x):
+        # x in the convs' dtype; the folded affine and the conv bias are f32
+        x = x.to(self.conv1.weight.dtype)
         s1, o1 = gn_fold(x, self.norm1)
-        h = conv3x3_ops.conv3x3_gn_swish(x, self.conv1.weight, s1, o1, self.conv1.bias, None)
+        h = conv3x3_ops.conv3x3_gn_swish(x, self.conv1.weight, s1, o1,
+                                         self.conv1.bias.float(), None)
         s2, o2 = gn_fold(h, self.norm2)
         res = self.nin_shortcut(x) if self.nin_shortcut is not None else x
-        return conv3x3_ops.conv3x3_gn_swish(h, self.conv2.weight, s2, o2, self.conv2.bias, res)
+        return conv3x3_ops.conv3x3_gn_swish(h, self.conv2.weight, s2, o2,
+                                            self.conv2.bias.float(), res)
 
     def forward(self, x):
         if self.takes_fused(x.shape):
@@ -96,10 +104,10 @@ class VQAttnBlock(nn.Module):
             return t.reshape(B, C, H * W).transpose(1, 2).float().contiguous()
 
         # f32 operands whatever the conv dtype, q pre-scaled by C^-1/2
-        out = flash_attention(tokens(self.q(h) * C ** -0.5), tokens(self.k(h)),
-                              tokens(self.v(h)))
-        out = out.transpose(1, 2).reshape(B, C, H, W).to(x.dtype)
-        return x + self.proj_out(out)
+        q = self.q(h)
+        out = flash_attention(tokens(q * C ** -0.5), tokens(self.k(h)), tokens(self.v(h)))
+        out = out.transpose(1, 2).reshape(B, C, H, W)
+        return (x + self.proj_out(out)).to(q.dtype)
 
 
 class Downsample(nn.Module):

@@ -13,6 +13,15 @@ DCVIC_PALLAS_CONV=1). With the flag on, a forward whose input shape passes
 the kernel's shape rule goes through ``ops/gn.py`` (kernels K3 and K4) or
 ``ops/conv3x3.py`` (K5); any other shape takes the module's ordinary
 PyTorch code, as the JAX package routes it to XLA.
+
+Compute dtype. A layer computes in the dtype of its own weight: it casts its
+input to that dtype, as a flax layer built with ``dtype=`` casts input,
+kernel and bias at use. ``build_comp_model`` rounds the conv and dense
+weights of the bf16 stacks to bf16 once (``codec_dtype: bfloat16``), which is
+the same arithmetic as casting f32 parameters at every call. GroupNorm keeps
+f32 parameters and f32 arithmetic and returns its input's dtype; residual
+sums and FiLM products promote as the JAX package's do (f32 with bf16 gives
+f32), so an f32 input stays f32 until the next conv takes it.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ class Conv2d(nn.Conv2d):
                 and conv3x3_ops.use_kernel(B, C, self.out_channels, H, W))
 
     def forward(self, x):
+        x = x.to(self.weight.dtype)
         if not self.takes_kernel(x.shape):
             return super().forward(x)
         y = conv3x3_ops.conv3x3_same(x, self.weight)
@@ -67,11 +77,18 @@ def conv(cin: int, cout: int, k: int = 3, stride: int = 1,
     return cls(cin, cout, k, stride=stride, padding=(k - 1) // 2)
 
 
-def deconv(cin: int, cout: int, k: int = 5) -> nn.ConvTranspose2d:
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in its weight's dtype."""
+
+    def forward(self, x):
+        return super().forward(x.to(self.weight.dtype))
+
+
+def deconv(cin: int, cout: int, k: int = 5) -> ConvTranspose2d:
     """ConvTranspose2d(k, stride 2, padding (k-1)//2, output_padding 1):
     doubles the spatial size."""
-    return nn.ConvTranspose2d(cin, cout, k, stride=2, padding=(k - 1) // 2,
-                              output_padding=1)
+    return ConvTranspose2d(cin, cout, k, stride=2, padding=(k - 1) // 2,
+                           output_padding=1)
 
 
 class PointwiseLinear(nn.Linear):
@@ -79,7 +96,7 @@ class PointwiseLinear(nn.Linear):
     weight is stored 2-D, as the JAX package exports it)."""
 
     def forward(self, x):
-        return F.conv2d(x, self.weight[:, :, None, None], self.bias)
+        return F.conv2d(x.to(self.weight.dtype), self.weight[:, :, None, None], self.bias)
 
 
 class GroupNorm(nn.Module):
@@ -213,10 +230,11 @@ def beta_mlp(cond_ch: int, L: int, include_x: bool) -> nn.Sequential:
 def beta_cond(mlp: nn.Sequential, beta_1, beta_2, L: int, max_beta_1: float,
               max_beta_2: float, use_pi: bool, include_x: bool) -> torch.Tensor:
     """Fourier(beta_1) ++ Fourier(beta_2) -> MLP: the cond vector [B, cond_ch]
-    that every FiLM layer reads (DualBetaCondMLP)."""
+    that every FiLM layer reads (DualBetaCondMLP). The Fourier features are
+    f32; the MLP computes in its weights' dtype."""
     e1 = fourier_encode_beta(beta_1, L, max_beta_1, use_pi, include_x)
     e2 = fourier_encode_beta(beta_2, L, max_beta_2, use_pi, include_x)
-    return mlp(torch.cat([e1, e2], dim=-1))
+    return mlp(torch.cat([e1, e2], dim=-1).to(mlp[0].weight.dtype))
 
 
 class BetaScaleShift(nn.Module):

@@ -4,6 +4,12 @@ dc_vic_tpu/nn/swin.py).
 Plain tensor code, as the JAX package leaves it to XLA. Blocks take and
 return NCHW maps and work on NHWC tokens inside. LayerNorm uses flax's
 epsilon (1e-6) and the MLP flax's tanh-approximated GELU.
+
+Under a bf16 compute dtype (dense weights rounded to bf16 at build) the
+tokens are bf16, and as in the JAX package the attention scores accumulate
+in f32, take the f32 position bias and mask, go through the softmax in f32
+and are cast back to the tokens' dtype before they meet v; LayerNorm keeps
+f32 parameters, normalises in f32 and returns the tokens' dtype.
 """
 from __future__ import annotations
 
@@ -60,15 +66,23 @@ class WindowAttention(nn.Module):
         hd = C // h
         qkv = self.qkv(xw).reshape(Bn, N, 3, h, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]                    # [Bn, h, N, hd]
-        attn = (q * hd ** -0.5) @ k.transpose(-2, -1)
+        # f32 scores: products of the tokens' values, summed in f32
+        attn = (q * hd ** -0.5).float() @ k.float().transpose(-2, -1)
         bias = self.relative_position_bias_table[self.relative_position_index]
         attn = attn + bias.reshape(N, N, h).permute(2, 0, 1)[None]
         if mask is not None:
             nW = mask.shape[0]
             attn = attn.reshape(Bn // nW, nW, h, N, N) + mask[None, :, None]
             attn = attn.reshape(Bn, h, N, N)
-        out = torch.softmax(attn, dim=-1) @ v
+        out = torch.softmax(attn, dim=-1).to(xw.dtype) @ v
         return self.proj(out.transpose(1, 2).reshape(Bn, N, C))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm in f32 whatever the tokens' dtype, cast back on return."""
+
+    def forward(self, x):
+        return super().forward(x.float()).to(x.dtype)
 
 
 class Mlp(nn.Module):
@@ -87,9 +101,9 @@ class SwinBlock(nn.Module):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
-        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm1 = LayerNorm(dim, eps=1e-6)
         self.attn = WindowAttention(dim, num_heads, window_size)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
         self._masks: Dict[Tuple, torch.Tensor] = {}
 

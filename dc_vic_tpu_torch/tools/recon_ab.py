@@ -3,11 +3,15 @@ on, on one GPU: end-to-end times in turns, and where the device time goes.
 
     python -m dc_vic_tpu_torch.tools.recon_ab [--runs 6] [--out FILE]
         [--stream-format compressai|tpu] [--encode-backend host|device] [--lanes 128]
+        [--codec-dtype float32|bfloat16] [--batch 4]
+        [--recon-kernels gn,conv3x3,fused_resblock] [--deployment]
 
 Two models with the same seed-0 weights (config/dc_vic_patchgan.yaml, full
-width and depth, f32): the default one, and one built with
+width and depth; f32, or with ``--codec-dtype bfloat16`` the deployment
+numerics: bf16 conv stacks and ``entropy_precision: default``): the default
+one, and one built with
 recon_kernels = gn, conv3x3, fused_resblock. After one warm-up round trip
-each, a batch of four 768x512 noise images goes through Codec.compress and
+each, a batch of ``--batch`` 768x512 noise images goes through Codec.compress and
 Codec.decompress ``--runs`` times per model in the order off, on, on, off,
 ...; every time is printed (host clock around a call that ends in
 torch.cuda.synchronize()), then the medians. Then one round trip of each
@@ -25,6 +29,11 @@ time is summed by kernel name and by group:
 compressai, the format of the earlier breakdowns); with ``tpu`` the coder
 kernels R1 and R2 appear among the port's kernels, and ``--encode-backend``
 and ``--lanes`` are the Codec's arguments of those names.
+``--recon-kernels`` names the kernels of the "on" model (``gn`` alone keeps
+the convolutions with cuDNN). ``--deployment`` takes the deployment workload
+of ``tools/workload.py`` instead: bf16 and ``default``, tpu format, device
+backend, 512 lanes, sixteen smooth images, encoder weights scaled; the
+device-only times of ``Codec.bench_device_cycle`` are printed as well.
 
 The grouping is by substrings of the kernel names and is printed in full
 (top kernels by time), so a wrong guess shows. Needs CUDA; fails without.
@@ -44,6 +53,7 @@ import torch
 from ..codec.driver import Codec
 from ..models import RECON_KERNELS, build_comp_model, init_weights
 from ..utils.config import load_config
+from .workload import DEPLOYMENT, deployment_images, scale_encoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -75,7 +85,7 @@ def round_trip(codec: Codec, images: np.ndarray):
     t1 = time.perf_counter()
     codec.decompress([r["string_list"] for r in res])
     torch.cuda.synchronize()
-    return t1 - t0, time.perf_counter() - t1
+    return t1 - t0, time.perf_counter() - t1, float(np.mean([r["bpp"] for r in res]))
 
 
 def device_times(codec: Codec, images: np.ndarray):
@@ -84,7 +94,7 @@ def device_times(codec: Codec, images: np.ndarray):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = sum(round_trip(codec, images))
+        wall = sum(round_trip(codec, images)[:2])
     out = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
@@ -123,7 +133,18 @@ def main() -> None:
     ap.add_argument("--encode-backend", default="device", choices=("host", "device"),
                     help="where tpu-format streams are entropy-coded")
     ap.add_argument("--lanes", type=int, default=128, help="lane cap of tpu-format streams")
+    ap.add_argument("--codec-dtype", default="float32", choices=("float32", "bfloat16"),
+                    help="bfloat16: bf16 conv stacks and entropy_precision 'default'")
+    ap.add_argument("--batch", type=int, default=4, help="images per round trip")
+    ap.add_argument("--recon-kernels", default=",".join(RECON_KERNELS),
+                    help="comma-separated recon_kernels of the 'on' model")
+    ap.add_argument("--deployment", action="store_true",
+                    help="the deployment workload: sets the five options above")
     args = ap.parse_args()
+    if args.deployment:
+        args.stream_format, args.encode_backend, args.codec_dtype = "tpu", "device", "bfloat16"
+        args.lanes, args.batch = DEPLOYMENT["lanes"], DEPLOYMENT["batch"]
+    names = tuple(n for n in args.recon_kernels.split(",") if n)
     if not torch.cuda.is_available():
         raise SystemExit("recon_ab: CUDA is not available; this script runs on a GPU")
     lines = []
@@ -137,18 +158,31 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip())
     emit(f"torch {torch.__version__} cuda {torch.version.cuda}")
     opt = load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
+    if args.codec_dtype == "bfloat16":
+        opt["codec_dtype"], opt["entropy_precision"] = "bfloat16", "default"
+    emit(f"model: codec_dtype {opt.get('codec_dtype')}, entropy_precision "
+         f"{opt.get('entropy_precision', 'high')}, batch {args.batch}")
     off = build_comp_model(opt)
-    init_weights(off.module, torch.Generator(device="cuda").manual_seed(0))
-    on = build_comp_model(opt, recon_kernels=RECON_KERNELS)
+    if args.deployment:         # scale the f32 draw, then round: as a loaded checkpoint
+        f32 = build_comp_model(load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml")))
+        init_weights(f32.module, torch.Generator(device="cuda").manual_seed(0))
+        off.module.load_state_dict(scale_encoder(f32.module.state_dict()), strict=True)
+        del f32
+    else:
+        init_weights(off.module, torch.Generator(device="cuda").manual_seed(0))
+    on = build_comp_model(opt, recon_kernels=names)
     on.module.load_state_dict(off.module.state_dict(), strict=True)
     kw = dict(stream_format=args.stream_format, encode_backend=args.encode_backend,
               lanes=args.lanes)
-    emit(f"codec: {kw}")
+    emit(f"codec: {kw}; recon_kernels of 'on': {names}; deployment workload: "
+         f"{args.deployment}")
     codecs = {"off": Codec(off, **kw), "on": Codec(on, **kw)}
-    images = np.random.default_rng(0).integers(0, 256, (4, 768, 512, 3), dtype=np.uint8)
+    images = (deployment_images() if args.deployment else
+              np.random.default_rng(0).integers(0, 256, (args.batch, 768, 512, 3),
+                                                dtype=np.uint8))
     for name, codec in codecs.items():
-        enc, dec = round_trip(codec, images)
-        emit(f"warm-up, kernels {name}: encode {enc} s, decode {dec} s")
+        enc, dec, bpp = round_trip(codec, images)
+        emit(f"warm-up, kernels {name}: encode {enc} s, decode {dec} s, {bpp} bpp")
     seen = {"off": [], "on": []}
     for i in range(args.runs):
         for name in (("off", "on") if i % 2 == 0 else ("on", "off")):
@@ -158,6 +192,14 @@ def main() -> None:
         emit(f"kernels {name}: decode s {[r[1] for r in runs]}")
         emit(f"kernels {name}: median encode {statistics.median(r[0] for r in runs)} s, "
              f"median decode {statistics.median(r[1] for r in runs)} s over {len(runs)} runs")
+    if args.stream_format == "tpu" and args.encode_backend == "device":
+        for name, codec in codecs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cycle = codec.bench_device_cycle(images, 0)
+            emit(f"kernels {name}: bench_device_cycle encode chain {cycle['enc_s']} s, decode "
+                 f"chain {cycle['dec_s']} s; peak memory of these cycles "
+                 f"{torch.cuda.max_memory_allocated() / 2 ** 30} GiB (both models resident)")
     for name, codec in codecs.items():
         times, wall = device_times(codec, images)
         report(f"reconstruction kernels {name}", times, wall, emit)

@@ -105,13 +105,14 @@ def test_corrupt_roundtrip_is_detected(codec):
 
 
 def test_decompress_rejects_portable_streams(codec):
-    """Portable mode is not ported: both formats' portable headers raise."""
+    """What is left to reject now that portable streams decode: a portable
+    and a non-portable stream in one decode batch, in both formats."""
     from dc_vic_tpu_torch.codec.container import HeaderHandler
     for tpu in (True, False):
-        header = HeaderHandler.encode((64, 64), 0, 0, tpu_format=tpu, encode_batch=1,
-                                      portable=True)
+        headers = [HeaderHandler.encode((64, 64), 0, 0, tpu_format=tpu, encode_batch=2,
+                                        portable=p) for p in (True, False)]
         with pytest.raises(ValueError, match="portable"):
-            codec.decompress([[header, b"", b""]])
+            codec.decompress([[h, b"", b""] for h in headers])
 
 
 def test_codec_defaults_are_the_reference_s(spec):

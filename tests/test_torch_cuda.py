@@ -97,7 +97,8 @@ def _border(t):
 
 @pytest.mark.parametrize("shape,dtype", [((2, 128, 96, 64), torch.float32),
                                          ((1, 24, 37, 53), torch.float32),
-                                         ((2, 128, 48, 64), torch.bfloat16)])
+                                         ((2, 128, 48, 64), torch.bfloat16),
+                                         ((2, 128, 384, 256), torch.bfloat16)])
 def test_gn_channel_sums_kernel_matches_float64(dev, shape, dtype):
     """Kernel and plain version both within 1e-5 of sum|x| (resp. sum x^2) of
     a float64 sum of the same input; the kernel is bitwise repeatable."""
@@ -117,7 +118,8 @@ def test_gn_channel_sums_kernel_matches_float64(dev, shape, dtype):
 @pytest.mark.parametrize("act", [None, "swish"])
 @pytest.mark.parametrize("shape,dtype", [((2, 128, 96, 64), torch.float32),
                                          ((1, 24, 37, 53), torch.float32),
-                                         ((2, 128, 48, 64), torch.bfloat16)])
+                                         ((2, 128, 48, 64), torch.bfloat16),
+                                         ((2, 128, 384, 256), torch.bfloat16)])
 def test_gn_apply_kernel_matches_plain(dev, shape, dtype, act):
     """f32: atol = rtol = 1e-6 (the affine has the plain version's bits, the
     sigmoid may differ in the last place); bf16: one ulp of the output."""
@@ -178,6 +180,8 @@ CONV_SHAPES = [((2, 128, 128, 16, 64), torch.float32),
                ((1, 256, 128, 24, 32), torch.float32),    # a channel change
                ((1, 128, 64, 13, 37), torch.float32),     # odd plane: ragged tiles
                ((1, 128, 128, 16, 32), torch.bfloat16),
+               ((2, 128, 128, 192, 128), torch.bfloat16),  # a plane that passes the shape rule
+               ((1, 256, 128, 24, 32), torch.bfloat16),    # bf16 across a channel change
                ((1, 512, 512, 24, 32), torch.float32)]    # the path's deepest reduction
 
 
@@ -265,6 +269,116 @@ def test_fused_resblock_kernels_match_unfused_module(dev, no_tf32):
             assert blk.takes_fused(x.shape)
             got = blk(x)
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+def test_bf16_modules_hand_the_kernels_bf16(dev, no_tf32):
+    """A bf16 VQResnetBlock with every route on against its ordinary bf16
+    forward: the fused route (two K6 calls on bf16 operands, f32 folded
+    affine and conv bias) and the GroupNorm + conv route (K3, K4, K5);
+    5e-2 (steps of the bf16 output after 1152 taps, twice)."""
+    from dc_vic_tpu_torch.models import set_compute_dtype
+    from dc_vic_tpu_torch.models.vqgan import VQResnetBlock
+    from dc_vic_tpu_torch.nn.layers import Conv2d, GroupNorm
+    from dc_vic_tpu_torch.ops import conv3x3, gn
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = (torch.randn(2, 128, 128, 96, generator=g, device=dev) * 0.7).to(torch.bfloat16)
+    blk = VQResnetBlock(128, 256).to(dev)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+        set_compute_dtype(blk, torch.bfloat16)
+        want = blk(x)
+        before = dict(conv3x3.launches), dict(gn.launches)
+        blk.fused = True
+        fused = blk(x)
+        assert conv3x3.launches["conv3x3_gn_swish"] == before[0]["conv3x3_gn_swish"] + 2
+        blk.fused = False
+        for m in blk.modules():
+            if isinstance(m, (GroupNorm, Conv2d)):
+                m.recon_kernel = True
+        routed = blk(x)
+        assert conv3x3.launches["conv3x3_same"] == before[0]["conv3x3_same"] + 2
+        assert gn.launches["gn_apply"] == before[1]["gn_apply"] + 2
+    for got in (fused, routed):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got, want, atol=5e-2, rtol=5e-2)
+
+
+def _tiny_config(vq_ch=8, **numerics):
+    """The narrow flagship-family model of the CPU tests (tests/helpers.py,
+    which this file cannot import: it pulls in the JAX package). ``vq_ch``
+    64 makes the VQGAN's attention 128 wide, the narrowest K2 takes."""
+    film = dict(max_beta_1=3.0, max_beta_2=3.5, cond_ch=16, L=4, use_pi=False, include_x=True)
+    return dict(
+        numerics,
+        model={"type": "HyperpriorCharmDualCondVicModel", "enc_vq_input": "onehot_indices",
+               "selected_beta_rate": [2.29, 1.12, 0.16], "selected_beta_vq": [3.0, 2.0, 1.0]},
+        subnet={
+            "encoder": dict(type="ElicDualBetaFtVqScEncoder", in_ch=3, out_ch=24, main_ch=16,
+                            block_mid_ch=8, num_blocks=1, **film),
+            "decoder": dict(type="ElicDualBetaFtFeatFusionDecoder", out_ch=3, main_ch=16,
+                            block_mid_ch=8, num_blocks=1, use_tanh=False,
+                            feat_layer_name="block1",
+                            fusion_layer_dict={"block1": "block_1_8", "block2": "block_1_4",
+                                               "block3": "block_1_2"}, **film),
+            "hyperencoder": {"type": "Minnen20HyperEncoder", "bottleneck_z": 16},
+            "hyperdecoder": {"type": "Minnen20HyperDecoder", "hyper_out_ch": 32},
+            "context_model": {"type": "Minnen20CharmContextModel", "num_slices": 6,
+                              "max_support_slices": 4, "slice_mid_ch": (16, 16)},
+            "entropy_model_z": {"type": "SteEntropyBottleneck", "channels": 16},
+            "entropy_model_y": {"type": "SteGaussianMeanScaleConditional", "scale_bound": 0.11},
+            "fusion_module": {"fuse_type": "sft", "fuse_scedule_dict": {
+                "block_1_8": {"dec_ch": 16, "cond_ch": 16, "mid_ch": 16},
+                "block_1_4": {"dec_ch": 8, "cond_ch": 16, "mid_ch": 8},
+                "block_1_2": {"dec_ch": 8, "cond_ch": 16, "mid_ch": 8}}},
+            "vq_estimator": {"type": "DualBlockSwinVqEstimator", "main_ch": 16,
+                             "num_swin_blocks": 1, "blk_depth": 1, "num_heads": 2,
+                             "window_size": 4, "use_upsample": False},
+            "vq_model": {"embed_dim": 4, "n_embed": 32, "ddconfig": {
+                "double_z": False, "z_channels": 4, "resolution": 64, "in_channels": 3,
+                "out_ch": 3, "ch": vq_ch, "ch_mult": [1, 1, 1, 2], "num_res_blocks": 1,
+                "attn_resolutions": [8]}}})
+
+
+def test_entropy_precision_default_is_scoped_and_self_consistent(dev):
+    """On the card ``entropy_precision: default`` changes the entropy chain's
+    floats (TF32 products) only inside the chain's methods, gives the same
+    bits on a second call, and leaves the process-wide flag as it was."""
+    from dc_vic_tpu_torch.models import build_comp_model, init_weights
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, True
+    try:
+        out = {}
+        for precision in ("high", "default"):
+            spec = build_comp_model(_tiny_config(entropy_precision=precision))
+            init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
+            z = torch.randint(-4, 5, (2, 16, 6, 4), device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(1)).to(torch.int16)
+            with torch.no_grad():
+                out[precision] = spec.module.hyper_decode(z)[0]
+                assert torch.equal(out[precision], spec.module.hyper_decode(z)[0])
+            assert torch.backends.cudnn.allow_tf32 is False
+        torch.testing.assert_close(out["default"], out["high"], atol=1e-2, rtol=1e-2)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = old
+
+
+def test_portable_stream_decodes_in_any_grouping_on_the_card(dev):
+    """The tiny model in the deployment numerics, portable, device backend:
+    a batch-4 stream decodes bit-exactly as 4, 2 + 2 and 4 x 1."""
+    import numpy as np
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import build_comp_model, init_weights
+    spec = build_comp_model(_tiny_config(vq_ch=64, codec_dtype="bfloat16",
+                                         entropy_precision="default"))
+    init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
+    codec = Codec(spec, encode_backend="device", lanes=8, portable=True)
+    img = np.random.default_rng(0).integers(0, 256, (4, 128, 192, 3), dtype=np.uint8)
+    res = codec.compress(img, 0, debug=True)
+    sls = [r["string_list"] for r in res]
+    for group in ([0, 1, 2, 3], [0, 1], [2, 3], [0], [1], [2], [3]):
+        assert codec.verify_roundtrip([res[b] for b in group], [sls[b] for b in group],
+                                      (128, 192)), group
 
 
 # ------------------------------------------- R1, R2: the tpu format's coder
