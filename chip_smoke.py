@@ -11,7 +11,8 @@
 3. Drives the codec of the flagship model (config/dc_vic_patchgan.yaml,
    full width, random weights from a seed) on its default path: a batch of
    four 768x512 images through Codec.compress -> bitstreams ->
-   Codec.decompress, then one 500x740 image. It checks that the decoder's
+   Codec.decompress in the compressai format with the entropy chain on the
+   card (params_backend "accel"), then one 500x740 image. It checks that the decoder's
    y_hat equals the encoder's bitwise, that the decoded images equal the
    reconstruction of the encoder's y_hat, and that the path launched K1 and
    K2.
@@ -71,6 +72,30 @@
    portable decode chain runs under torch.cuda.set_sync_debug_mode("error").
 11. Holds K3 to K6 in bf16 against their plain versions at every distinct
    shape that round trip launched them with, at batch 16, image by image.
+12. Images over 1024 px and the rest of the Codec surface, on the f32 model
+   with the workload's weights: one 2048x1365 image (smooth content plus
+   noise, seed 0; it pads to 2048x1408: 35 encode tiles and 35
+   reconstruction tiles, 3 chunks of 16 each) round-trips through the tiled
+   VQGAN encode and the tiled reconstruction in the tpu format (device
+   backend, lanes 512, the decode chain under
+   torch.cuda.set_sync_debug_mode("error")) and in the compressai format
+   (params_backend "cpu"): latents bit-exact, pixels equal to
+   _split_reconstruct of the encoder's y_hat, consumed words checked (the
+   tpu stream's latents also through a default compressai Codec, whose
+   tpu-format decode runs on the model's own chain), K1
+   launched once per compress and K2 as often as the chunks give; encode
+   and decode seconds and peak memory printed. The same image with the
+   reconstruction kernels on: K3 to K6 at the tile shapes, each shape held
+   against the plain version image by image, and one chunk's
+   reconstruction against the kernels-off model's. A batch-4 768x512
+   compressai stream encoded on the card (params_backend "cpu") decodes
+   bit-exactly on a model built on the CPU from the same weights, at
+   another thread count; its latents as 4, 2 x 2 and 4 x 1 are printed.
+   Quality 2's betas given as betas write quality 2's strings with quality
+   0 in the header, and decompress_raw with them gives quality 2's pixels.
+   The compress CLI's array function (tools/compress.py) runs on two
+   768x512 images with selfcheck and decompress. Last, attention with C = 64
+   and a VQ with D = 8 take the plain versions on the card.
 
 For every kernel it prints the least time the card could take for the same
 work: each input read once and each output written once over 3.35 TB/s, or
@@ -836,22 +861,29 @@ def _repeatable(kernel, first, what):
         raise AssertionError(f"{what} is not repeatable")
 
 
-def check_bf16_path_shapes(gn, conv3x3, shapes, dev, gen):
-    """K3 to K6 in bf16 at every distinct shape the deployment
-    configuration's batch-16 round trip launched them with (``shapes`` as
-    expected_launch_recorder tallied them). The kernel takes the whole batch
-    in one launch; its plain version takes one image at a time, so the
-    reference never forms a batch offset and an index that wraps beyond the
-    first images (a [16, 256, 768, 512] plane has 1.6 G elements) shows as a
-    mismatch in the later ones. Tolerances as in check_bf16_kernels: K3
-    1e-5 of sum|x| and sum x^2 against float64, K4 1e-2, K5 and K6 (with and
-    without the residual) 5e-2, whole and border; each launch twice: equal
-    bits."""
+# (K4, K5 and K6) tolerances of a kernel against its plain version, by dtype:
+# steps of bf16 after up to 4608 taps; in f32 the affine's last place and
+# another summation order of three TF32 products per product
+PATH_TOL = {"bfloat16": (1e-2, 5e-2), "float32": (1e-6, 1e-4)}
+
+
+def check_path_shapes(gn, conv3x3, shapes, dev, gen, dtype_name="bfloat16"):
+    """K3 to K6 in ``dtype_name`` at every distinct shape a round trip
+    launched them with (``shapes`` as expected_launch_recorder tallied them:
+    the deployment configuration's batch 16, or the tiles of an image over
+    1024 px). The kernel takes the whole batch in one launch; its plain
+    version takes one image at a time, so the reference never forms a batch
+    offset and an index that wraps beyond the first images (a [16, 256, 768,
+    512] plane has 1.6 G elements) shows as a mismatch in the later ones.
+    Tolerances: K3 1e-5 of sum|x| and sum x^2 against float64, K4 and K5/K6
+    (with and without the residual) PATH_TOL, whole and border; each launch
+    twice: equal bits."""
     import torch
-    bf = torch.bfloat16
+    dtype = getattr(torch, dtype_name)
+    tol4, tol_conv = PATH_TOL[dtype_name]
     for (B, C, H, W), count in sorted(shapes["gn"].items()):
-        label = f"[{B},{C},{H},{W}] bfloat16 ({count} launches per round trip)"
-        x = torch.randn(B, C, H, W, generator=gen, device=dev, dtype=bf) * 2 + 0.5
+        label = f"[{B},{C},{H},{W}] {dtype_name} ({count} launches per round trip)"
+        x = torch.randn(B, C, H, W, generator=gen, device=dev, dtype=dtype) * 2 + 0.5
         scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + 0.5
         bias = torch.randn(B, C, generator=gen, device=dev)
         sums = gn.channel_sums(x)
@@ -869,17 +901,17 @@ def check_bf16_path_shapes(gn, conv3x3, shapes, dev, gen):
         _repeatable(lambda: gn.channel_sums(x), sums, f"gn_channel_sums at {label}")
         got = gn.apply_affine(x, scale, bias, "swish")
         err4 = _held_per_image(got, lambda b: gn.apply_affine_plain(
-            x[b:b + 1], scale[b:b + 1], bias[b:b + 1], "swish"), 1e-2, f"gn_apply at {label}")
+            x[b:b + 1], scale[b:b + 1], bias[b:b + 1], "swish"), tol4, f"gn_apply at {label}")
         _repeatable(lambda: gn.apply_affine(x, scale, bias, "swish"), got,
                     f"gn_apply at {label}")
         print(f"K3, K4 at {label}: sums {rel:.2e} of the scale off float64; apply max abs "
-              f"err {err4:.3e} to plain (tolerance 0.01); every image; repeatable")
+              f"err {err4:.3e} to plain (tolerance {tol4:g}); every image; repeatable")
         del x, got, sums
     for name in ("conv3x3_same", "conv3x3_gn_swish"):
         for (B, C, Cout, H, W), count in sorted(shapes[name].items()):
-            label = f"[{B},{C},{H},{W}]->{Cout} bfloat16 ({count} launches per round trip)"
-            x = torch.randn(B, C, H, W, generator=gen, device=dev, dtype=bf)
-            w = (torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05).to(bf)
+            label = f"[{B},{C},{H},{W}]->{Cout} {dtype_name} ({count} launches per round trip)"
+            x = torch.randn(B, C, H, W, generator=gen, device=dev, dtype=dtype)
+            w = (torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05).to(dtype)
             if name == "conv3x3_same":
                 cases = [("K5 conv3x3_same", lambda: conv3x3.conv3x3_same(x, w),
                           lambda b: conv3x3.conv3x3_same_plain(x[b:b + 1], w))]
@@ -887,7 +919,7 @@ def check_bf16_path_shapes(gn, conv3x3, shapes, dev, gen):
                 scale = torch.rand(B, C, generator=gen, device=dev) * 1.5 + 0.5
                 bias = torch.randn(B, C, generator=gen, device=dev) + 2.0
                 cbias = torch.randn(Cout, generator=gen, device=dev)
-                res = torch.randn(B, Cout, H, W, generator=gen, device=dev, dtype=bf)
+                res = torch.randn(B, Cout, H, W, generator=gen, device=dev, dtype=dtype)
                 cases = [(f"K6 conv3x3_gn_swish{'' if r is None else ' +res'}",
                           lambda r=r: conv3x3.conv3x3_gn_swish(x, w, scale, bias, cbias, r),
                           lambda b, r=r: conv3x3.conv3x3_gn_swish_plain(
@@ -896,10 +928,10 @@ def check_bf16_path_shapes(gn, conv3x3, shapes, dev, gen):
                          for r in (None, res)]
             for what, kernel, plain_one in cases:
                 got = kernel()
-                err = _held_per_image(got, plain_one, 5e-2, f"{what} at {label}")
+                err = _held_per_image(got, plain_one, tol_conv, f"{what} at {label}")
                 _repeatable(kernel, got, f"{what} at {label}")
                 print(f"{what} at {label}: max abs err {err:.3e} to plain (atol = rtol = "
-                      f"0.05, whole and border, every image); repeatable")
+                      f"{tol_conv:g}, whole and border, every image); repeatable")
                 del got
             del x, w, cases
             scale = bias = cbias = res = None
@@ -1127,9 +1159,10 @@ def expected_launch_recorder(module):
     are really called with: the launches the rules give for this run,
     counted apart from the wrappers' own counters. A module inside a block
     that took the fused route is never called, so it counts nothing."""
+    import torch
     from dc_vic_tpu_torch.models.vqgan import VQAttnBlock, VQResnetBlock
     from dc_vic_tpu_torch.nn.layers import Conv2d, GroupNorm
-    from dc_vic_tpu_torch.ops import conv3x3, gn
+    from dc_vic_tpu_torch.ops import attention, conv3x3, gn, vq
     want = {"vq_argmin": 0, "flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0,
             "conv3x3_same": 0, "conv3x3_gn_swish": 0}
     # (B, C, Cout, H, W) -> launches of the two conv kernels, (B, C, H, W) ->
@@ -1141,8 +1174,9 @@ def expected_launch_recorder(module):
 
     def hook(m, args):
         shape = tuple(args[0].shape)
-        if isinstance(m, VQAttnBlock):
-            want["flash_attention"] += 1
+        if isinstance(m, VQAttnBlock):                 # f32 tokens whatever the conv dtype
+            B, C, H, W = shape
+            want["flash_attention"] += attention.use_kernel((B, H * W, C), torch.float32)
         elif isinstance(m, GroupNorm):
             if m.recon_kernel and gn.use_kernel(shape):
                 want["gn_channel_sums"] += 1
@@ -1161,8 +1195,9 @@ def expected_launch_recorder(module):
                 Cout = m.conv1.out_channels
                 tally("conv3x3_gn_swish", (B, C, Cout, H, W))       # conv1
                 tally("conv3x3_gn_swish", (B, Cout, Cout, H, W))    # conv2
-        else:                                          # the quantizer
-            want["vq_argmin"] += 1
+        else:                                          # the quantizer, on an f32 latent
+            N, D = m.embedding.weight.shape
+            want["vq_argmin"] += vq.use_kernel(D, N, torch.float32)
 
     kinds = (VQAttnBlock, GroupNorm, Conv2d, VQResnetBlock)
     handles = [m.register_forward_pre_hook(hook) for m in module.modules()
@@ -1218,6 +1253,20 @@ def compare_models(default, recon, images, y_hat):
     and printed). Encode side: how many VQ indices differ (printed only)."""
     import torch
     from dc_vic_tpu_torch.models.dc_vic import to_model_range
+    compare_recon(default, recon, y_hat)
+    with torch.no_grad():
+        x = to_model_range(torch.from_numpy(images).to(default.device).permute(0, 3, 1, 2))
+        _, vq0 = default.module.vq_encode(x)
+        _, vq1 = recon.module.vq_encode(x)
+        print(f"encode side: {int((vq0 != vq1).sum())} of {vq0.numel()} VQ indices differ "
+              f"between the two models")
+
+
+def compare_recon(default, recon, y_hat):
+    """The decode side of compare_models: the float reconstructions of the
+    same y_hat by both models, the VQGAN decoders fed the default model's
+    estimator indices, within RECON_TOL."""
+    import torch
     b1, b2 = default._betas(0)
     with torch.no_grad():
         logits0, idx0, img0 = recon_parts(default.module, y_hat, b1, b2)
@@ -1232,11 +1281,6 @@ def compare_models(default, recon, images, y_hat):
         if not torch.isfinite(img1).all() or float(diff.max()) > RECON_TOL:
             raise AssertionError("the reconstruction with the kernels on is too far "
                                  "from the default model's")
-        x = to_model_range(torch.from_numpy(images).to(default.device).permute(0, 3, 1, 2))
-        _, vq0 = default.module.vq_encode(x)
-        _, vq1 = recon.module.vq_encode(x)
-        print(f"encode side: {int((vq0 != vq1).sum())} of {vq0.numel()} VQ indices differ "
-              f"between the two models")
 
 
 # Two bf16 reconstructions of one y_hat and one set of codeword indices differ
@@ -1280,6 +1324,285 @@ def bf16_against_f32(f32, off, on, y_hat):
         raise AssertionError("the bf16 reconstruction with the kernels on is further from the "
                              "f32 model's than rounding explains")
     return (logits, idx, img_off), ref
+
+
+TILED_SIZE = (2048, 1365)   # a CLIC-2020 professional photograph; pads to 2048 x 1408
+
+
+def tile_chunks(codec, H, W):
+    """(encode tiles, reconstruction tiles, encode chunks, reconstruction
+    chunks) of one H x W image on the split paths."""
+    from dc_vic_tpu_torch.codec.tiling import (DEC_STRIDE_Y, DEC_WINDOW_Y, ENC_STRIDE,
+                                               ENC_WINDOW, tile_starts)
+    pH, pW = -(-H // 64) * 64, -(-W // 64) * 64
+    n_enc = len(tile_starts(pH, ENC_WINDOW, ENC_STRIDE)) * len(tile_starts(pW, ENC_WINDOW,
+                                                                           ENC_STRIDE))
+    n_dec = len(tile_starts(pH // 16, DEC_WINDOW_Y, DEC_STRIDE_Y)) * len(
+        tile_starts(pW // 16, DEC_WINDOW_Y, DEC_STRIDE_Y))
+    c = codec._TILE_CHUNK
+    return n_enc, n_dec, -(-n_enc // c), -(-n_dec // c)
+
+
+def tiled_round_trip(codec, images, ops, label):
+    """The main path on an image over 1024 px, counted as counted_round_trip
+    counts (counters set to 0 just before, read just after, held against
+    the shape rules for the modules that ran), with the tpu format's decode
+    chain under torch.cuda.set_sync_debug_mode("error"). Then: latents
+    bit-exact, the decoded image equal to _split_reconstruct of the
+    encoder's y_hat (the consumed words were checked by the fetch). Returns
+    (results, decoded images, launches, launch shapes, y_hat on the card)."""
+    import torch
+    want, shapes, handles = expected_launch_recorder(codec.module)
+    tpu = codec.stream_format == "tpu"
+    want["rans_encode_pack"] = 2 if tpu and codec.encode_backend == "device" else 0
+    want["rans_decode_section"] = 1 + codec.num_slices if tpu else 0
+    pipeline = codec._decode_pipeline
+
+    def no_sync(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return pipeline(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    codec._decode_pipeline = no_sync
+    reset_counters(*ops)
+    try:
+        res, out, _, _ = drive(codec, images)
+    finally:
+        codec._decode_pipeline = pipeline
+        for h in handles:
+            h.remove()
+    launches = counters(*ops)
+    if launches != want:
+        raise AssertionError(f"{label}: kernel launches {launches}, the shape rules give {want}")
+    B, H, W = images.shape[:3]
+    if out.shape != (B, H, W, 3) or not codec.verify_roundtrip(
+            res, [r["string_list"] for r in res], (H, W)):
+        raise AssertionError(f"{label}: decoded {out.shape}, or the decoder's latents differ "
+                             f"from the encoder's")
+    y_hat = torch.from_numpy(np.ascontiguousarray(
+        np.stack([r["y_hat"] for r in res]).transpose(0, 3, 1, 2))).to(codec.device)
+    with torch.no_grad():
+        recon = codec._split_reconstruct(y_hat, *codec._betas(0))
+    if not np.array_equal(out, recon[:, :, :H, :W].permute(0, 2, 3, 1).cpu().numpy()):
+        raise AssertionError(f"{label}: decoded images differ from _split_reconstruct(y_hat)")
+    print(f"{label}: launches {launches}; y_hat and z_hat round trip bit-exact, decoded image "
+          f"equals _split_reconstruct(y_hat), consumed words checked"
+          f"{', decode chain under set_sync_debug_mode(error)' if tpu else ''}")
+    return res, out, launches, shapes, y_hat
+
+
+def timed_round_trip(codec, images):
+    """One warm round trip on the host clock: (encode s, decode s, peak
+    memory GiB, bpp)."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, _, enc, dec = drive(codec, images)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return enc, dec, peak, float(np.mean([r["bpp"] for r in res]))
+
+
+def check_cpu_decoder(opt, sd, codec, images):
+    """A compressai stream encoded on the card with the entropy chain on the
+    CPU (params_backend "cpu") decodes to the encoder's latents on a model
+    built on the CPU from the same weights, at another thread count; the
+    latents of the card's decoder as 4, 2 x 2 and 4 x 1 are printed."""
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import build_comp_model
+    B, H, W = images.shape[:3]
+    res = codec.compress(images, 0, debug=True)
+    strings = [r["string_list"] for r in res]
+    cpu_spec = build_comp_model(opt, device="cpu")
+    cpu_spec.module.load_state_dict({k: v.cpu() for k, v in sd.items()}, strict=True)
+    cpu_codec = Codec(cpu_spec, stream_format="compressai")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // 2 - 1))
+    try:
+        t0 = time.perf_counter()
+        same = cpu_codec.verify_roundtrip(res, strings, (H, W))
+        cpu_s = time.perf_counter() - t0
+        cpu_threads = torch.get_num_threads()
+    finally:
+        torch.set_num_threads(threads)
+    if not same:
+        raise AssertionError("a card-encoded params_backend='cpu' stream did not decode to the "
+                             "encoder's latents on a CPU-built model")
+    groups = {}
+    for name, size in (("4", 4), ("2 x 2", 2), ("4 x 1", 1)):
+        groups[name] = all(codec.verify_roundtrip(res[lo:lo + size], strings[lo:lo + size],
+                                                  (H, W)) for lo in range(0, B, size))
+    if not groups["4"]:
+        raise AssertionError("the card's decoder with the CPU chain disagrees with its encoder")
+    print(f"params_backend cpu, compressai, batch {B} {H}x{W} encoded on the card: a model "
+          f"built on the CPU decodes y_hat and z_hat bitwise equal to the encoder's "
+          f"({cpu_threads} threads against the encoder's {threads}; {cpu_s:.2f} s for the "
+          f"latents on the CPU); the card's decoder as 4, 2 x 2, 4 x 1 gives the encoder's "
+          f"latents: {groups}")
+    return groups
+
+
+def check_betas(codec, images):
+    """Quality 2's betas given as betas write quality 2's z and y strings
+    with quality 0 in the header; decompress_raw with those betas gives
+    quality 2's pixels."""
+    from dc_vic_tpu_torch.codec.container import HeaderHandler
+    H, W = images.shape[1:3]
+    br, bv = codec.spec.quality_betas(2)
+    by_q = codec.compress(images, 2)
+    by_b = codec.compress(images, beta_rate=br, beta_vq=bv)
+    heads = [HeaderHandler.decode(r["string_list"][0]) for r in by_b]
+    if any(q["string_list"][1:] != b["string_list"][1:] for q, b in zip(by_q, by_b)) or any(
+            h["quality_ind"] != 0 for h in heads) or any(
+            HeaderHandler.decode(r["string_list"][0])["quality_ind"] != 2 for r in by_q):
+        raise AssertionError("betas given as betas wrote other strings or headers than the "
+                             "quality level they equal")
+    raw = codec.decompress_raw(
+        [r["string_list"][1] for r in by_b], [r["string_list"][2] for r in by_b], (H, W), br, bv,
+        stream_format=heads[0]["stream_format"], lanes=heads[0]["lanes"],
+        esc_dense=any(h["esc_dense"] for h in heads), t2free=all(h["t2free"] for h in heads),
+        escfree=all(h["escfree"] for h in heads))
+    if not np.array_equal(raw, codec.decompress([r["string_list"] for r in by_q])):
+        raise AssertionError("decompress_raw at quality 2's betas gave other pixels")
+    print(f"custom betas ({br}, {bv}) = quality 2: the same z and y strings, quality 0 in the "
+          f"header; decompress_raw with them gives quality 2's pixels")
+
+
+def check_cli(images):
+    """The compress CLI's body (tools/compress.py: compress_arrays, with
+    selfcheck and decompress) on the flagship built as the CLI builds it,
+    into a temporary directory."""
+    import tempfile
+    from dc_vic_tpu_torch.codec.container import load_byte_strings
+    from dc_vic_tpu_torch.tools import compress as cli
+    codec = cli.build_codec(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
+    named = [(f"photo{i}.png", a) for i, a in enumerate(images)]
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, decoded = cli.compress_arrays(codec, named, 0, tmp, batch_size=2, selfcheck=True,
+                                            decompress=True)
+        files = sorted(os.listdir(tmp))
+        again = codec.decompress([load_byte_strings(os.path.join(tmp, f"photo{i}.bin"))
+                                  for i in range(len(images))])
+    if (files != ["_avg_bitrate.json", "_bitrates.csv"] + [f"photo{i}.bin"
+                                                           for i in range(len(images))]
+            or [r["img_name"] for r in rows] != [n for n, _ in named]
+            or not np.array_equal(np.stack([decoded[n] for n, _ in named]), again)):
+        raise AssertionError(f"the CLI's outputs: {files}, {rows}")
+    print(f"CLI compress_arrays, 2 images {images.shape[1]}x{images.shape[2]}, batch 2, tpu "
+          f"format, portable, selfcheck and decompress: files {files}; "
+          f"{[round(r['real_bpp'], 4) for r in rows]} bpp, pred "
+          f"{[round(r['pred_bpp'], 4) for r in rows]}")
+
+
+def check_predicates(attention, vq, dev, gen):
+    """Outside their rules K1 and K2 take the plain versions on the card
+    and do not raise: attention with C = 64, and with bf16 operands; a VQ
+    of D = 8."""
+    import torch
+    before = (attention.launches, vq.launches)
+    q, k, v = (torch.randn(2, 300, 64, generator=gen, device=dev) for _ in range(3))
+    cases = [("attention C=64", attention.flash_attention(q, k, v),
+              attention.attention_plain(q, k, v)),
+             ("attention bf16", attention.flash_attention(q.bfloat16(), k.bfloat16(),
+                                                          v.bfloat16()),
+              attention.attention_plain(q.bfloat16(), k.bfloat16(), v.bfloat16()))]
+    z, cb = torch.randn(1000, 8, generator=gen, device=dev), torch.randn(256, 8, generator=gen,
+                                                                        device=dev)
+    cases.append(("vq D=8", vq.vq_argmin(z, cb), vq.vq_argmin_plain(z, cb)))
+    for name, got, want in cases:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not the plain version")
+    if (attention.launches, vq.launches) != before:
+        raise AssertionError("a shape outside the kernels' rules launched a kernel")
+    print("K1/K2 outside their rules on the card: attention with C = 64 and with bf16 "
+          "operands, VQ with D = 8 take the plain versions (equal bits, no launch)")
+
+
+def check_tiled(opt, sd, ops, smi, dev, gen):
+    """Item 12 of the module docstring. ``sd``: the f32 weights of the
+    workload. Returns the launches of the tiled round trip with the
+    reconstruction kernels on."""
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model
+    from dc_vic_tpu_torch.models.vqgan import VQAttnBlock
+    from dc_vic_tpu_torch.ops import attention, conv3x3, gn, vq
+    from dc_vic_tpu_torch.tools.workload import smooth_images
+    t_phase = time.perf_counter()
+    H, W = TILED_SIZE
+    image = smooth_images(1, H, W)
+    spec = build_comp_model(opt)
+    spec.module.load_state_dict(sd, strict=True)
+    tpu = Codec(spec, encode_backend="device", lanes=512)
+    n_enc, n_dec, c_enc, c_dec = tile_chunks(tpu, H, W)
+    vqm = spec.module.vq_model
+    per_enc = sum(isinstance(m, VQAttnBlock) for m in vqm.encoder.modules())
+    per_dec = sum(isinstance(m, VQAttnBlock) for m in vqm.decoder.modules())
+    want_k2 = c_enc * per_enc + c_dec * per_dec
+    print(f"tiled path, 1 image {H}x{W}: {n_enc} encode tiles in {c_enc} chunks, {n_dec} "
+          f"reconstruction tiles in {c_dec} chunks of {tpu._TILE_CHUNK}; K2 launches "
+          f"{c_enc} x {per_enc} + {c_dec} x {per_dec} = {want_k2}")
+    times = {}
+    for fmt, codec in (("tpu", tpu), ("compressai", Codec(spec, stream_format="compressai"))):
+        label = (f"tiled {H}x{W}, f32, {fmt} format"
+                 + (", device backend, lanes 512" if fmt == "tpu" else
+                    f", params_backend {codec.params_backend}"))
+        res, out, got, _, y_hat = tiled_round_trip(codec, image, ops, label)
+        if (got["vq_argmin"], got["flash_attention"]) != (1, want_k2):
+            raise AssertionError(f"{label}: K1 {got['vq_argmin']}, K2 {got['flash_attention']}")
+        times[fmt] = timed_round_trip(codec, image)
+        print(f"{label}: warm encode {times[fmt][0]:.4f} s, decode {times[fmt][1]:.4f} s (host "
+              f"clock, one run), peak memory {times[fmt][2]:.2f} GiB, {times[fmt][3]:.4f} bpp; "
+              f"{smi}")
+        if fmt == "tpu":
+            kept = (out, y_hat)
+            reader = Codec(spec, stream_format="compressai")
+            if not reader.verify_roundtrip(res, [r["string_list"] for r in res], (H, W)):
+                raise AssertionError(f"{label}: a compressai Codec (params_backend "
+                                     f"{reader.params_backend}) decodes other latents")
+            print(f"{label}: a compressai Codec (params_backend {reader.params_backend}) "
+                  f"decodes the stream's latents bit-exactly")
+            del reader
+        del res, out, codec
+    torch.cuda.empty_cache()
+
+    spec_k = build_comp_model(opt, recon_kernels=RECON_KERNELS)
+    spec_k.module.load_state_dict(sd, strict=True)
+    tpu_k = Codec(spec_k, encode_backend="device", lanes=512)
+    label = f"tiled {H}x{W}, f32, tpu format, reconstruction kernels on"
+    _, out_k, launches_k, shapes_k, _ = tiled_round_trip(tpu_k, image, ops, label)
+    if any(launches_k[k] < 1 for k in (*gn.launches, *conv3x3.launches)) or (
+            launches_k["vq_argmin"], launches_k["flash_attention"]) != (1, want_k2):
+        raise AssertionError(f"{label}: launches {launches_k}")
+    enc, dec, peak, _ = timed_round_trip(tpu_k, image)
+    print(f"{label}: warm encode {enc:.4f} s, decode {dec:.4f} s, peak memory {peak:.2f} GiB")
+    print(json.dumps({"tiled_launch_shapes": {
+        name: [{"shape": list(shape), "launches": n} for shape, n in sorted(table.items())]
+        for name, table in shapes_k.items()}}))
+    check_path_shapes(gn, conv3x3, shapes_k, dev, gen, "float32")
+    out, y_hat = kept
+    from dc_vic_tpu_torch.codec.tiling import DEC_WINDOW_Y as w
+    first = torch.cat([y_hat[:, :, t:t + w, l:l + w] for t, l in
+                       ((0, 0), (0, 16), (16, 0), (16, 16))])
+    compare_recon(tpu, tpu_k, first)
+    diff = np.abs(out_k.astype(np.int16) - out.astype(np.int16))
+    print(f"tiled decode, kernels on against off: {float((diff > 1).mean()):.4f} of the pixels "
+          f"more than one step apart, mean {float(diff.mean()):.3f} steps (estimator argmax "
+          f"flips included; the float reconstructions of four tiles fed one set of indices are "
+          f"held above)")
+    del spec_k, tpu_k, out_k, kept, out, y_hat, first
+    torch.cuda.empty_cache()
+
+    images = smooth_images(4, 768, 512)
+    check_cpu_decoder(opt, sd, Codec(spec, stream_format="compressai"), images)
+    check_betas(tpu, images)
+    del tpu, spec
+    torch.cuda.empty_cache()
+    check_cli(images[:2])
+    check_predicates(attention, vq, dev, gen)
+    print(f"item 12 took {time.perf_counter() - t_phase:.1f} s")
+    return launches_k, times
 
 
 def report_ptxas(log):
@@ -1454,7 +1777,7 @@ def main():
     opt = load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
     spec = build_comp_model(opt)
     init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
-    codec = Codec(spec, stream_format="compressai")
+    codec = Codec(spec, stream_format="compressai", params_backend="accel")
     print(f"flagship model: {sum(p.numel() for p in spec.module.parameters())} "
           f"parameters, built in {time.perf_counter() - t:.1f} s")
 
@@ -1549,7 +1872,7 @@ def main():
     # the same model with every reconstruction kernel on, in both formats
     spec_k = build_comp_model(opt, recon_kernels=RECON_KERNELS)
     spec_k.module.load_state_dict(spec.module.state_dict(), strict=True)
-    codec_k = Codec(spec_k, stream_format="compressai")
+    codec_k = Codec(spec_k, stream_format="compressai", params_backend="accel")
     _, launches_c, conv_shapes = counted_round_trip(
         codec_k, images, "compressai format, reconstruction kernels on, batch 4 768x512", ops)
     codec_kt = Codec(spec_k, encode_backend="device")
@@ -1579,13 +1902,18 @@ def main():
     torch.cuda.empty_cache()
 
     launches16, shapes16 = check_deployment(deployment_sd, ops)
-    check_bf16_path_shapes(gn, conv3x3, shapes16, dev, gen)
+    check_path_shapes(gn, conv3x3, shapes16, dev, gen)
+    torch.cuda.empty_cache()
+
+    launches_tiled, _ = check_tiled(opt, deployment_sd, ops, smi, dev, gen)
+    del deployment_sd
     torch.cuda.empty_cache()
 
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_bf16_batch16"] = launches16[k["name"]]
+        k["launches_tiled_2048x1365"] = launches_tiled[k["name"]]
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
     kernels += bf16_kernels

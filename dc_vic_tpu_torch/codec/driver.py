@@ -24,11 +24,16 @@ reads both:
 * "compressai": the reference's own byte format with a 6-byte header; host
   entropy coding, one host round trip per ChARM slice on decode.
 
-A stream decodes on the card class that encoded it: the entropy parameters
-are floats, and another device may round them otherwise. By default it also
-decodes only at the batch size it was encoded at, because another batch
-shape may pick other convolution algorithms (the tpu format's header makes a
-mismatch an error). ``portable=True`` lifts the batch coupling: every float
+A tpu-format stream decodes on the card class that encoded it: the entropy
+parameters are floats, and another device may round them otherwise. The
+compressai format derives them on the CPU by default (``params_backend``
+"cpu", the reference's placement): both sides run an f32 copy of the chain's
+modules there, so a stream encoded on the card decodes bit-exactly on a
+model built on the same host's CPU, at another thread count. Decoding on
+another CPU class is not measured.
+By default a stream also decodes only at the batch size it was encoded at,
+because another batch shape may pick other convolution algorithms (the tpu
+format's header makes a mismatch an error). ``portable=True`` lifts the batch coupling: every float
 that gates symbol interpretation (hyper_out, per-slice mu, y_hat_prev) is
 derived per image at the batch-1 shape on both sides, each operand in fresh
 row-major storage of its own, and only integers (symbol planes, CDF indexes)
@@ -37,6 +42,13 @@ stages (front, device pack, section decodes, reconstruction). A portable
 stream decodes bit-exactly alone or in any grouping, at the price of B times
 the launches of the parameter chain. The header's portable bit chooses the
 decode path, so any Codec reads both kinds.
+
+Images whose larger side exceeds ``tiling.SPLIT_RESOLUTION`` (1024 px) are
+tiled as the reference tiles them: the VQGAN encode runs on 512 px tiles at
+stride 256 whose latents are stitched and quantized once, and the
+reconstruction on 32 x 32 y cells at stride 16, stitched into the image.
+Both run on the device in chunks of ``_TILE_CHUNK`` tiles, which bounds the
+VQGAN attention's length and the memory whatever the image's size.
 """
 from __future__ import annotations
 
@@ -45,11 +57,12 @@ import statistics
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..models.dc_vic import EntropyChain
 from ..ops import rans_device as rd
 from ..ops.layout import row_major
 from ..ops.rans_host import (RansDecoder, decode_with_indexes, encode_with_indexes,
@@ -57,9 +70,12 @@ from ..ops.rans_host import (RansDecoder, decode_with_indexes, encode_with_index
 from .bottleneck import build_bottleneck_cdf
 from .container import HeaderHandler
 from .gaussian import get_scale_table
+from .tiling import (DEC_STRIDE_Y, DEC_WINDOW_Y, ENC_STRIDE, ENC_WINDOW, SPLIT_RESOLUTION,
+                     keep_region, tile_starts)
 
 STRIDE = 64  # reflect-pad multiple of the image
 Y_STRIDE = 16  # image pixels per y position
+VQ_STRIDE = 8  # image pixels per VQGAN latent position
 
 
 class PendingImages:
@@ -124,16 +140,17 @@ class _ParamChain:
     streams) once per image at the batch-1 shape; either way the caller sees
     batch planes: ``indexes()`` of the slice to come, ``step`` with that
     slice's symbols, ``y_hat()`` and ``z_hat()`` at the end. Nothing here
-    waits for the device."""
+    waits for the device. ``chain``: the model, or its ``EntropyChain``
+    copy on the CPU; it runs where its operands lie."""
 
-    def __init__(self, module, z_sym: torch.Tensor, y_plane: Tuple[int, int],
+    def __init__(self, chain, z_sym: torch.Tensor, y_plane: Tuple[int, int],
                  per_image: bool):
-        self.m, self.per_image = module, per_image
-        self.hyper = [module.hyper_decode(z) for z in _split(z_sym, per_image)]
+        self.m, self.per_image = chain, per_image
+        self.hyper = [chain.hyper_decode(z) for z in _split(z_sym, per_image)]
         n = z_sym.shape[0] // len(self.hyper)
         self.prevs = [torch.zeros((n, 0) + tuple(y_plane), dtype=torch.float32,
                                   device=z_sym.device) for _ in self.hyper]
-        self.params = [module.charm_slice_params(0, ho, prev)
+        self.params = [chain.charm_slice_params(0, ho, prev)
                        for (ho, _), prev in zip(self.hyper, self.prevs)]
 
     def indexes(self) -> torch.Tensor:
@@ -158,6 +175,13 @@ class _ParamChain:
         return _join([z_hat for _, z_hat in self.hyper])
 
 
+def _tiled(H: int, W: int) -> bool:
+    """The split paths' rule: the image's larger side exceeds
+    SPLIT_RESOLUTION. Padded or not, the answer is the same, because 1024 is
+    a multiple of the pad stride."""
+    return max(H, W) > SPLIT_RESOLUTION
+
+
 def _geometry(H: int, W: int):
     """(padH, padW, zH, zW, yH, yW) of an H x W image."""
     padH, padW = -(-H // STRIDE) * STRIDE, -(-W // STRIDE) * STRIDE
@@ -176,7 +200,14 @@ class Codec:
     more lanes mean fewer sequential steps per section and 4 bytes each per
     stream. It travels in the header. ``portable``: write streams that
     decode in any batch grouping (module docstring); decode follows each
-    stream's header whatever this is.
+    stream's header whatever this is. ``params_backend``: where the entropy
+    parameters are derived, "cpu" or "accel" (the model's device); None
+    means "cpu" for the compressai format and "accel" for the tpu format,
+    whose coder kernels read the parameters on the card. With "cpu" on a
+    card, the codec keeps f32 copies on the CPU of the modules the chain
+    reads (``models.dc_vic.EntropyChain``): y and the z symbols cross to the
+    CPU once per encoded batch, y_hat crosses back once per decoded batch.
+    On a model that lies on the CPU both settings are its own chain.
 
     Numerics: constructing a Codec sets, process-wide,
     ``torch.backends.cudnn.allow_tf32 = False``,
@@ -192,18 +223,32 @@ class Codec:
     either way, and both settings travel in the tpu format's header.
 
     Result dicts: ``string_list`` [header, z_str, y_str], ``num_pixel``,
-    ``bpp`` (the container's actual bytes, length fields included); in the
-    tpu format also ``pred_y_bpp`` / ``pred_z_bpp`` (device backend: the
-    stream's words x 16 / pixels, exact; host backend: the table cost of the
-    symbols, flush excluded); with ``debug=True`` the encoder's
-    ``y_hat``/``z_hat`` (NHWC numpy) for ``verify_roundtrip``."""
+    ``bpp`` (the container's actual bytes, length fields included),
+    ``pred_y_bpp`` / ``pred_z_bpp`` (tpu format, device backend: the
+    stream's words x 16 / pixels, exact; host coding: the table cost of the
+    symbols, ``rans_device.coded_bits``, flush excluded); with
+    ``debug=True`` the encoder's ``y_hat``/``z_hat`` (NHWC numpy) for
+    ``verify_roundtrip``."""
+
+    # tiles per launch of the split paths' VQGAN encode and reconstruction:
+    # one batch shape whatever the image's size
+    _TILE_CHUNK = 16
 
     def __init__(self, spec, stream_format: str = "tpu", encode_backend: str = "host",
-                 lanes: int = 128, portable: bool = False):
+                 lanes: int = 128, portable: bool = False,
+                 params_backend: Optional[str] = None):
         if stream_format not in ("tpu", "compressai"):
             raise ValueError(f"stream_format {stream_format!r}: 'tpu' or 'compressai'")
         if encode_backend not in ("host", "device"):
             raise ValueError(f"encode_backend {encode_backend!r}: 'host' or 'device'")
+        if params_backend is None:
+            params_backend = "cpu" if stream_format == "compressai" else "accel"
+        if params_backend not in ("cpu", "accel"):
+            raise ValueError(f"params_backend {params_backend!r}: 'cpu' or 'accel'")
+        if params_backend == "cpu" and stream_format == "tpu":
+            raise ValueError("params_backend='cpu' applies to the compressai stream format: "
+                             "the tpu format's coder kernels read the entropy parameters on "
+                             "the card")
         rd.check_lanes(lanes)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,8 +259,18 @@ class Codec:
         self.encode_backend = encode_backend
         self.lanes = lanes
         self.portable = bool(portable)
+        self.params_backend = params_backend
         self.module = spec.module.eval()
         self.device = next(self.module.parameters()).device
+        # the module the entropy-parameter chain runs on, and its device
+        self._chain = (EntropyChain(self.module)
+                       if params_backend == "cpu" and self.device.type != "cpu"
+                       else self.module)
+        self._chain_device = next(self._chain.parameters()).device
+        # uploaded before any decode chain, which never waits: the tpu
+        # format's chain runs on the model whatever ``params_backend`` is
+        self.module.scale_boundaries(self.device)
+        self._chain.scale_boundaries(self._chain_device)
         self.num_slices = self.module.num_slices
         self.bottleneck_y = self.module.context_model.slice_ch * self.num_slices
         self.bottleneck_z = self.module.entropy_model_z.channels
@@ -231,20 +286,33 @@ class Codec:
                 "to the tpu stream format)", stacklevel=2)
         self.z_table = build_bottleneck_cdf(self.module.entropy_model_z)
         self.y_table = self.module.gaussian.build_cdf_table(get_scale_table())
-        self._dtables: Dict[str, rd.DeviceCdfTable] = {}
+        self._dtables: Dict[Tuple[str, torch.device], rd.DeviceCdfTable] = {}
         self._workers = min(16, os.cpu_count() or 1)
 
-    def _dtable(self, which: str) -> rd.DeviceCdfTable:
-        """The device copy of the y or z table, uploaded at first use."""
-        if which not in self._dtables:
+    def _dtable(self, which: str, device=None) -> rd.DeviceCdfTable:
+        """The y or z table on ``device`` (default: the model's), built at
+        first use."""
+        dev = torch.device(device) if device is not None else self.device
+        if (which, dev) not in self._dtables:
             host = self.y_table if which == "y" else self.z_table
-            self._dtables[which] = rd.DeviceCdfTable(host, self.device)
-        return self._dtables[which]
+            self._dtables[which, dev] = rd.DeviceCdfTable(host, dev)
+        return self._dtables[which, dev]
+
+    def _beta_tensors(self, beta_rate: float, beta_vq: float):
+        return (torch.tensor([beta_rate], dtype=torch.float32, device=self.device),
+                torch.tensor([beta_vq], dtype=torch.float32, device=self.device))
 
     def _betas(self, quality_ind: int):
-        br, bv = self.spec.quality_betas(quality_ind)
-        return (torch.tensor([br], dtype=torch.float32, device=self.device),
-                torch.tensor([bv], dtype=torch.float32, device=self.device))
+        return self._beta_tensors(*self.spec.quality_betas(quality_ind))
+
+    def _resolve_betas(self, quality_ind, beta_rate, beta_vq):
+        """(quality the header records, beta_rate, beta_vq): a quality
+        level's pair, or betas given as such, recorded as quality 0."""
+        if quality_ind is not None:
+            return (quality_ind, *self.spec.quality_betas(quality_ind))
+        if beta_rate is None or beta_vq is None:
+            raise ValueError("give quality_ind, or both beta_rate and beta_vq")
+        return 0, float(beta_rate), float(beta_vq)
 
     def _tpu_y_sections(self, Cy: int) -> List[Tuple[int, int]]:
         """Channel ranges of the y stream's sections in decode order: one
@@ -252,13 +320,94 @@ class Codec:
         sc = Cy // self.num_slices
         return [(s * sc, (s + 1) * sc) for s in range(self.num_slices)]
 
+    # ------------------------------------------------------- split paths
+    def _chunks(self, tiles: List[torch.Tensor]):
+        """Tile batches of ``_TILE_CHUNK``: the tiles' [B] blocks in
+        position-major order, the last chunk filled up with copies of the
+        first tile, as the reference does."""
+        flat = torch.cat(tiles, dim=0)
+        pad = (-flat.shape[0]) % self._TILE_CHUNK
+        if pad:
+            flat = torch.cat([flat] + [flat[:1]] * pad, dim=0)
+        return flat.split(self._TILE_CHUNK, dim=0), flat.shape[0] - pad
+
+    def _split_vq_encode(self, x: torch.Tensor):
+        """Tiled VQGAN encode of padded NHWC images on the device whose
+        larger side exceeds SPLIT_RESOLUTION: 512 px tiles at stride 256,
+        encoded in chunks, their pre-quant latents stitched by
+        overlap-discard (``tiling.keep_region``), then one quantize of the
+        whole latent. Returns (latent, indices) as ``vq_encode`` does."""
+        B, H, W, _ = x.shape
+        tops = tile_starts(H, ENC_WINDOW, ENC_STRIDE)
+        lefts = tile_starts(W, ENC_WINDOW, ENC_STRIDE)
+        chunks, n = self._chunks([x[:, t:t + ENC_WINDOW, l:l + ENC_WINDOW]
+                                  for t in tops for l in lefts])
+        lat = torch.cat([self.module.vq_encode_tile(c.permute(0, 3, 1, 2))
+                         for c in chunks], dim=0)[:n]
+        f = VQ_STRIDE
+        tops8, lefts8, w8 = [t // f for t in tops], [l // f for l in lefts], ENC_WINDOW // f
+        canvas = torch.zeros((B, lat.shape[1], H // f, W // f), dtype=lat.dtype,
+                             device=lat.device)
+        k = 0
+        for i, t in enumerate(tops8):
+            t0, t1 = keep_region(tops8, i, w8, ENC_STRIDE // f, H // f)
+            for j, l in enumerate(lefts8):
+                l0, l1 = keep_region(lefts8, j, w8, ENC_STRIDE // f, W // f)
+                canvas[:, :, t0:t1, l0:l1] = lat[k * B:(k + 1) * B, :, t0 - t:t1 - t,
+                                                 l0 - l:l1 - l]
+                k += 1
+        return self.module.vq_quantize(canvas)
+
+    def _split_reconstruct(self, y_hat: torch.Tensor, b1, b2) -> torch.Tensor:
+        """Tiled reconstruction of y_hat [B, C, yH, yW] on the device: 32 x
+        32 y cells (512 px) at stride 16, reconstructed in chunks and
+        stitched by overlap-discard into the padded uint8 image [B, 3,
+        16 yH, 16 yW], as ``reconstruct_uint8`` returns it. Waits for
+        nothing."""
+        B, _, yH, yW = y_hat.shape
+        tops = tile_starts(yH, DEC_WINDOW_Y, DEC_STRIDE_Y)
+        lefts = tile_starts(yW, DEC_WINDOW_Y, DEC_STRIDE_Y)
+        chunks, n = self._chunks([y_hat[:, :, t:t + DEC_WINDOW_Y, l:l + DEC_WINDOW_Y]
+                                  for t in tops for l in lefts])
+        img = torch.cat([self.module.reconstruct_uint8(c, b1, b2) for c in chunks], dim=0)[:n]
+        px = Y_STRIDE
+        canvas = torch.zeros((B, 3, yH * px, yW * px), dtype=torch.uint8, device=img.device)
+        k = 0
+        for i, t in enumerate(tops):
+            t0, t1 = keep_region(tops, i, DEC_WINDOW_Y, DEC_STRIDE_Y, yH)
+            for j, l in enumerate(lefts):
+                l0, l1 = keep_region(lefts, j, DEC_WINDOW_Y, DEC_STRIDE_Y, yW)
+                canvas[:, :, t0 * px:t1 * px, l0 * px:l1 * px] = img[
+                    k * B:(k + 1) * B, :, (t0 - t) * px:(t1 - t) * px,
+                    (l0 - l) * px:(l1 - l) * px]
+                k += 1
+        return canvas
+
+    def _reconstruct(self, y_hat: torch.Tensor, b1, b2, H: int, W: int) -> torch.Tensor:
+        """uint8 [B, 3, padH, padW] of an H x W image's y_hat (H x W padded
+        or not), tiled where ``_tiled`` says so."""
+        if _tiled(H, W):
+            return self._split_reconstruct(y_hat, b1, b2)
+        return self.module.reconstruct_uint8(y_hat, b1, b2)
+
     # ------------------------------------------------------------ encode
+    def _front(self, x: torch.Tensor, b1, b2):
+        """encode_front of padded NHWC images on the device, with the VQGAN
+        encode tiled where ``_tiled`` says so."""
+        if _tiled(x.shape[1], x.shape[2]):
+            latent, indices = self._split_vq_encode(x)
+            return self.module.encode_front_from_vq(x.permute(0, 3, 1, 2), latent, indices,
+                                                    b1, b2)
+        return self.module.encode_front(x.permute(0, 3, 1, 2), b1, b2)
+
     def _encode_param_chain(self, y, z_sym):
         """The decoder's own chain, driven with the encoder's symbols: over
         the whole batch, or in portable mode per image at the batch-1 shape
         (``_split``), the per-slice integers joined back into batch planes.
-        Returns (per-slice symbols, per-slice indexes, y_hat, z_hat)."""
-        chain = _ParamChain(self.module, z_sym, y.shape[2:], self.portable)
+        Runs where the chain's module lies (``params_backend``). Returns
+        (per-slice symbols, per-slice indexes, y_hat, z_hat)."""
+        y, z_sym = y.to(self._chain_device), z_sym.to(self._chain_device)
+        chain = _ParamChain(self._chain, z_sym, y.shape[2:], self.portable)
         ys = _split(y, self.portable)
         syms, idxs = [], []
         for i in range(self.num_slices):
@@ -282,35 +431,40 @@ class Codec:
         return dict(packed_y=py, y_offsets=y_off, packed_z=pz, z_offsets=z_off, stats=stats)
 
     def _encode_tail(self, x: torch.Tensor, b1, b2, fmt: str, debug: bool) -> Dict:
-        """Front, parameter chain and the format's tail, all queued on the
-        device without waiting. ``x``: padded NHWC images on the device."""
-        y, z_sym = self.module.encode_front(x.permute(0, 3, 1, 2), b1, b2)
+        """Front, parameter chain and the format's tail, queued on the
+        device without waiting (with the CPU chain the chain waits for the
+        front). ``x``: padded NHWC images on the device."""
+        y, z_sym = self._front(x, b1, b2)
         syms, idxs, y_hat, z_hat = self._encode_param_chain(y, z_sym)
         out = dict(max_abs_y=torch.max(torch.abs(y_hat)))
         if fmt == "tpu_dev":
             out.update(self._tpu_pack(torch.cat(syms, dim=1), torch.cat(idxs, dim=1),
                                       row_major(z_sym)))
         else:
+            z_sym = z_sym.to(self._chain_device)
             out.update(syms=syms, idxs=idxs, z_sym=z_sym)
-            if fmt == "tpu_host":
-                B, Cz = z_sym.shape[:2]
-                out["y_bits"] = rd.coded_bits(torch.cat(syms, dim=1), torch.cat(idxs, dim=1),
-                                              self._dtable("y"))
-                out["z_bits"] = rd.coded_bits(
-                    z_sym, rd.channel_rows(B, Cz, *z_sym.shape[2:], z_sym.device),
-                    self._dtable("z"))
+            dev = z_sym.device
+            B, Cz = z_sym.shape[:2]
+            out["y_bits"] = rd.coded_bits(torch.cat(syms, dim=1), torch.cat(idxs, dim=1),
+                                          self._dtable("y", dev))
+            out["z_bits"] = rd.coded_bits(
+                z_sym, rd.channel_rows(B, Cz, *z_sym.shape[2:], dev), self._dtable("z", dev))
         if debug:
             out.update(y_hat=y_hat, z_hat=z_hat)
         return out
 
     @torch.no_grad()
-    def compress_dispatch(self, images: np.ndarray, quality_ind: int = 0,
+    def compress_dispatch(self, images: np.ndarray, quality_ind: Optional[int] = None,
+                          beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
                           debug: bool = False) -> Dict:
         """Phase 1: queue the device encode and return a handle for
         ``compress_finalize`` without waiting for the device. Dispatching
         batch k + 1 before finalizing batch k overlaps device compute with
         the host's work. images: [B, H, W, 3] uint8, or float in [-1, 1]
-        (unpadded)."""
+        (unpadded). The betas are a quality level's pair, or given as
+        ``beta_rate`` and ``beta_vq`` without a quality (the header then
+        records quality 0, as the reference's does)."""
+        quality_ind, beta_rate, beta_vq = self._resolve_betas(quality_ind, beta_rate, beta_vq)
         images = np.asarray(images)
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected [B, H, W, 3] images, got {images.shape}")
@@ -318,7 +472,7 @@ class Codec:
         if images.dtype != np.uint8:
             images = images.astype(np.float32)
         x = torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
-        b1, b2 = self._betas(quality_ind)
+        b1, b2 = self._beta_tensors(beta_rate, beta_vq)
         fmt = ("compressai" if self.stream_format == "compressai" else
                "tpu_dev" if self.encode_backend == "device" else "tpu_host")
         out = self._encode_tail(x, b1, b2, fmt, debug)
@@ -355,7 +509,6 @@ class Codec:
         """Fetch the device-coded streams: the stats, then each buffer's
         real words in one copy."""
         out = handle["out"]
-        B = handle["B"]
         stats = out["stats"].cpu().numpy().astype(np.int64)
         y_counts, z_counts, y_escmax, z_escmax, y_big, z_big = stats
 
@@ -387,6 +540,7 @@ class Codec:
                 .reshape(B, self.num_slices, -1).to(torch.int32).cpu().numpy()
         y_sym, y_idx = slice_major(out["syms"]), slice_major(out["idxs"])
         z_np = _nhwc(out["z_sym"]).astype(np.int32).reshape(B, -1)
+        y_bits, z_bits = out["y_bits"].cpu().numpy(), out["z_bits"].cpu().numpy()
         Cz = self.bottleneck_z
         z_idx = np.broadcast_to(np.arange(Cz, dtype=np.int32),
                                 (z_np.shape[1] // Cz, Cz)).reshape(-1)
@@ -410,8 +564,7 @@ class Codec:
             z_esc = np.array([e for _, e, _ in z_enc])
             # per image, as the host coder sees one stream at a time
             return self._tpu_results(
-                handle, [s for s, _, _ in z_enc], [s for s, _, _ in y_enc],
-                out["y_bits"].cpu().numpy(), out["z_bits"].cpu().numpy(),
+                handle, [s for s, _, _ in z_enc], [s for s, _, _ in y_enc], y_bits, z_bits,
                 escfree=(y_esc == 0) & (z_esc == 0),
                 esc_dense=self._esc_dense_flags(H, W, y_esc, z_esc),
                 t2free=not any(t for _, _, t in y_enc + z_enc))
@@ -422,7 +575,9 @@ class Codec:
                                           portable=self.portable)
             strings = [header, z_strs[b], y_strs[b]]
             results.append(dict(string_list=strings, num_pixel=H * W,
-                                bpp=8.0 * sum(4 + len(s) for s in strings) / (H * W)))
+                                bpp=8.0 * sum(4 + len(s) for s in strings) / (H * W),
+                                pred_y_bpp=float(y_bits[b]) / (H * W),
+                                pred_z_bpp=float(z_bits[b]) / (H * W)))
         return results
 
     @torch.no_grad()
@@ -438,11 +593,14 @@ class Codec:
                 r["y_hat"], r["z_hat"] = y_hat[b], z_hat[b]
         return results
 
-    def compress(self, images: np.ndarray, quality_ind: int = 0,
+    def compress(self, images: np.ndarray, quality_ind: Optional[int] = None,
+                 beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
                  debug: bool = False) -> List[Dict]:
-        """images: [B, H, W, 3] uint8, or float in [-1, 1] (unpadded).
-        Returns one result dict per image."""
-        return self.compress_finalize(self.compress_dispatch(images, quality_ind, debug))
+        """images: [B, H, W, 3] uint8, or float in [-1, 1] (unpadded), at a
+        quality level or at given betas (``compress_dispatch``). Returns one
+        result dict per image."""
+        return self.compress_finalize(
+            self.compress_dispatch(images, quality_ind, beta_rate, beta_vq, debug))
 
     # ------------------------------------------------------------ decode
     def _parse(self, string_lists) -> Dict:
@@ -489,18 +647,19 @@ class Codec:
 
     def _decode_latents(self, z_strs, y_strs, H: int, W: int, portable: bool = False):
         """compressai format: entropy-decode z and the ChARM slices of y on
-        the host; returns (y_hat, z_hat). The symbol decode is per image
-        either way; ``portable`` runs the parameter chain per image too."""
+        the host, the parameter chain where ``params_backend`` puts it;
+        returns (y_hat, z_hat) there. The symbol decode is per image either
+        way; ``portable`` runs the parameter chain per image too."""
         B = len(z_strs)
         _, _, zH, zW, yH, yW = _geometry(H, W)
         Cz = self.bottleneck_z
         z_idx = np.broadcast_to(np.arange(Cz, dtype=np.int32), (zH, zW, Cz)).reshape(-1)
+        dev = self._chain_device
         with ThreadPoolExecutor(self._workers) as pool:
             z_np = np.stack(list(pool.map(
                 lambda s: decode_with_indexes(s, z_idx, self.z_table)
                 .reshape(zH, zW, Cz), z_strs)))
-            chain = _ParamChain(self.module, _nchw_tensor(z_np, self.device), (yH, yW),
-                                portable)
+            chain = _ParamChain(self._chain, _nchw_tensor(z_np, dev), (yH, yW), portable)
             decoders = [RansDecoder(s) for s in y_strs]
             for i in range(self.num_slices):
                 idx_np = _nhwc(chain.indexes()).astype(np.int32)
@@ -508,7 +667,7 @@ class Codec:
                 sym = np.stack(list(pool.map(
                     lambda b: decoders[b].decode_stream(idx_np[b].reshape(-1), self.y_table)
                     .reshape(yH, yW, sc), range(B))))
-                chain.step(i, _nchw_tensor(sym, self.device))
+                chain.step(i, _nchw_tensor(sym, dev))
         return chain.y_hat(), chain.z_hat()
 
     def _tpu_caps(self, B: int, yH: int, yW: int, zH: int, zW: int, lanes: int):
@@ -540,20 +699,21 @@ class Codec:
                          portable: bool = False) -> Dict:
         """tpu-format decode as one chain on the device: z section decode ->
         hyper_decode -> per slice (y section decode -> charm_decode_step) ->
-        optional reconstruction. Cursors and lane states stay on the device
-        and nothing here waits for it. With ``portable`` the float chain runs
-        per image (``_split``) while the section decodes, which are integer
-        programs, and the reconstruction stay batched: B times the chain's
-        launches, no wait more. Returns {y_hat, z_hat, consumed_words
-        [2, B] (z, y)[, img uint8 NCHW]}."""
-        m = self.module
+        optional reconstruction (tiled where ``_tiled`` says so). Cursors and lane
+        states stay on the device and nothing here waits for it. With
+        ``portable`` the float chain runs per image (``_split``) while the
+        section decodes, which are integer programs, and the reconstruction
+        stay batched: B times the chain's launches, no wait more. Returns
+        {y_hat, z_hat, consumed_words [2, B] (z, y)[, img uint8 NCHW]}."""
         dev = self.device
         flags = dict(sparse_esc=sparse_esc, tier2=tier2, escfree=escfree)
         zero = torch.zeros(B, dtype=torch.int32, device=dev)
         z_sym, z_cursor, _ = rd.decode_section(
             z_words, z_base, zero, None, None, (B, self.bottleneck_z, zH, zW), lanes,
             self._dtable("z"), **flags)
-        chain = _ParamChain(m, z_sym, (yH, yW), portable)
+        # the tpu format's parameters were derived on the model's device
+        # (``params_backend`` places only the compressai format's chain)
+        chain = _ParamChain(self.module, z_sym, (yH, yW), portable)
         sc = self.bottleneck_y // self.num_slices
         cursor, state = zero, None
         for i in range(self.num_slices):
@@ -565,11 +725,12 @@ class Codec:
         res = dict(y_hat=y_hat, z_hat=chain.z_hat(),
                    consumed_words=torch.stack([z_cursor, cursor], dim=0))
         if recon:
-            res["img"] = m.reconstruct_uint8(y_hat, b1, b2)
+            res["img"] = self._reconstruct(y_hat, b1, b2, yH * Y_STRIDE, yW * Y_STRIDE)
         return res
 
     def _decompress_tpu(self, z_strs: List[bytes], y_strs: List[bytes],
-                        img_size: Tuple[int, int], quality_ind: int, hdr: Dict,
+                        img_size: Tuple[int, int], b1, b2, lanes: int, esc_dense: bool,
+                        t2free: bool, escfree: bool, portable: bool,
                         defer_fetch: bool = False, include_latents: bool = False):
         """Decode device-coded streams: upload the word buffers, run the
         decode chain, bring the pixels and the consumed-word counts back in
@@ -578,16 +739,14 @@ class Codec:
         H, W = img_size
         B = len(z_strs)
         padH, padW, zH, zW, yH, yW = _geometry(H, W)
-        lanes = hdr["lanes"] or self.lanes
         y_cap, z_cap = self._tpu_caps(B, yH, yW, zH, zW, lanes)
         y_words, y_base = self._upload_words(y_strs, y_cap)
         z_words, z_base = self._upload_words(z_strs, z_cap)
-        b1, b2 = self._betas(quality_ind)
+        self._dtable("y"), self._dtable("z")      # uploaded before the chain, which never waits
         out = self._decode_pipeline(
             z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, lanes,
-            sparse_esc=not hdr["esc_dense"], recon=not include_latents, b1=b1, b2=b2,
-            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]),
-            portable=bool(hdr["portable"]))
+            sparse_esc=not esc_dense, recon=not include_latents, b1=b1, b2=b2,
+            tier2=not t2free, escfree=escfree, portable=portable)
 
         def check(consumed):
             self._check_consumed(consumed, z_strs, y_strs)
@@ -629,14 +788,35 @@ class Codec:
         whose ``fetch()`` gives the images later, so that the copy overlaps
         the next batch's compute."""
         hdr = self._parse(string_lists)
-        H, W = hdr["img_size"]
-        z_strs, y_strs = [s[1] for s in string_lists], [s[2] for s in string_lists]
-        if hdr["stream_format"] == "tpu":
-            return self._decompress_tpu(z_strs, y_strs, (H, W), hdr["quality_ind"], hdr,
-                                        defer_fetch=defer_fetch)
-        y_hat, _ = self._decode_latents(z_strs, y_strs, H, W, bool(hdr["portable"]))
-        b1, b2 = self._betas(hdr["quality_ind"])
-        img = self.module.reconstruct_uint8(y_hat, b1, b2)
+        tpu = hdr["stream_format"] == "tpu"
+        return self.decompress_raw(
+            [s[1] for s in string_lists], [s[2] for s in string_lists], hdr["img_size"],
+            *self.spec.quality_betas(hdr["quality_ind"]), defer_fetch=defer_fetch,
+            stream_format=hdr["stream_format"], lanes=hdr["lanes"],
+            esc_dense=tpu and hdr["esc_dense"], portable=bool(hdr["portable"]),
+            t2free=tpu and hdr["t2free"], escfree=tpu and hdr["escfree"])
+
+    @torch.no_grad()
+    def decompress_raw(self, z_strs: List[bytes], y_strs: List[bytes],
+                       img_size: Tuple[int, int], beta_rate: float, beta_vq: float,
+                       defer_fetch: bool = False, stream_format: Optional[str] = None,
+                       lanes: Optional[int] = None, esc_dense: bool = False,
+                       portable: bool = False, t2free: bool = False,
+                       escfree: bool = False):
+        """Decode z and y strings without their headers, at the given betas
+        (streams written by ``compress`` with betas instead of a quality),
+        as ``decompress`` does after it has read and checked the headers.
+        ``stream_format`` defaults to this codec's; the tpu format's
+        ``lanes`` to this codec's lanes, and its guarantees (``esc_dense``,
+        ``t2free``, ``escfree``) to none."""
+        H, W = img_size
+        b1, b2 = self._beta_tensors(beta_rate, beta_vq)
+        if (stream_format or self.stream_format) == "tpu":
+            return self._decompress_tpu(
+                z_strs, y_strs, (H, W), b1, b2, lanes or self.lanes, esc_dense=esc_dense,
+                t2free=t2free, escfree=escfree, portable=portable, defer_fetch=defer_fetch)
+        y_hat, _ = self._decode_latents(z_strs, y_strs, H, W, portable)
+        img = self._reconstruct(y_hat.to(self.device), b1, b2, H, W)
         return _nhwc(img[:, :, :H, :W])
 
     @torch.no_grad()
@@ -651,8 +831,10 @@ class Codec:
             raise ValueError(f"img_size {img_size} != header size {(H, W)}")
         z_strs, y_strs = [s[1] for s in string_lists], [s[2] for s in string_lists]
         if hdr["stream_format"] == "tpu":
-            out = self._decompress_tpu(z_strs, y_strs, (H, W), hdr["quality_ind"], hdr,
-                                       include_latents=True)
+            out = self._decompress_tpu(
+                z_strs, y_strs, (H, W), None, None, hdr["lanes"] or self.lanes,
+                esc_dense=hdr["esc_dense"], t2free=hdr["t2free"], escfree=hdr["escfree"],
+                portable=bool(hdr["portable"]), include_latents=True)
             y_hat, z_hat = out["y_hat"], out["z_hat"]
         else:
             y_hat, z_hat = self._decode_latents(z_strs, y_strs, H, W, bool(hdr["portable"]))
@@ -662,7 +844,8 @@ class Codec:
                    for b, r in enumerate(results))
 
     @torch.no_grad()
-    def bench_device_cycle(self, images: np.ndarray, quality_ind: int = 0,
+    def bench_device_cycle(self, images: np.ndarray, quality_ind: Optional[int] = None,
+                           beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
                            iters: int = 3) -> Dict[str, float]:
         """Time the device's share of one codec cycle in the tpu format:
         the encode chain (front -> parameter chain -> device pack) and the
@@ -674,10 +857,11 @@ class Codec:
             raise ValueError("the device cycle needs stream_format='tpu'")
         if self.device.type != "cuda":
             raise RuntimeError("bench_device_cycle times the card: build the model on cuda")
+        _, beta_rate, beta_vq = self._resolve_betas(quality_ind, beta_rate, beta_vq)
         images = np.asarray(images)
         B, H, W = images.shape[:3]
         x = torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
-        b1, b2 = self._betas(quality_ind)
+        b1, b2 = self._beta_tensors(beta_rate, beta_vq)
 
         def timed(fn):
             fn()
@@ -691,7 +875,7 @@ class Codec:
             return statistics.median(times)
 
         enc_s = timed(lambda: self._encode_tail(x, b1, b2, "tpu_dev", False))
-        res = self.compress(images, quality_ind)
+        res = self.compress(images, beta_rate=beta_rate, beta_vq=beta_vq)
         hdr = self._parse([r["string_list"] for r in res])
         _, _, zH, zW, yH, yW = _geometry(H, W)
         y_cap, z_cap = self._tpu_caps(B, yH, yW, zH, zW, self.lanes)

@@ -21,6 +21,7 @@ both sides call, and is a no-op on the CPU.
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -68,7 +69,80 @@ class FusionModule(nn.Module):
             for key, s in schedule.items()})
 
 
-class DCVICModel(nn.Module):
+class EntropyChainMethods:
+    """The entropy-parameter chain, written once for the two classes that
+    run it: ``DCVICModel`` and ``EntropyChain``, its f32 copy on another
+    device. Both sides of the codec call these methods, so with
+    deterministic kernels they derive bitwise identical mu and CDF indexes.
+    Reads ``hyperdecoder``, ``context_model``, ``entropy_model_z``,
+    ``gaussian``, ``num_slices``, ``entropy_precision``, ``_scale_table``
+    and ``_index_boundaries``."""
+
+    @contextlib.contextmanager
+    def _entropy_convs(self):
+        """The products of the entropy-parameter convs: with
+        ``entropy_precision`` "default" cuDNN may run them in TF32 inside
+        this block (still deterministic algorithms); the process-wide
+        setting is put back on the way out, also after an exception."""
+        if (self.entropy_precision or "high") != "default":
+            yield
+            return
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+
+    def hyper_decode(self, z_symbols):
+        """z symbols -> (hyper_out, z_hat)."""
+        z_hat = self.entropy_model_z.dequantize(_row_major(z_symbols).to(torch.int32))
+        with self._entropy_convs():
+            return _row_major(self.hyperdecoder(z_hat)), z_hat
+
+    def charm_symbolize(self, slice_ind: int, y, mu):
+        """clip(round(y_i - mu)) of slice slice_ind, as int16."""
+        sc = y.shape[1] // self.num_slices
+        y_slice = y[:, slice_ind * sc:(slice_ind + 1) * sc]
+        return _row_major(self.gaussian.quantize_symbols(y_slice, mu).to(torch.int16))
+
+    def scale_boundaries(self, dev):
+        """The scale table's boundaries on ``dev``, uploaded once per device
+        (the codec does so when it is built), so that the decode chain never
+        waits for a copy."""
+        dev = torch.device(dev)
+        if dev not in self._index_boundaries:
+            self._index_boundaries[dev] = self.gaussian.index_boundaries(self._scale_table, dev)
+        return self._index_boundaries[dev]
+
+    def y_indexes(self, sigma):
+        """CDF rows of the given scales."""
+        return self.gaussian.build_indexes(sigma, self.scale_boundaries(sigma.device))
+
+    def charm_slice_params(self, slice_ind: int, hyper_out, y_hat_prev):
+        """(mu, CDF indexes uint8) of one slice."""
+        with self._entropy_convs():
+            mu, sigma = self.context_model.slice_params(
+                slice_ind, _row_major(hyper_out), _row_major(y_hat_prev))
+        return _row_major(mu), self.y_indexes(sigma).to(torch.uint8)
+
+    def charm_decode_step(self, slice_ind: int, hyper_out, y_hat_prev, symbols, mu):
+        """Reconstruct slice slice_ind from its symbols and predict (mu,
+        indexes) of the next slice. Returns (y_hat_prev, mu_next, idx_next),
+        the last two None after the final slice."""
+        hyper_out, y_hat_prev = _row_major(hyper_out), _row_major(y_hat_prev)
+        with self._entropy_convs():
+            y_hat_slice = self.context_model.slice_reconstruct(
+                slice_ind, hyper_out, y_hat_prev, _row_major(symbols).to(torch.int32),
+                _row_major(mu))
+        y_hat_prev = torch.cat([y_hat_prev, y_hat_slice], dim=1)
+        if slice_ind + 1 >= self.num_slices:
+            return y_hat_prev, None, None
+        mu_next, idx_next = self.charm_slice_params(slice_ind + 1, hyper_out, y_hat_prev)
+        return y_hat_prev, mu_next, idx_next
+
+
+class DCVICModel(EntropyChainMethods, nn.Module):
     """HyperpriorCharmDualCondVicModel: dual-beta ELIC transforms, VQGAN
     prior, Minnen'20 hyperprior and ChARM context model."""
 
@@ -102,7 +176,17 @@ class DCVICModel(nn.Module):
     def vq_encode(self, x) -> Tuple[torch.Tensor, torch.Tensor]:
         """Frozen VQGAN encode + nearest-codeword quantize: (latent
         [B, D, h8, w8], indices [B, h8, w8])."""
-        h = self.vq_model.encode(x).float()
+        return self.vq_quantize(self.vq_model.encode(x).float())
+
+    def vq_encode_tile(self, x_tile):
+        """Pre-quant VQGAN latent of one tile batch, f32 [B, D, h8, w8]
+        (split-encode path: the tiles' latents are stitched, then quantized
+        once with ``vq_quantize``). Takes uint8 tiles or float in [-1, 1]."""
+        return self.vq_model.encode(to_model_range(x_tile)).float()
+
+    def vq_quantize(self, h) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Nearest-codeword quantize of a pre-quant latent: (latent,
+        indices)."""
         return self.vq_model.quantize(h)
 
     def comp_encode(self, x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq):
@@ -116,68 +200,16 @@ class DCVICModel(nn.Module):
         it is recomputed by the decoder through the methods below."""
         x = to_model_range(x)
         gt_vq_latent, gt_vq_indices = self.vq_encode(x)
+        return self.encode_front_from_vq(x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq)
+
+    def encode_front_from_vq(self, x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq):
+        """encode_front with the VQ stage done already (the >1024 px split
+        path)."""
+        x = to_model_range(x)
         y = self.comp_encode(x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq)
         z = self.hyperencoder(y).float()
         z_sym = self.entropy_model_z.quantize_symbols(z)
         return y, z_sym.to(torch.int16)
-
-    @contextlib.contextmanager
-    def _entropy_convs(self):
-        """The products of the entropy-parameter convs: with
-        ``entropy_precision`` "default" cuDNN may run them in TF32 inside
-        this block (still deterministic algorithms); the process-wide
-        setting is put back on the way out, also after an exception."""
-        if (self.entropy_precision or "high") != "default":
-            yield
-            return
-        before = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32 = before
-
-    def hyper_decode(self, z_symbols):
-        """z symbols -> (hyper_out, z_hat)."""
-        z_hat = self.entropy_model_z.dequantize(_row_major(z_symbols).to(torch.int32))
-        with self._entropy_convs():
-            return _row_major(self.hyperdecoder(z_hat)), z_hat
-
-    def charm_symbolize(self, slice_ind: int, y, mu):
-        """clip(round(y_i - mu)) of slice slice_ind, as int16."""
-        sc = y.shape[1] // self.num_slices
-        y_slice = y[:, slice_ind * sc:(slice_ind + 1) * sc]
-        return _row_major(self.gaussian.quantize_symbols(y_slice, mu).to(torch.int16))
-
-    def y_indexes(self, sigma):
-        """CDF rows of the given scales. The table's boundaries are uploaded
-        once per device, so that the decode chain never waits for a copy."""
-        dev = sigma.device
-        if dev not in self._index_boundaries:
-            self._index_boundaries[dev] = self.gaussian.index_boundaries(self._scale_table, dev)
-        return self.gaussian.build_indexes(sigma, self._index_boundaries[dev])
-
-    def charm_slice_params(self, slice_ind: int, hyper_out, y_hat_prev):
-        """(mu, CDF indexes uint8) of one slice."""
-        with self._entropy_convs():
-            mu, sigma = self.context_model.slice_params(
-                slice_ind, _row_major(hyper_out), _row_major(y_hat_prev))
-        return _row_major(mu), self.y_indexes(sigma).to(torch.uint8)
-
-    def charm_decode_step(self, slice_ind: int, hyper_out, y_hat_prev, symbols, mu):
-        """Reconstruct slice slice_ind from its symbols and predict (mu,
-        indexes) of the next slice. Returns (y_hat_prev, mu_next, idx_next),
-        the last two None after the final slice."""
-        hyper_out, y_hat_prev = _row_major(hyper_out), _row_major(y_hat_prev)
-        with self._entropy_convs():
-            y_hat_slice = self.context_model.slice_reconstruct(
-                slice_ind, hyper_out, y_hat_prev, _row_major(symbols).to(torch.int32),
-                _row_major(mu))
-        y_hat_prev = torch.cat([y_hat_prev, y_hat_slice], dim=1)
-        if slice_ind + 1 >= self.num_slices:
-            return y_hat_prev, None, None
-        mu_next, idx_next = self.charm_slice_params(slice_ind + 1, hyper_out, y_hat_prev)
-        return y_hat_prev, mu_next, idx_next
 
     # -------------------------------------------------------------- decode
     def decode_from_y_hat(self, y_hat, beta_rate, beta_vq, w: float = 1.0):
@@ -197,3 +229,25 @@ class DCVICModel(nn.Module):
         fake, *_ = self.decode_from_y_hat(y_hat, beta_rate, beta_vq, w)
         fake = torch.clamp(fake, -1.0, 1.0)
         return torch.round((fake + 1.0) * 127.5).to(torch.uint8)
+
+
+class EntropyChain(EntropyChainMethods, nn.Module):
+    """f32 copies, on the CPU, of exactly the modules the entropy chain
+    reads (hyperdecoder, context model, z bottleneck; the Gaussian model is
+    parameter-free and shared). The codec's ``params_backend="cpu"`` runs
+    the chain on this copy, so that a stream's entropy parameters come from
+    the CPU on both sides whatever card encoded it. The model's own
+    submodules, and with them its state-dict keys, stay where they are."""
+
+    def __init__(self, model: DCVICModel):
+        super().__init__()
+        hyperdecoder, context_model, entropy_model_z = copy.deepcopy(
+            (model.hyperdecoder, model.context_model, model.entropy_model_z))
+        self.hyperdecoder = hyperdecoder.to(device="cpu", dtype=torch.float32).eval()
+        self.context_model = context_model.to(device="cpu", dtype=torch.float32).eval()
+        self.entropy_model_z = entropy_model_z.to(device="cpu", dtype=torch.float32).eval()
+        self.gaussian = model.gaussian
+        self.num_slices = model.num_slices
+        self.entropy_precision = model.entropy_precision
+        self._scale_table = model._scale_table
+        self._index_boundaries = {}

@@ -32,18 +32,17 @@ def _relative_position_index(ws: int) -> np.ndarray:
     return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).astype(np.int64)
 
 
-def _shift_attn_mask(H: int, W: int, ws: int, shift: int) -> np.ndarray:
-    """Additive attention mask [num_windows, ws*ws, ws*ws] for shifted windows."""
-    img = np.zeros((H, W), dtype=np.int32)
-    cnt = 0
-    for hs in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-        for wsl in (slice(0, -ws), slice(-ws, -shift), slice(-shift, None)):
-            img[hs, wsl] = cnt
-            cnt += 1
-    win = img.reshape(H // ws, ws, W // ws, ws).transpose(0, 2, 1, 3)
-    win = win.reshape(-1, ws * ws)
+def _shift_attn_mask(H: int, W: int, ws: int, shift: int, device=None) -> torch.Tensor:
+    """Additive attention mask [num_windows, ws*ws, ws*ws] for shifted windows,
+    built on ``device`` from index arithmetic: no host data to upload, so a
+    decode chain that meets a new image size does not wait for a copy."""
+    def region(n):  # the three bands of the shifted grid: [0, n-ws), [n-ws, n-shift), rest
+        i = torch.arange(n, device=device)
+        return (i >= n - ws).to(torch.int32) + (i >= n - shift).to(torch.int32)
+    img = region(H)[:, None] * 3 + region(W)[None, :]
+    win = img.reshape(H // ws, ws, W // ws, ws).transpose(1, 2).reshape(-1, ws * ws)
     mask = win[:, None, :] - win[:, :, None]
-    return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
+    return torch.where(mask != 0, -100.0, 0.0).to(torch.float32)
 
 
 class WindowAttention(nn.Module):
@@ -110,8 +109,7 @@ class SwinBlock(nn.Module):
     def _mask(self, H: int, W: int, shift: int, device) -> torch.Tensor:
         key = (H, W, shift, str(device))
         if key not in self._masks:
-            self._masks[key] = torch.from_numpy(
-                _shift_attn_mask(H, W, self.window_size, shift)).to(device)
+            self._masks[key] = _shift_attn_mask(H, W, self.window_size, shift, device)
         return self._masks[key]
 
     def forward(self, x):

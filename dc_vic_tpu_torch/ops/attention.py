@@ -4,8 +4,10 @@ and its plain PyTorch version.
 Port of ``dc_vic_tpu/ops/attention.py`` (forward only: the codec path runs
 under ``torch.no_grad``). The kernel takes its products on the tensor cores
 as an error-compensated 3xTF32 split (``csrc/tf32x3.cuh``, ``ops/tf32.py``),
-so its results stay f32-class. Dispatch is by device: a CPU tensor takes
-``attention_plain``; a CUDA tensor launches the kernel or raises.
+so its results stay f32-class. Dispatch is by device and shape: a CPU tensor
+takes ``attention_plain``; a CUDA tensor launches the kernel where
+``use_kernel`` allows it and takes ``attention_plain`` on the card otherwise,
+as the JAX package takes XLA outside its kernel's rule.
 """
 from __future__ import annotations
 
@@ -15,6 +17,14 @@ from . import native
 
 # Kernel launches since the last reset (counted where the kernel launches).
 launches = 0
+
+_WIDTHS = (128, 256, 384, 512)
+
+
+def use_kernel(shape, dtype) -> bool:
+    """The kernel's own limits: float32 [B, N, C] operands with C one of
+    128, 256, 384, 512 (whole 128-channel chunks); any N."""
+    return dtype == torch.float32 and len(shape) == 3 and shape[-1] in _WIDTHS
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -31,7 +41,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
         raise ValueError(f"expected equal [B, N, C] shapes, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     B, N, C = q.shape
-    if C not in (128, 256, 384, 512):
+    if C not in _WIDTHS:
         raise ValueError(f"flash_attention kernel needs C in (128, 256, 384, 512), got C={C}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
@@ -53,10 +63,12 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v for [B, N, C] operands with q pre-scaled by C^-1/2.
-    On a CUDA tensor the kernel takes float32 operands with C one of 128,
-    256, 384, 512 (whole 128-channel chunks), any N, and raises for the rest."""
+    On a CUDA tensor the kernel runs where ``use_kernel`` allows it; other
+    shapes and dtypes take the plain version on the card."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)
     if q.device.type == "cuda":
-        return _flash_attention_cuda(q, k, v)
+        if use_kernel(q.shape, q.dtype):
+            return _flash_attention_cuda(q, k, v)
+        return attention_plain(q, k, v)
     raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -1,8 +1,10 @@
 """Nearest-codeword search: the CUDA kernel K1 (``csrc/vq_argmin.cu``) and
 its plain PyTorch version.
 
-Port of ``dc_vic_tpu/ops/vq.py``. Dispatch is by device: a CPU tensor takes
-``vq_argmin_plain``; a CUDA tensor launches the kernel or raises.
+Port of ``dc_vic_tpu/ops/vq.py``. Dispatch is by device and shape: a CPU
+tensor takes ``vq_argmin_plain``; a CUDA tensor launches the kernel where
+``use_kernel`` allows it and takes ``vq_argmin_plain`` on the card otherwise,
+as the JAX package takes XLA outside its kernel's rule.
 """
 from __future__ import annotations
 
@@ -14,6 +16,13 @@ from . import native
 launches = 0
 
 _MAX_SMEM = 227 * 1024
+_CODEWORD_SMEM = 20     # bytes of shared memory per codeword: 4 components and |e|^2
+
+
+def use_kernel(D: int, N: int, dtype) -> bool:
+    """The kernel's own limits: float32 rows of D = 4 components against a
+    codebook of N entries that fits shared memory."""
+    return dtype == torch.float32 and D == 4 and N * _CODEWORD_SMEM <= _MAX_SMEM
 
 
 def vq_argmin_plain(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -35,7 +44,7 @@ def _vq_argmin_cuda(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tenso
     N = codebook.shape[0]
     if D != 4:
         raise ValueError(f"vq_argmin kernel supports embed_dim 4, got {D}")
-    if N * 20 > _MAX_SMEM:
+    if N * _CODEWORD_SMEM > _MAX_SMEM:
         raise ValueError(f"codebook of {N} entries exceeds shared memory")
     if codebook.device != z_flat.device:
         raise ValueError("z and codebook must be on the same device")
@@ -58,9 +67,13 @@ def _vq_argmin_cuda(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tenso
 
 def vq_argmin(z_flat: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest codebook index for each row of z_flat [M, D] against
-    codebook [N, D]; returns [M] int32."""
+    codebook [N, D]; returns [M] int32. On a CUDA tensor the kernel runs
+    where ``use_kernel`` allows it; other shapes take the plain version on
+    the card."""
     if z_flat.device.type == "cpu":
         return vq_argmin_plain(z_flat, codebook)
     if z_flat.device.type == "cuda":
-        return _vq_argmin_cuda(z_flat, codebook)
+        if use_kernel(z_flat.shape[-1], codebook.shape[0], z_flat.dtype):
+            return _vq_argmin_cuda(z_flat, codebook)
+        return vq_argmin_plain(z_flat, codebook)
     raise ValueError(f"vq_argmin: unsupported device {z_flat.device}")

@@ -17,15 +17,19 @@ import torch
 DEPLOYMENT = dict(batch=16, lanes=512, rate_scale=0.55, H=768, W=512)
 
 
-def deployment_images() -> np.ndarray:
-    """Smooth low-frequency content plus sensor-like noise, [16, 768, 512, 3]
+def smooth_images(B: int, H: int, W: int) -> np.ndarray:
+    """Smooth low-frequency content plus sensor-like noise, [B, H, W, 3]
     uint8 from ``numpy.random.default_rng(0)``."""
-    B, H, W = DEPLOYMENT["batch"], DEPLOYMENT["H"], DEPLOYMENT["W"]
     rng = np.random.default_rng(0)
     yy, xx = np.meshgrid(np.linspace(0, 4, H), np.linspace(0, 4, W), indexing="ij")
     base = (np.stack([np.sin(yy + p) * np.cos(xx * 0.7 + p)
                       for p in (0.0, 1.3, 2.1)], axis=-1) + 1.0) * 110.0
     return np.clip(base[None] + rng.normal(0, 12, (B, H, W, 3)), 0, 255).astype(np.uint8)
+
+
+def deployment_images() -> np.ndarray:
+    """The workload's batch: ``smooth_images`` [16, 768, 512, 3], seed 0."""
+    return smooth_images(DEPLOYMENT["batch"], DEPLOYMENT["H"], DEPLOYMENT["W"])
 
 
 def deployment_config(opt):

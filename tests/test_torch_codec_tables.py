@@ -17,6 +17,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ("utils/config.py", "utils/config.py"),
     ("utils/registry.py", "utils/registry.py"),
     ("codec/container.py", "codec/container.py"),
+    ("codec/tiling.py", "codec/tiling.py"),
     ("ops/rans/rans.cpp", "csrc/rans.cpp")])
 def test_jax_free_copies_are_byte_equal(rel, port_rel):
     """The port carries its own copies of the JAX package's jax-free

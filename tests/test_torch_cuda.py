@@ -79,12 +79,35 @@ def test_flash_attention_kernel_weights_sum_to_one_at_a_ragged_length(dev):
 
 
 def test_flash_attention_kernel_rejects_unsupported_width(dev):
-    """The kernel takes C = 128, 256, 384 or 512 (whole 128-channel chunks)."""
+    """The kernel takes C = 128, 256, 384 or 512 (whole 128-channel chunks):
+    its launcher raises for other widths, and ``flash_attention`` sends
+    them, like bf16 operands, to the plain version on the card without a
+    launch."""
     from dc_vic_tpu_torch.ops import attention
+    g = torch.Generator(device=dev).manual_seed(5)
     for width in (516, 64, 640):
-        q = torch.zeros(1, 8, width, device=dev)
+        q = torch.randn(1, 8, width, generator=g, device=dev)
         with pytest.raises(ValueError):
-            attention.flash_attention(q, q, q)
+            attention._flash_attention_cuda(q, q, q)
+        before = attention.launches
+        assert torch.equal(attention.flash_attention(q, q, q), attention.attention_plain(q, q, q))
+        assert attention.launches == before
+    q = torch.randn(2, 300, 128, generator=g, device=dev).bfloat16()
+    before = attention.launches
+    assert torch.equal(attention.flash_attention(q, q, q), attention.attention_plain(q, q, q))
+    assert attention.launches == before
+
+
+def test_vq_argmin_outside_the_kernel_rule_takes_the_plain_version(dev):
+    """D other than 4 (here 8) goes to the plain version on the card, as
+    the reference goes to XLA; no launch, no error."""
+    from dc_vic_tpu_torch.ops import vq
+    g = torch.Generator(device=dev).manual_seed(6)
+    z, cb = torch.randn(1000, 8, generator=g, device=dev), torch.randn(256, 8, generator=g,
+                                                                      device=dev)
+    before = vq.launches
+    assert torch.equal(vq.vq_argmin(z, cb), vq.vq_argmin_plain(z, cb))
+    assert vq.launches == before
 
 
 # ------------------------------------------------- K3, K4: GroupNorm kernels
@@ -379,6 +402,25 @@ def test_portable_stream_decodes_in_any_grouping_on_the_card(dev):
     for group in ([0, 1, 2, 3], [0, 1], [2, 3], [0], [1], [2], [3]):
         assert codec.verify_roundtrip([res[b] for b in group], [sls[b] for b in group],
                                       (128, 192)), group
+
+
+def test_compressai_codec_decodes_a_tpu_stream_on_the_card(dev):
+    """A default compressai Codec keeps its entropy chain on the CPU, yet
+    reads tpu-format streams through the model's own chain on the card,
+    where their parameters were derived: latents and pixels bit-exact."""
+    import numpy as np
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import build_comp_model, init_weights
+    spec = build_comp_model(_tiny_config())
+    init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
+    tpu = Codec(spec, encode_backend="device", lanes=8)
+    img = np.random.default_rng(0).integers(0, 256, (2, 128, 192, 3), dtype=np.uint8)
+    res = tpu.compress(img, 1, debug=True)
+    sls = [r["string_list"] for r in res]
+    reader = Codec(spec, stream_format="compressai")
+    assert reader.params_backend == "cpu" and reader._chain_device.type == "cpu"
+    assert reader.verify_roundtrip(res, sls, (128, 192))
+    np.testing.assert_array_equal(reader.decompress(sls), tpu.decompress(sls))
 
 
 # ------------------------------------------- R1, R2: the tpu format's coder

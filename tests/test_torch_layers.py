@@ -206,6 +206,21 @@ def test_swin_block(shift):
     _check(got, jm.apply({"params": p}, jnp.asarray(x)), nchw=False)
 
 
+@pytest.mark.parametrize("H,W,ws,shift", [
+    (8, 12, 4, 2), (16, 16, 4, 2), (32, 32, 8, 4), (64, 64, 8, 4), (64, 96, 8, 4),
+    (96, 64, 8, 4), (48, 32, 8, 4)])
+def test_shift_attn_mask_matches_jax(H, W, ws, shift):
+    """The shifted-window mask built from index arithmetic equals the JAX
+    package's numpy mask exactly: the tiny model's sizes, and the
+    flagship's window 8 at the estimator planes of a whole 768x512 or
+    512x768 image and of a 32x32 y tile of the tiled decode."""
+    from dc_vic_tpu.nn.swin import _shift_attn_mask as ref
+    from dc_vic_tpu_torch.nn.swin import _shift_attn_mask
+    got = _shift_attn_mask(H, W, ws, shift, "cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), ref(H, W, ws, shift))
+
+
 def test_rstb():
     from dc_vic_tpu.nn.swin import RSTB as J
     from dc_vic_tpu_torch.nn.swin import RSTB
