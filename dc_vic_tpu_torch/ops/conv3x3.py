@@ -1,5 +1,6 @@
 """3x3 stride-1 SAME convolution for the reconstruction stacks: the CUDA
-kernels K5 and K6 (``csrc/conv3x3.cu``) and their plain PyTorch versions.
+kernels K5 and K6 (``csrc/conv3x3.cu`` for f32, ``csrc/conv3x3_bf16.cu``
+for bf16) and their plain PyTorch versions.
 
 Port of ``dc_vic_tpu/ops/conv3x3.py`` in the port's layouts (NCHW maps, OIHW
 weights; forward only: the codec path runs under ``torch.no_grad``).
@@ -23,10 +24,15 @@ from .layout import row_major as _row_major
 # Kernel launches since the last reset (counted where each kernel launches).
 launches = {"conv3x3_same": 0, "conv3x3_gn_swish": 0}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# what the kernels' tiles need: input channels staged 8 at a time (one
-# tensor-core k8 step per tap), output channels in tiles of 64 (a wgmma's N)
-_C_STEP, _COUT_STEP = 8, 64
+# what the kernels' tiles need, by dtype: input channels staged 8 (f32,
+# csrc/conv3x3.cu: one TF32 k8 step per tap) or 16 (bf16, csrc/conv3x3_bf16.cu:
+# one k16 step) at a time, output channels in multiples of 64
+_C_STEP = {torch.float32: 8, torch.bfloat16: 16}
+_F32 = 0   # the dtype code of csrc/conv3x3.cu's entry points for f32
+_COUT_STEP = 64
+# the bf16 kernels' output-channel tile (a wgmma's N): the repacked weights
+# are padded with zeros to a multiple of it
+_BF16_COUT_TILE = 128
 
 
 def use_kernel(B: int, C: int, Cout: int, H: int, W: int) -> bool:
@@ -38,28 +44,75 @@ def use_kernel(B: int, C: int, Cout: int, H: int, W: int) -> bool:
             and H * W >= 12288 and B * H * W >= 16384)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> int:
+def _check(x: torch.Tensor, w: torch.Tensor, what: str) -> None:
     if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:]) != (x.shape[1], 3, 3):
         raise ValueError(f"{what}: expected x [B, C, H, W] and w [Cout, C, 3, 3], "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+    if x.dtype not in _C_STEP or w.dtype != x.dtype:
         raise TypeError(f"{what} kernel takes float32 or bfloat16 x and w of one "
                         f"type, got {x.dtype} and {w.dtype}")
-    if x.shape[1] % _C_STEP or w.shape[0] % _COUT_STEP:
-        raise ValueError(f"{what} kernel needs C % {_C_STEP} == 0 and Cout % "
-                         f"{_COUT_STEP} == 0, got C={x.shape[1]}, Cout={w.shape[0]}")
+    c_step = _C_STEP[x.dtype]
+    if x.shape[1] % c_step or w.shape[0] % _COUT_STEP:
+        raise ValueError(f"{what} kernel needs C % {c_step} == 0 and Cout % {_COUT_STEP} "
+                         f"== 0 in {x.dtype}, got C={x.shape[1]}, Cout={w.shape[0]}")
     if x.numel() == 0 or x.shape[0] > 65535:
         raise ValueError(f"{what}: unsupported input shape {tuple(x.shape)}")
     if w.device != x.device:
         raise ValueError(f"{what}: x and w must be on the same device")
-    return _DTYPES[x.dtype]
 
 
-def _weight_scratch(C: int, Cout: int, device: torch.device) -> torch.Tensor:
+def _padded_cout(Cout: int) -> int:
+    return -(-Cout // _BF16_COUT_TILE) * _BF16_COUT_TILE
+
+
+def _weight_scratch(C: int, Cout: int, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
     """Where the kernels' first pass writes the weights as the operands the
-    tensor cores read from shared memory, each value split in a TF32 hi and
-    lo part: twice the weights' size in f32."""
+    tensor cores read from shared memory. f32: each value split in a TF32 hi
+    and lo part, twice the weights' size in f32. bf16: the values as they
+    are, Cout padded to the output-channel tile (``repack_weights_bf16_plain``
+    is the layout)."""
+    if dtype == torch.bfloat16:
+        return torch.empty(C * 9 * _padded_cout(Cout), dtype=dtype, device=device)
     return torch.empty(2 * C * 9 * Cout, dtype=torch.float32, device=device)
+
+
+def repack_weights_bf16_plain(w: torch.Tensor) -> torch.Tensor:
+    """w [Cout, C, 3, 3] as the bf16 kernels' B operands: [C / 16, 9,
+    Coutp / 8, 2, 8, 8] where element (c16, tap, n8, half, r, k) is
+    w[n8 * 8 + r, c16 * 16 + half * 8 + k, tap // 3, tap % 3] and zero for an
+    output channel at or beyond Cout (Coutp: Cout rounded up to 128). For one
+    step of 16 input channels and one tap, the [Coutp x 16] operand is made
+    of K-major core matrices of 8 output x 8 input channels (128 bytes):
+    128 bytes apart along K (``half``), 256 along N (``n8``)."""
+    Cout, C = w.shape[:2]
+    wp = torch.zeros((_padded_cout(Cout), C, 3, 3), dtype=torch.bfloat16, device=w.device)
+    wp[:Cout] = w
+    t = wp.reshape(-1, 8, C // 16, 2, 8, 9)            # [n8, r, c16, half, k, tap]
+    return t.permute(2, 5, 0, 3, 1, 4).contiguous()    # [c16, tap, n8, half, r, k]
+
+
+def repack_weights_bf16(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernels' weight repack alone: on a CUDA tensor the kernel
+    that K5 and K6 launch first (so that its bits can be held against
+    ``repack_weights_bf16_plain``), on a CPU tensor the plain version."""
+    if w.dtype != torch.bfloat16 or w.dim() != 4 or tuple(w.shape[2:]) != (3, 3):
+        raise ValueError(f"repack_weights_bf16: expected bf16 w [Cout, C, 3, 3], got "
+                         f"{w.dtype} {tuple(w.shape)}")
+    Cout, C = w.shape[:2]
+    if C % _C_STEP[torch.bfloat16] or Cout % _COUT_STEP:
+        raise ValueError(f"repack_weights_bf16 needs C % 16 == 0 and Cout % 64 == 0, got "
+                         f"C={C}, Cout={Cout}")
+    if w.device.type == "cpu":
+        return repack_weights_bf16_plain(w)
+    w = _row_major(w)
+    out = _weight_scratch(C, Cout, w.dtype, w.device)
+    lib = native.kernels()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dcvic_repack_weights_bf16(w.data_ptr(), out.data_ptr(), C, Cout, stream)
+    native.check(err, "repack_weights_bf16")
+    return out.view(C // 16, 9, -1, 2, 8, 8)
 
 
 # ------------------------------------------------------------------- K5
@@ -70,17 +123,21 @@ def conv3x3_same_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _conv3x3_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    dtype = _check(x, w, "conv3x3_same")
+    _check(x, w, "conv3x3_same")
     B, C, H, W = x.shape
     Cout = w.shape[0]
     x, w = _row_major(x), _row_major(w)
     out = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
-    repacked = _weight_scratch(C, Cout, x.device)
+    repacked = _weight_scratch(C, Cout, x.dtype, x.device)
     lib = native.kernels()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dcvic_conv3x3_same(x.data_ptr(), w.data_ptr(), repacked.data_ptr(),
-                                     out.data_ptr(), B, C, Cout, H, W, dtype, stream)
+        if x.dtype == torch.bfloat16:
+            err = lib.dcvic_conv3x3_same_bf16(x.data_ptr(), w.data_ptr(), repacked.data_ptr(),
+                                              out.data_ptr(), B, C, Cout, H, W, stream)
+        else:
+            err = lib.dcvic_conv3x3_same(x.data_ptr(), w.data_ptr(), repacked.data_ptr(),
+                                         out.data_ptr(), B, C, Cout, H, W, _F32, stream)
     native.check(err, "conv3x3_same")
     launches["conv3x3_same"] += 1
     return out
@@ -103,17 +160,20 @@ def conv3x3_gn_swish_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor
                            res: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused composite step by step: affine and swish in f32, cast to
     x's type, conv with zero padding, then the conv bias and the residual in
-    f32."""
+    f32, and one cast to x's type at the end. The conv of the cast
+    activations and the weights runs in f32 (products of bf16 values are
+    exact there), so a bf16 result is rounded once, as the kernels and the
+    JAX package's kernel round it."""
     h = x.float() * scale.float()[:, :, None, None] + bias.float()[:, :, None, None]
     h = (h * torch.sigmoid(h)).to(x.dtype)
-    y = F.conv2d(h, w, padding=1).float() + cbias.float()[None, :, None, None]
+    y = F.conv2d(h.float(), w.float(), padding=1) + cbias.float()[None, :, None, None]
     if res is not None:
         y = y + res.float()
     return y.to(x.dtype)
 
 
 def _conv3x3_gn_swish_cuda(x, w, scale, bias, cbias, res):
-    dtype = _check(x, w, "conv3x3_gn_swish")
+    _check(x, w, "conv3x3_gn_swish")
     B, C, H, W = x.shape
     Cout = w.shape[0]
     small = (scale, bias, cbias)
@@ -127,15 +187,17 @@ def _conv3x3_gn_swish_cuda(x, w, scale, bias, cbias, res):
     scale, bias, cbias = (_row_major(t) for t in small)
     res = None if res is None else _row_major(res)
     out = torch.empty(B, Cout, H, W, dtype=x.dtype, device=x.device)
-    repacked = _weight_scratch(C, Cout, x.device)
+    repacked = _weight_scratch(C, Cout, x.dtype, x.device)
     lib = native.kernels()
+    operands = (x.data_ptr(), w.data_ptr(), repacked.data_ptr(), scale.data_ptr(),
+                bias.data_ptr(), cbias.data_ptr(), None if res is None else res.data_ptr(),
+                out.data_ptr(), B, C, Cout, H, W)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dcvic_conv3x3_gn_swish(
-            x.data_ptr(), w.data_ptr(), repacked.data_ptr(), scale.data_ptr(),
-            bias.data_ptr(), cbias.data_ptr(),
-            None if res is None else res.data_ptr(), out.data_ptr(),
-            B, C, Cout, H, W, dtype, stream)
+        if x.dtype == torch.bfloat16:
+            err = lib.dcvic_conv3x3_gn_swish_bf16(*operands, stream)
+        else:
+            err = lib.dcvic_conv3x3_gn_swish(*operands, _F32, stream)
     native.check(err, "conv3x3_gn_swish")
     launches["conv3x3_gn_swish"] += 1
     return out

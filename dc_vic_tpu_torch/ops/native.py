@@ -30,8 +30,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 CSRC = os.path.join(_PKG, "csrc")
 CUDA_SOURCES = [os.path.join(CSRC, name) for name in (
-    "vq_argmin.cu", "flash_attn_f32.cu", "gn.cu", "conv3x3.cu", "rans_device.cu",
-    "launch_floor.cu")]
+    "vq_argmin.cu", "flash_attn_f32.cu", "gn.cu", "conv3x3.cu", "conv3x3_bf16.cu",
+    "rans_device.cu", "launch_floor.cu")]
 # included by the sources above; a change rebuilds the library
 CUDA_HEADERS = [os.path.join(CSRC, "tf32x3.cuh")]
 RANS_SOURCE = os.path.join(CSRC, "rans.cpp")
@@ -121,6 +121,12 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.dcvic_conv3x3_gn_swish.restype = i
     lib.dcvic_conv3x3_gn_swish.argtypes = [p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, i, p]
+    lib.dcvic_repack_weights_bf16.restype = i
+    lib.dcvic_repack_weights_bf16.argtypes = [p, p, i, i, p]
+    lib.dcvic_conv3x3_same_bf16.restype = i
+    lib.dcvic_conv3x3_same_bf16.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.dcvic_conv3x3_gn_swish_bf16.restype = i
+    lib.dcvic_conv3x3_gn_swish_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
     lib.dcvic_launch_floor.restype = i
     lib.dcvic_launch_floor.argtypes = [i, i, p]
     lib.dcvic_rans_encode_pack.restype = i
