@@ -101,6 +101,29 @@
    The compress CLI's array function (tools/compress.py) runs on two
    768x512 images with selfcheck and decompress. Last, attention with C = 64
    and a VQ with D = 8 take the plain versions on the card.
+13. The training path of the flagship (f32, batch 6 of 256x256 crops of
+   synthetic .npy images written from seed 0 to a temporary directory,
+   random weights from seed 0 with the encoder x 0.55): (1) one RD step of
+   config/exp1_stage1_2.yaml with every kernel that has a plain route off,
+   then on, on the same batch, betas, noise and (pinned) VQ targets: every
+   parameter main_mask trains, and the quantiles, has a finite gradient, no
+   frozen one has any, and each tensor's gradient with the kernels on is
+   within GRAD_TOL relative L2 (+1e-7) of the one with them off; the
+   launches and the kernel Functions' backwards are held against the shape
+   rules. (2) TRAIN_STEPS timed RD steps off and on, a checkpoint; stage 1_3
+   (the GAN step, the PatchGAN of its config) boots it with the shipped
+   knobs, TRAIN_STEPS GAN steps off and on, a checkpoint; stage 3 boots
+   that with its optimizer (schedule reset, Adam's count kept) and its
+   discriminator, two steps, one validation on two 768x512 images at the
+   four beta corners. The frozen prior stays bit-identical, the GAN stages
+   leave the encoder and move the decoder, every loss is finite. (3) Each
+   kernel Function at the path's largest shape: its output has a grad_fn
+   and its gradients are within GRAD_TOL of autograd of the plain version;
+   forward and backward timed with CUDA events. Prints seconds per step,
+   images/s, peak memory and launches per step; the kernels line carries
+   the training keys (train_*).
+A Codec constructed and called with the caller's TF32 and cuDNN benchmark
+on leaves them so and round-trips bit-exactly (after item 3).
 
 For every kernel it prints the least time the card could take for the same
 work: each input read once and each output written once over 3.35 TB/s, or
@@ -1558,6 +1581,35 @@ def check_cli(images):
           f"{[round(r['pred_bpp'], 4) for r in rows]}")
 
 
+def check_codec_scope(codec, images):
+    """A Codec leaves the process's backend settings as it found them, at
+    construction and around its calls, and its round trip stays bit-exact
+    whatever they are (the opposite of its own, here). The check's own
+    reference reconstruction runs with the codec's settings: under the
+    caller's TF32 it would be another computation."""
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+
+    def flags():
+        return (cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark)
+    before, theirs = flags(), (True, True, False, True)
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = theirs
+        c = Codec(codec.spec, stream_format="compressai", params_backend="accel")
+        after_init = flags()
+        trip = drive(c, images)
+        if (after_init, flags()) != (theirs, theirs):
+            raise AssertionError(f"Codec changed the backend settings: {theirs} -> "
+                                 f"{after_init} -> {flags()}")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32, cudnn.deterministic, cudnn.benchmark = before
+    verify(c, images, *trip, "compressai format, driven with the caller's TF32 and cuDNN "
+           "benchmark on, batch 1 500x740")
+    print("Codec: construction and calls leave TF32 and the cuDNN flags as the caller set "
+          "them; the round trip stays bit-exact with the caller's TF32 on")
+
+
 def check_predicates(attention, vq, dev, gen):
     """Outside their rules K1 and K2 take the plain versions on the card
     and do not raise: attention with C = 64, and with bf16 operands; a VQ
@@ -1778,6 +1830,399 @@ def check_deployment(deployment_sd, ops):
     return launches16, shapes16
 
 
+# ------------------------------------------------------------------ training
+
+TRAIN_BATCH, TRAIN_CROP = 6, 256     # config/_base_/dataset: batch 6 of 256x256 crops
+GRAD_TOL = 1e-3                      # relative L2 per parameter tensor (+1e-7 absolute)
+TRAIN_STEPS = 4                      # timed steps per setting; the first is not warm
+
+
+def _training_images(root):
+    """Twelve 384x320 training images and two 768x512 evaluation images
+    (smooth content plus noise, seed 0), as .npy uint8 files."""
+    from dc_vic_tpu_torch.tools.workload import smooth_images
+    imgs = smooth_images(14, 768, 512)
+    os.makedirs(os.path.join(root, "train_0"))
+    os.makedirs(os.path.join(root, "kodak"))
+    for i in range(12):
+        np.save(os.path.join(root, "train_0", f"img{i:02d}.npy"),
+                imgs[i, 24 * i:24 * i + 384, 8 * i:8 * i + 320])
+    for j in range(2):
+        np.save(os.path.join(root, "kodak", f"kodim{j:02d}.npy"), imgs[12 + j])
+
+
+def training_opt(stage, root, load=None):
+    """config/exp1_stage{stage}.yaml on the synthetic images, checkpoints
+    under ``root``, the reconstruction kernels on."""
+    from dc_vic_tpu_torch.models import RECON_KERNELS
+    from dc_vic_tpu_torch.utils.config import load_config
+    opt = load_config(os.path.join(ROOT, "config", f"exp1_stage{stage}.yaml"), is_train=True)
+    data = opt["dataset"]
+    data["batch_size"] = TRAIN_BATCH
+    data["train_dataset"].update(root_dir=root, subset_list=[0], image_size=TRAIN_CROP)
+    data["eval_dataset"]["root_dir"] = os.path.join(root, "kodak")
+    opt["ckpt_root"] = os.path.join(root, "ckpt")
+    opt["recon_kernels"] = list(RECON_KERNELS)
+    opt["load_checkpoint"] = load
+    return opt
+
+
+class _KernelSwitch:
+    """Every kernel of the training path that has a plain route, off or on:
+    K3 to K6 through ``set_recon_kernels``, K2 through its shape rule (the
+    plain attention is differentiated by autograd). K1 has no gradient."""
+
+    def __init__(self, attention):
+        self.attention, self.rule = attention, attention.use_kernel
+
+    def __call__(self, module, on):
+        from dc_vic_tpu_torch.models import RECON_KERNELS, set_recon_kernels
+        set_recon_kernels(module, RECON_KERNELS if on else ())
+        self.attention.use_kernel = self.rule if on else (lambda shape, dtype: False)
+
+
+def backward_recorder(module):
+    """Forward hooks counting, by the shape rules, the kernel launches whose
+    output carries a gradient: the Function backwards the step runs."""
+    import torch
+    from dc_vic_tpu_torch.models.vqgan import VQAttnBlock, VQResnetBlock
+    from dc_vic_tpu_torch.nn.layers import Conv2d, GroupNorm
+    from dc_vic_tpu_torch.ops import attention
+    want = {"flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0, "conv3x3_same": 0,
+            "conv3x3_gn_swish": 0}
+
+    def hook(m, args):
+        x = args[0]
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return
+        if isinstance(m, VQAttnBlock):
+            B, C, H, W = x.shape
+            want["flash_attention"] += attention.use_kernel((B, H * W, C), torch.float32)
+        elif isinstance(m, GroupNorm) and m.takes_kernel(x.shape):
+            want["gn_channel_sums"] += 1
+            want["gn_apply"] += 1
+        elif isinstance(m, Conv2d) and m.takes_kernel(x.shape):
+            want["conv3x3_same"] += 1
+        elif isinstance(m, VQResnetBlock) and m.takes_fused(x.shape):
+            want["conv3x3_gn_swish"] += 2
+
+    kinds = (VQAttnBlock, GroupNorm, Conv2d, VQResnetBlock)
+    return want, [m.register_forward_pre_hook(hook) for m in module.modules()
+                  if isinstance(m, kinds)]
+
+
+def backwards(attention, gn, conv3x3):
+    return {"flash_attention": attention.backwards, **gn.backwards, **conv3x3.backwards}
+
+
+def reset_backwards(attention, gn, conv3x3):
+    attention.backwards = 0
+    for table in (gn.backwards, conv3x3.backwards):
+        for name in table:
+            table[name] = 0
+
+
+def _rel_l2(got, want):
+    import torch
+    err = float(torch.linalg.vector_norm((got - want).double()))
+    return err, err / max(float(torch.linalg.vector_norm(want.double())), 1e-30)
+
+
+def recorded_step(module, ops, run):
+    """``run()`` with every launch counter and Function backward counter
+    set to 0 just before it and read just after, held against what the
+    shape rules give for the modules that ran. Returns (run's result,
+    {"forward": launches, "backward": backwards}, the conv and GroupNorm
+    kernels' launch shapes)."""
+    import torch
+    from dc_vic_tpu_torch.ops import attention, conv3x3, gn
+    want, shapes, handles = expected_launch_recorder(module)
+    want_bwd, more = backward_recorder(module)
+    want.update(rans_encode_pack=0, rans_decode_section=0)
+    reset_counters(*ops)
+    reset_backwards(attention, gn, conv3x3)
+    try:
+        result = run()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles + more:
+            h.remove()
+    got = dict(forward=counters(*ops), backward=backwards(attention, gn, conv3x3))
+    if got != dict(forward=want, backward=want_bwd):
+        raise AssertionError(f"launches {got}, the shape rules give {want} / {want_bwd}")
+    return result, got, shapes
+
+
+def compare_training_gradients(tr, batch, switch, ops):
+    """Item 13.1: one RD step's gradients with every kernel off and on, the
+    same betas, noise and VQ targets. Returns the worst relative error."""
+    import torch
+    from dc_vic_tpu_torch.codec.ops import Noise
+    from dc_vic_tpu_torch.train.steps import rd_losses
+    from dc_vic_tpu_torch.train.trainer import _FLAGS as _TRAIN_FLAGS
+    from dc_vic_tpu_torch.utils.backends import backend_flags
+    model = tr.model
+    beta_rate, beta_vq = tr.policy.sample(tr.state.generator, batch.shape[0])
+    with torch.no_grad():
+        codes = model.vq_encode(batch)
+    # the frozen VQGAN's targets, pinned: a near-tie in the argmin between
+    # the two routes' latents would change the targets, not test a gradient
+    model.vq_encode = lambda x: codes
+    grads = {}
+
+    def run():
+        with backend_flags(**_TRAIN_FLAGS):
+            total, _, _ = rd_losses(model, tr.losses, batch, beta_rate, beta_vq, tr.policy,
+                                    Noise(torch.Generator(batch.device).manual_seed(1)))
+            (total + model.aux_loss()).backward()
+        return total
+
+    try:
+        for on in (False, True):
+            switch(model, on)
+            for p in model.parameters():
+                p.grad = None
+            total, launched, _ = recorded_step(model, ops, run)
+            grads[on] = {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+            print(f"RD step gradients, kernels {'on' if on else 'off'}: loss "
+                  f"{float(total.detach()):.6f}; launches {launched['forward']}; Function "
+                  f"backwards {launched['backward']}")
+    finally:
+        del model.vq_encode
+        switch(model, True)
+    trained = [n for n, m in tr.main_mask.items() if m] + [n for n, m in tr.aux_mask.items() if m]
+    for on in (False, True):
+        missing = [n for n in trained if n not in grads[on]]
+        bad = [n for n in trained if n in grads[on] and not torch.isfinite(grads[on][n]).all()]
+        if missing or bad:
+            raise AssertionError(f"kernels {'on' if on else 'off'}: trained parameters without "
+                                 f"a gradient {missing[:5]}, non-finite {bad[:5]}")
+    frozen = [n for n in grads[True] if n not in trained]
+    if frozen:
+        raise AssertionError(f"frozen parameters got gradients: {frozen[:5]}")
+    worst, worst_name = 0.0, None
+    for name, want in grads[False].items():
+        err, rel = _rel_l2(grads[True][name], want)
+        if not err <= GRAD_TOL * float(torch.linalg.vector_norm(want.double())) + 1e-7:
+            raise AssertionError(f"RD step gradients, kernels on vs off: {name} relative L2 "
+                                 f"error {rel:.3e} over {GRAD_TOL}")
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"RD step gradients, kernels on vs off: {len(trained)} trained tensors, every one "
+          f"with a finite gradient, no frozen one with any; worst relative L2 error "
+          f"{worst:.3e} ({worst_name}; tolerance {GRAD_TOL})")
+    return worst
+
+
+def timed_steps(tr, loader, switch, ops, on, n=TRAIN_STEPS):
+    """n steps of the trainer's stage with the kernels off or on: (host
+    seconds of each step, ending in a synchronize; the last step's launches
+    and Function backwards, held against the shape rules; its launch
+    shapes)."""
+    import torch
+    switch(tr.model, on)
+    secs = []
+    for i in range(n):
+        batch = tr._to_device(next(loader)["real_images"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i < n - 1:
+            terms = tr.step(batch)
+            torch.cuda.synchronize()
+        else:
+            terms, launched, shapes = recorded_step(tr.model, ops, lambda: tr.step(batch))
+        secs.append(time.perf_counter() - t)
+        if not all(np.isfinite(float(v)) for v in terms.values()) or float(terms["skipped"]):
+            raise AssertionError(f"a training step gave {terms}")
+    return secs, launched, shapes
+
+
+def time_backward_kernels(shapes, dev, gen):
+    """Item 13.3: each kernel Function of the training path at the path's
+    largest shape: the output carries a grad_fn, its gradients are held to
+    autograd of the plain version, and forward and backward are timed with
+    CUDA events. Returns {kernel: the training keys of its entry}."""
+    import torch
+    from dc_vic_tpu_torch.ops import attention, conv3x3, gn
+    rows = {}
+
+    def run(name, shape, kernel, plain, inputs):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = kernel(*leaves)
+        if out.grad_fn is None:
+            raise AssertionError(f"{name}: the kernel's output has no grad_fn")
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        got = torch.autograd.grad(out, leaves, g)
+        ref = [t.detach().requires_grad_(True) for t in inputs]
+        want = torch.autograd.grad(plain(*ref), ref, g)
+        worst = max(_rel_l2(a, b)[1] for a, b in zip(got, want))
+        if worst > GRAD_TOL:
+            raise AssertionError(f"{name} backward at {list(shape)}: relative L2 {worst:.3e}")
+        with torch.no_grad():
+            fwd = _time_ms(kernel, *inputs)
+        # one backward alone: the forward and backward, less the forward
+        bwd = _time_ms(lambda: torch.autograd.grad(kernel(*leaves), leaves, g)) \
+            - _time_ms(kernel, *leaves)
+        plain_bwd = _time_ms(lambda: torch.autograd.grad(plain(*ref), ref, g)) \
+            - _time_ms(plain, *ref)
+        rows[name] = dict(train_shape=list(shape), train_fwd_ms=fwd, train_bwd_ms=bwd,
+                          train_plain_bwd_ms=plain_bwd, train_bwd_max_rel_l2=worst)
+        print(f"{name} at {list(shape)}, f32: the output has a grad_fn; forward kernel "
+              f"{fwd:.3f} ms, Function backward {bwd:.3f} ms (autograd of the plain version "
+              f"{plain_bwd:.3f} ms), gradients within {worst:.2e} of the plain version's")
+
+    B = TRAIN_BATCH
+    q, k, v = (torch.randn(B, 1024, 512, generator=gen, device=dev) * s for s in (0.05, 1, 1))
+    run("flash_attention", (B, 1024, 512), attention.flash_attention,
+        attention.attention_plain, (q, k, v))
+    gshape = max(shapes["gn"], key=lambda s: int(np.prod(s)))
+    x = torch.randn(gshape, generator=gen, device=dev)
+    run("gn_channel_sums", gshape, gn.channel_sums, gn.channel_sums_plain, (x,))
+    scale = torch.rand(gshape[:2], generator=gen, device=dev) + 0.5
+    bias = torch.randn(gshape[:2], generator=gen, device=dev)
+    run("gn_apply", gshape, lambda x, s, b: gn.apply_affine(x, s, b, "swish"),
+        lambda x, s, b: gn.apply_affine_plain(x, s, b, "swish"), (x, scale, bias))
+    for name in ("conv3x3_same", "conv3x3_gn_swish"):
+        Bc, C, Cout, H, W = max(shapes[name], key=lambda s: int(np.prod(s)))
+        x = torch.randn(Bc, C, H, W, generator=gen, device=dev)
+        w = torch.randn(Cout, C, 3, 3, generator=gen, device=dev) / (3 * C ** 0.5)
+        if name == "conv3x3_same":
+            run(name, (Bc, C, Cout, H, W), conv3x3.conv3x3_same, conv3x3.conv3x3_same_plain,
+                (x, w))
+            continue
+        s = torch.rand(Bc, C, generator=gen, device=dev) + 0.5
+        b = torch.randn(Bc, C, generator=gen, device=dev) * 0.1
+        cb = torch.randn(Cout, generator=gen, device=dev)
+        res = torch.randn(Bc, Cout, H, W, generator=gen, device=dev)
+        run(name, (Bc, C, Cout, H, W), conv3x3.conv3x3_gn_swish,
+            conv3x3.conv3x3_gn_swish_plain, (x, w, s, b, cb, res))
+    return rows
+
+
+def check_training(ops, smi, dev, gen):
+    """Item 13 of the module docstring. Returns {kernel name: the training
+    keys of its entry in the kernels line}."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.ops import attention
+    from dc_vic_tpu_torch.tools.workload import scale_encoder
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dcvic_train_")
+    switch = _KernelSwitch(attention)
+    loaders = []
+    try:
+        _training_images(root)
+        torch.cuda.empty_cache()
+        # stage 1_2: gradients off against on, then steps off and on
+        t = time.perf_counter()
+        tr = build_trainer(training_opt("1_2", root))
+        tr.model.load_state_dict(scale_encoder(tr.model.state_dict()))
+        print(f"stage 1_2 trainer (flagship, f32, random weights from seed 0, encoder x 0.55): "
+              f"built in {time.perf_counter() - t:.1f} s")
+        frozen0 = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                   if n.startswith("vq_model.")}
+        loaders.append(tr.train_loader.infinite())
+        loader = loaders[-1]
+        worst = compare_training_gradients(tr, tr._to_device(next(loader)["real_images"]),
+                                           switch, ops)
+        enc0 = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                if n.startswith("encoder.")}
+        rd_off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        torch.cuda.reset_peak_memory_stats()
+        rd_on, rd_launched, shapes = timed_steps(tr, loader, switch, ops, True)
+        rd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if all(torch.equal(enc0[n], p) for n, p in tr.model.named_parameters() if n in enc0):
+            raise AssertionError("stage 1_2: the encoder did not move")
+        n12 = tr.state.step
+        tr.save(n12)
+        del tr
+        torch.cuda.empty_cache()
+
+        # stage 1_3 boots from 1_2's checkpoint (the shipped knobs)
+        tr = build_trainer(training_opt("1_3", root, dict(
+            exp="exp1_stage1_2", iter=n12, load_optimizer=False, strict=False)))
+        loaders.append(tr.train_loader.infinite())
+        loader = loaders[-1]
+        before = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                  if n.startswith(("encoder.", "decoder."))}
+        gan_off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        torch.cuda.reset_peak_memory_stats()
+        gan_on, gan_launched, _ = timed_steps(tr, loader, switch, ops, True)
+        gan_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params = dict(tr.model.named_parameters())
+        if not all(torch.equal(before[n], params[n]) for n in before if n.startswith("encoder.")):
+            raise AssertionError("stage 1_3 moved the encoder, which the GAN stages freeze")
+        if all(torch.equal(before[n], params[n]) for n in before if n.startswith("decoder.")):
+            raise AssertionError("stage 1_3: the decoder did not move")
+        n13 = tr.state.step
+        tr.save(n13)
+        d_sd = {k: v.clone() for k, v in tr.state.disc.state_dict().items()}
+        del tr, params, before
+        torch.cuda.empty_cache()
+
+        # stage 3 boots from 1_3's, optimizer and discriminator included
+        tr = build_trainer(training_opt("3", root, dict(
+            exp="exp1_stage1_3", iter=n13, load_optimizer=True, load_scheduler=False,
+            strict=True)))
+        g_opt = tr.state.g_opt
+        if (int(g_opt.sched_count), int(g_opt.count)) != (0, n13):
+            raise AssertionError(f"stage 3 boot: schedule count {int(g_opt.sched_count)}, Adam "
+                                 f"count {int(g_opt.count)}; expected 0 and {n13}")
+        if any(not torch.equal(v, tr.state.disc.state_dict()[k]) for k, v in d_sd.items()):
+            raise AssertionError("stage 3 boot: the discriminator is not 1_3's")
+        loaders.append(tr.train_loader.infinite())
+        s3, _, _ = timed_steps(tr, loaders[-1], switch, ops, True, n=2)
+        moved = [n for n, p in tr.model.named_parameters()
+                 if n in frozen0 and not torch.equal(frozen0[n], p)]
+        if moved:
+            raise AssertionError(f"the frozen VQGAN prior moved: {moved[:5]}")
+        t = time.perf_counter()
+        val = tr.validate(tr.state.step, max_samples=2)
+        val_s = time.perf_counter() - t
+        if not (val and all(np.isfinite(v) for v in val.values()) and val["ms_ssim"] > 0):
+            raise AssertionError(f"validation gave {val}")
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        for it in loaders:
+            it.close()
+        shutil.rmtree(root, ignore_errors=True)
+        switch(torch.nn.Module(), True)
+
+    rows = time_backward_kernels(shapes, dev, gen)
+    warm = lambda secs: float(np.median(secs[1:]))
+    print(f"training steps, batch {TRAIN_BATCH} of {TRAIN_CROP}x{TRAIN_CROP}, f32 (host clock "
+          f"around the step, ending in torch.cuda.synchronize(); medians of {TRAIN_STEPS - 1} "
+          f"warm steps; {smi}): RD (stage 1_2) kernels off {warm(rd_off):.4f} s, on "
+          f"{warm(rd_on):.4f} s ({TRAIN_BATCH / warm(rd_on):.2f} images/s); GAN (stage 1_3) "
+          f"off {warm(gan_off):.4f} s, on {warm(gan_on):.4f} s "
+          f"({TRAIN_BATCH / warm(gan_on):.2f} images/s); stage 3 "
+          f"{', '.join(f'{x:.4f}' for x in s3)} s")
+    print(f"peak device memory with the kernels on: RD step {rd_peak:.2f} GiB, GAN step "
+          f"{gan_peak:.2f} GiB (model, optimizer states and activations)")
+    print(f"launches per RD step {rd_launched['forward']}, Function backwards "
+          f"{rd_launched['backward']}; per GAN step {gan_launched['forward']}, backwards "
+          f"{gan_launched['backward']}")
+    print(f"stage 1_2 -> 1_3 -> 3: checkpoints at {n12} and {n13} steps booted, the frozen "
+          f"prior bit-identical, validation on two 768x512 images at four beta corners "
+          f"{val_s:.1f} s ({val}); worst gradient error {worst:.3e}; training phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    for name in ("vq_argmin", "flash_attention", "gn_channel_sums", "gn_apply", "conv3x3_same",
+                 "conv3x3_gn_swish"):
+        out[name] = dict(rows.get(name, {}),
+                         train_launches_rd_step=rd_launched["forward"][name],
+                         train_backwards_rd_step=rd_launched["backward"].get(name, 0),
+                         train_launches_gan_step=gan_launched["forward"][name],
+                         train_backwards_gan_step=gan_launched["backward"].get(name, 0))
+    return dict(kernels=out, rd_s=(warm(rd_off), warm(rd_on)),
+                gan_s=(warm(gan_off), warm(gan_on)), peak_gib=(rd_peak, gan_peak),
+                worst_grad_rel_l2=worst)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1855,6 +2300,7 @@ def main():
 
     img1 = rng.integers(0, 256, (1, 500, 740, 3), dtype=np.uint8)
     verify(codec, img1, *drive(codec, img1), "compressai format, default path, batch 1 500x740")
+    check_codec_scope(codec, img1)
 
     # the tpu stream format on the same model: host and device encode backends
     tpu = {(backend, lanes): Codec(spec, encode_backend=backend, lanes=lanes)
@@ -1972,11 +2418,15 @@ def main():
     del deployment_sd
     torch.cuda.empty_cache()
 
+    training = check_training(ops, smi, dev, gen)
+    torch.cuda.empty_cache()
+
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_bf16_batch16"] = launches16[k["name"]]
         k["launches_tiled_2048x1365"] = launches_tiled[k["name"]]
+        k.update(training["kernels"].get(k["name"], {}))
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

@@ -8,7 +8,8 @@ must not depend on the device.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,15 +17,16 @@ from torch import nn
 
 from ..ops.cdf import build_cdf_rows
 from ..ops.rans_host import CdfTable
-from .ops import lower_bound
+from .ops import Noise, lower_bound, ste_round
 
 
 class EntropyBottleneck(nn.Module):
     def __init__(self, channels: int, filters: Tuple[int, ...] = (3, 3, 3, 3),
-                 likelihood_bound: float = 1e-9):
+                 likelihood_bound: float = 1e-9, tail_mass: float = 1e-9):
         super().__init__()
         self.channels = channels
         self.likelihood_bound = likelihood_bound
+        self.tail_mass = tail_mass
         sizes = (1,) + tuple(filters) + (1,)
         self.num_layers = len(filters) + 1
         for i in range(self.num_layers):
@@ -40,27 +42,61 @@ class EntropyBottleneck(nn.Module):
     def medians(self) -> torch.Tensor:
         return self.quantiles[:, 0, 1]
 
-    def _logits_cumulative(self, inputs: torch.Tensor) -> torch.Tensor:
-        """inputs [C, 1, N] -> logits of the learned cumulative."""
+    def _logits_cumulative(self, inputs: torch.Tensor, stop_gradient: bool = False
+                           ) -> torch.Tensor:
+        """inputs [C, 1, N] -> logits of the learned cumulative. With
+        ``stop_gradient`` the chain's parameters pass no gradient (the
+        quantiles' aux loss)."""
+        sg = (lambda t: t.detach()) if stop_gradient else (lambda t: t)
         logits = inputs
         for i in range(self.num_layers):
-            m = nn.functional.softplus(getattr(self, f"_matrix{i}"))
-            logits = torch.matmul(m, logits) + getattr(self, f"_bias{i}")
+            m = nn.functional.softplus(sg(getattr(self, f"_matrix{i}")))
+            logits = torch.matmul(m, logits) + sg(getattr(self, f"_bias{i}"))
             if i < self.num_layers - 1:
-                logits = logits + torch.tanh(getattr(self, f"_factor{i}")) * torch.tanh(logits)
+                logits = logits + torch.tanh(sg(getattr(self, f"_factor{i}"))) * torch.tanh(logits)
         return logits
 
-    def likelihood(self, x_hat: torch.Tensor) -> torch.Tensor:
-        """Likelihood of quantized values x_hat [B, C, H, W]."""
-        B, C, H, W = x_hat.shape
-        v = x_hat.transpose(0, 1).reshape(C, 1, -1)
+    def _likelihood_v(self, v: torch.Tensor) -> torch.Tensor:
+        """Bounded likelihood of values v [C, 1, N]."""
         lower = self._logits_cumulative(v - 0.5)
         upper = self._logits_cumulative(v + 0.5)
         sign = -torch.sign(lower + upper)
         lik = torch.abs(torch.sigmoid(sign * upper) - torch.sigmoid(sign * lower))
         if self.likelihood_bound > 0:
             lik = lower_bound(lik, self.likelihood_bound)
-        return lik.reshape(C, B, H, W).transpose(0, 1)
+        return lik
+
+    def likelihood(self, x_hat: torch.Tensor) -> torch.Tensor:
+        """Likelihood of quantized values x_hat [B, C, H, W]."""
+        B, C, H, W = x_hat.shape
+        v = x_hat.transpose(0, 1).reshape(C, 1, -1)
+        return self._likelihood_v(v).reshape(C, B, H, W).transpose(0, 1)
+
+    def forward(self, x: torch.Tensor, is_train: bool, noise: Optional[Noise] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x [B, C, H, W] -> (x_hat, likelihood). Training: the likelihood
+        of x plus uniform noise, and x_hat rounded straight-through around
+        the (detached) medians. Eval: a hard round around the medians."""
+        B, C, H, W = x.shape
+        med = self.medians().detach().reshape(1, C, 1, 1)
+        if not is_train:
+            x_hat = torch.round(x - med) + med
+            return x_hat, self.likelihood(x_hat)
+        if noise is None:
+            raise ValueError("the training likelihood needs a noise source")
+        v = x.transpose(0, 1).reshape(C, 1, -1)
+        lik = self._likelihood_v(v + noise.uniform(v.shape, v))
+        x_hat = ste_round(x - med) + med
+        return x_hat, lik.reshape(C, B, H, W).transpose(0, 1)
+
+    def aux_loss(self) -> torch.Tensor:
+        """The quantiles' fitting loss; its gradient reaches ``quantiles``
+        alone."""
+        logits = self._logits_cumulative(self.quantiles, stop_gradient=True)
+        t = math.log(2.0 / self.tail_mass - 1.0)
+        target = torch.tensor([-t, 0.0, t], dtype=torch.float32,
+                              device=logits.device).reshape(1, 1, 3)
+        return torch.sum(torch.abs(logits - target))
 
     def quantize_symbols(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW -> int32 symbols around the per-channel median, clipped to

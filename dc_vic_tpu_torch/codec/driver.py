@@ -52,6 +52,7 @@ VQGAN attention's length and the memory whatever the image's size.
 """
 from __future__ import annotations
 
+import functools
 import os
 import statistics
 import time
@@ -70,6 +71,7 @@ from ..ops.rans_host import (RansDecoder, decode_with_indexes, encode_with_index
 from .bottleneck import build_bottleneck_cdf
 from .container import HeaderHandler
 from .gaussian import get_scale_table
+from ..utils.backends import backend_flags
 from .tiling import (DEC_STRIDE_Y, DEC_WINDOW_Y, ENC_STRIDE, ENC_WINDOW, SPLIT_RESOLUTION,
                      keep_region, tile_starts)
 
@@ -189,6 +191,17 @@ def _geometry(H: int, W: int):
             padH // Y_STRIDE, padW // Y_STRIDE)
 
 
+def _codec_call(method):
+    """Run a Codec method under ``torch.no_grad`` with the codec's backend
+    numerics (class docstring), restored on return."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with torch.no_grad(), backend_flags(allow_tf32=False, deterministic=True,
+                                            benchmark=False):
+            return method(self, *args, **kwargs)
+    return call
+
+
 class Codec:
     """Compress and decompress with a built model (its device is the
     model's).
@@ -209,14 +222,15 @@ class Codec:
     CPU once per encoded batch, y_hat crosses back once per decoded batch.
     On a model that lies on the CPU both settings are its own chain.
 
-    Numerics: constructing a Codec sets, process-wide,
+    Numerics: inside each of its calls (``_codec_call``) a Codec runs with
     ``torch.backends.cudnn.allow_tf32 = False``,
     ``torch.backends.cuda.matmul.allow_tf32 = False``,
     ``torch.backends.cudnn.deterministic = True`` and
-    ``torch.backends.cudnn.benchmark = False``. cuDNN would otherwise run
-    f32 convolutions in TF32 and may choose algorithms per call; a different
-    algorithm between the encode and decode chains desynchronizes the
-    stream. The model's ``entropy_precision: default`` re-allows TF32 for
+    ``torch.backends.cudnn.benchmark = False``, and puts the caller's
+    settings back when the call returns; constructing one changes nothing.
+    cuDNN would otherwise run f32 convolutions in TF32 and may choose
+    algorithms per call; a different algorithm between the encode and decode
+    chains desynchronizes the stream. The model's ``entropy_precision: default`` re-allows TF32 for
     the entropy-parameter convs only, inside the three chain methods. The
     codec runs under ``torch.no_grad``; the model's ``codec_dtype`` decides
     whether the conv stacks compute in f32 or bf16, the entropy chain is f32
@@ -250,10 +264,6 @@ class Codec:
                              "the tpu format's coder kernels read the entropy parameters on "
                              "the card")
         rd.check_lanes(lanes)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
         self.spec = spec
         self.stream_format = stream_format
         self.encode_backend = encode_backend
@@ -453,7 +463,7 @@ class Codec:
             out.update(y_hat=y_hat, z_hat=z_hat)
         return out
 
-    @torch.no_grad()
+    @_codec_call
     def compress_dispatch(self, images: np.ndarray, quality_ind: Optional[int] = None,
                           beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
                           debug: bool = False) -> Dict:
@@ -580,7 +590,7 @@ class Codec:
                                 pred_z_bpp=float(z_bits[b]) / (H * W)))
         return results
 
-    @torch.no_grad()
+    @_codec_call
     def compress_finalize(self, handle: Dict) -> List[Dict]:
         """Phase 2: fetch the device-coded streams (tpu format, device
         backend), or the symbol planes and entropy-code them on the host.
@@ -779,7 +789,7 @@ class Codec:
                 f"z={got[0].tolist()} / y={got[1].tolist()} words, streams contain "
                 f"z={want_z.tolist()} / y={want_y.tolist()}: corrupt or mismatched bitstream")
 
-    @torch.no_grad()
+    @_codec_call
     def decompress(self, string_lists: List[List[bytes]], defer_fetch: bool = False):
         """Decode same-size, same-quality streams as one batch: of the size
         they were encoded at, or of any size if they are portable (all or
@@ -796,7 +806,7 @@ class Codec:
             esc_dense=tpu and hdr["esc_dense"], portable=bool(hdr["portable"]),
             t2free=tpu and hdr["t2free"], escfree=tpu and hdr["escfree"])
 
-    @torch.no_grad()
+    @_codec_call
     def decompress_raw(self, z_strs: List[bytes], y_strs: List[bytes],
                        img_size: Tuple[int, int], beta_rate: float, beta_vq: float,
                        defer_fetch: bool = False, stream_format: Optional[str] = None,
@@ -819,7 +829,7 @@ class Codec:
         img = self._reconstruct(y_hat.to(self.device), b1, b2, H, W)
         return _nhwc(img[:, :, :H, :W])
 
-    @torch.no_grad()
+    @_codec_call
     def verify_roundtrip(self, results: List[Dict], string_lists: List[List[bytes]],
                          img_size: Tuple[int, int]) -> bool:
         """True when the decoder's y_hat and z_hat equal the encoder's
@@ -843,7 +853,7 @@ class Codec:
                    and np.array_equal(z_hat[b], r["z_hat"])
                    for b, r in enumerate(results))
 
-    @torch.no_grad()
+    @_codec_call
     def bench_device_cycle(self, images: np.ndarray, quality_ind: Optional[int] = None,
                            beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
                            iters: int = 3) -> Dict[str, float]:

@@ -17,7 +17,7 @@ from scipy.stats import norm as _scipy_norm
 
 from ..ops.cdf import build_cdf_rows
 from ..ops.rans_host import CdfTable
-from .ops import lower_bound
+from .ops import Noise, lower_bound, ste_round
 
 SCALES_MIN = 0.11
 SCALES_MAX = 256.0
@@ -53,6 +53,20 @@ class GaussianConditional:
         if self.likelihood_bound > 0:
             lik = lower_bound(lik, self.likelihood_bound)
         return lik
+
+    def __call__(self, y, params, is_train: bool, noise: Optional[Noise] = None):
+        """params: cat(means, scales) on the channel axis. Returns (y_hat,
+        likelihood). Training: the likelihood of y plus uniform noise, and
+        y_hat rounded straight-through around the means. Eval: a hard round
+        around the means."""
+        means, scales = params.chunk(2, dim=1)
+        if not is_train:
+            y_hat = torch.round(y - means) + means
+            return y_hat, self.likelihood(y_hat, scales, means)
+        if noise is None:
+            raise ValueError("the training likelihood needs a noise source")
+        lik = self.likelihood(y + noise.uniform(y.shape, y), scales, means)
+        return ste_round(y - means) + means, lik
 
     def quantize_symbols(self, y, means):
         return torch.clamp(torch.round(y - means), -self.SYM_CLIP,

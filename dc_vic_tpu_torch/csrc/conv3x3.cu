@@ -53,10 +53,9 @@
 //   * Accuracy. Within a step a warpgroup sums its 9 taps (27 products) on
 //     the tensor cores from zero; the partial sum is then added to the f32
 //     accumulator with a rounded add (see tf32x3.cuh).
-// bf16 tensors take the same loop: a bf16 value is a TF32 value, so its low
-// part is zero and only the hi x hi product is issued, which multiplies
-// exactly. The TPU kernel's double-buffered DMA ring and its slot parity are
-// pipeline mechanics of that machine and were not carried over.
+// f32 only: bf16 convolutions take csrc/conv3x3_bf16.cu. The TPU kernel's
+// double-buffered DMA ring and its slot parity are pipeline mechanics of that
+// machine and were not carried over.
 //
 // K6's prologue runs where the input tile is written to shared memory: v =
 // x * scale + bias, v = v * sigmoid(v) for positions inside the image and a
@@ -66,10 +65,8 @@
 // atomics), so the output has the same bits on every run. Global offsets are
 // 64-bit per image and channel group, 32-bit inside one (8 planes). Needs
 // C % 8 == 0 and Cout % 64 == 0; ragged tiles are masked on store.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -94,18 +91,6 @@ constexpr int kSmemBytes = 2 * kBufBytes;
 static_assert(kXPlane % 32 == 8, "channel planes must be 8 banks apart");
 static_assert(kXTile % 2 == 0 && kBufBytes % 16 == 0, "the weight slabs stay 16-byte aligned");
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-// v rounded to T and back: the working type of the normalised activations.
-template <typename T> __device__ __forceinline__ float round_as(float v) {
-  if (std::is_same<T, float>::value) return v;
-  return __bfloat162float(__float2bfloat16(v));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
@@ -114,14 +99,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
-// w [Cout][C][9] (T) -> wt [C / 8][9][hi, lo][Cout / 8][2][8] float4: per 8
+// w [Cout][C][9] (f32) -> wt [C / 8][9][hi, lo][Cout / 8][2][8] float4: per 8
 // input channels, tap and part, the [Cout x 8] B operand of a wgmma in the
 // K-major layout without swizzle, built of 8 x 16-byte core matrices: output
 // channel n8 * 8 + r, input channels c8 * 8 + half * 4 + (0..3) at float4
 // index (n8 * 2 + half) * 8 + r.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-repack_weights_kernel(const T* __restrict__ w, float4* __restrict__ wt, int C, int Cout) {
+repack_weights_kernel(const float* __restrict__ w, float4* __restrict__ wt, int C, int Cout) {
   const int64_t n8s = Cout / 8;
   const int64_t total = static_cast<int64_t>(C / 8) * 9 * 2 * n8s * 16;
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -136,7 +120,7 @@ repack_weights_kernel(const T* __restrict__ w, float4* __restrict__ wt, int C, i
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     uint32_t hi, lo;
-    tf32x3::split(to_f32(w[(co * C + c + i) * 9 + tap]), hi, lo);
+    tf32x3::split(w[(co * C + c + i) * 9 + tap], hi, lo);
     v[i] = __uint_as_float(lo_part ? lo : hi);
   }
   wt[idx] = make_float4(v[0], v[1], v[2], v[3]);
@@ -188,14 +172,12 @@ __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
 }
 
-template <typename T, bool kFused>
+template <bool kFused>
 __device__ __forceinline__ void conv_tile(
-    const T* __restrict__ x, const float4* __restrict__ wt,
+    const float* __restrict__ x, const float4* __restrict__ wt,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    const float* __restrict__ cbias, const T* __restrict__ res,
-    T* __restrict__ out, int C, int Cout, int H, int W, int tiles_w) {
-  // an f32 operand has a low part; a bf16 one is a TF32 value already
-  constexpr bool kSplit = std::is_same<T, float>::value;
+    const float* __restrict__ cbias, const float* __restrict__ res,
+    float* __restrict__ out, int C, int Cout, int H, int W, int tiles_w) {
   // two buffers, each the hi plane [kKC][kXRows][kXStride], the lo plane and
   // the [9][hi, lo] B operands; addressed as offsets from the one shared
   // array, so that every access compiles to a shared-memory instruction
@@ -240,11 +222,11 @@ __device__ __forceinline__ void conv_tile(
   }
   // global -> registers
   auto load_x = [&](int c0) {
-    const T* from = x + (b * C + c0) * plane;
+    const float* from = x + (b * C + c0) * plane;
 #pragma unroll
     for (int i = 0; i < kXPer; ++i) {
       xr[i] = 0.f;  // the SAME padding, in the space the conv reads
-      if (inside >> i & 1u) xr[i] = to_f32(from[x_from[i]]);
+      if (inside >> i & 1u) xr[i] = from[x_from[i]];
     }
   };
   // registers -> shared, through K6's prologue, split in hi and lo
@@ -258,7 +240,7 @@ __device__ __forceinline__ void conv_tile(
         // swish with the fast exponential and reciprocal (a few units in the
         // last place): every warp of the block is here at once with the
         // tensor cores idle
-        v = round_as<T>(__fdividef(v, 1.0f + __expf(-v)));
+        v = __fdividef(v, 1.0f + __expf(-v));
       }
       uint32_t hi, lo;
       tf32x3::split(v, hi, lo);
@@ -305,24 +287,17 @@ __device__ __forceinline__ void conv_tile(
       uint32_t a_hi[4] = {__float_as_uint(p[0]), __float_as_uint(p[8]),
                           __float_as_uint(p[4 * kXPlane]),
                           __float_as_uint(p[4 * kXPlane + 8])};
-      uint32_t a_lo[4] = {0u, 0u, 0u, 0u};
-      if (kSplit) {
-        a_lo[0] = __float_as_uint(p[kXTile]);
-        a_lo[1] = __float_as_uint(p[kXTile + 8]);
-        a_lo[2] = __float_as_uint(p[kXTile + 4 * kXPlane]);
-        a_lo[3] = __float_as_uint(p[kXTile + 4 * kXPlane + 8]);
-      }
+      uint32_t a_lo[4] = {__float_as_uint(p[kXTile]), __float_as_uint(p[kXTile + 8]),
+                          __float_as_uint(p[kXTile + 4 * kXPlane]),
+                          __float_as_uint(p[kXTile + 4 * kXPlane + 8])};
       // a tap's hi operand, then its lo operand, 2 KB each (16-byte units)
       const uint64_t b_hi = b0 + tap * 2 * (kBOperand >> 4);
       const uint64_t b_lo = b_hi + (kBOperand >> 4);
       wgmma_fence();
-      if (kSplit) {  // small terms first; the first product of a step starts from zero
-        wgmma_m64n64k8(part, a_lo, b_hi, tap > 0);
-        wgmma_m64n64k8(part, a_hi, b_lo, 1);
-        wgmma_m64n64k8(part, a_hi, b_hi, 1);
-      } else {
-        wgmma_m64n64k8(part, a_hi, b_hi, tap > 0);
-      }
+      // small terms first; the first product of a step starts from zero
+      wgmma_m64n64k8(part, a_lo, b_hi, tap > 0);
+      wgmma_m64n64k8(part, a_hi, b_lo, 1);
+      wgmma_m64n64k8(part, a_hi, b_hi, 1);
       wgmma_commit();
       // the products read a_hi and a_lo until they are done; the other
       // warpgroups keep the tensor cores busy meanwhile
@@ -361,31 +336,29 @@ __device__ __forceinline__ void conv_tile(
         float v = acc[nt * 4 + half * 2 + odd];
         if (kFused) {
           v += cb;
-          if (res != nullptr) v += to_f32(res[row + wq]);
+          if (res != nullptr) v += res[row + wq];
         }
-        from_f32(out + row + wq, v);
+        out[row + wq] = v;
       }
     }
   }
 }
 
 // ---------------------------------------------------------------- K5
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_same_kernel(const T* __restrict__ x, const float4* __restrict__ wt,
-                    T* __restrict__ out, int C, int Cout, int H, int W, int tiles_w) {
-  conv_tile<T, false>(x, wt, nullptr, nullptr, nullptr, nullptr, out, C, Cout, H, W,
+conv3x3_same_kernel(const float* __restrict__ x, const float4* __restrict__ wt,
+                    float* __restrict__ out, int C, int Cout, int H, int W, int tiles_w) {
+  conv_tile<false>(x, wt, nullptr, nullptr, nullptr, nullptr, out, C, Cout, H, W,
                       tiles_w);
 }
 
 // ---------------------------------------------------------------- K6
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv3x3_gn_swish_kernel(const T* __restrict__ x, const float4* __restrict__ wt,
+conv3x3_gn_swish_kernel(const float* __restrict__ x, const float4* __restrict__ wt,
                         const float* __restrict__ scale, const float* __restrict__ bias,
-                        const float* __restrict__ cbias, const T* __restrict__ res,
-                        T* __restrict__ out, int C, int Cout, int H, int W, int tiles_w) {
-  conv_tile<T, true>(x, wt, scale, bias, cbias, res, out, C, Cout, H, W, tiles_w);
+                        const float* __restrict__ cbias, const float* __restrict__ res,
+                        float* __restrict__ out, int C, int Cout, int H, int W, int tiles_w) {
+  conv_tile<true>(x, wt, scale, bias, cbias, res, out, C, Cout, H, W, tiles_w);
 }
 
 struct Geometry {
@@ -418,7 +391,6 @@ template <typename K> cudaError_t allow_smem(K kernel) {
                               kSmemBytes);
 }
 
-template <typename T>
 int launch(const void* x, const void* w, float* wt, const float* scale,
            const float* bias, const float* cbias, const void* res, void* out,
            int B, int C, int Cout, int H, int W, bool fused, cudaStream_t stream) {
@@ -426,20 +398,20 @@ int launch(const void* x, const void* w, float* wt, const float* scale,
   if (!g.ok || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   float4* wt4 = reinterpret_cast<float4*>(wt);
-  repack_weights_kernel<T><<<g.repack_blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(w), wt4, C, Cout);
+  repack_weights_kernel<<<g.repack_blocks, kThreads, 0, stream>>>(
+      static_cast<const float*>(w), wt4, C, Cout);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = fused ? allow_smem(conv3x3_gn_swish_kernel<T>) : allow_smem(conv3x3_same_kernel<T>);
+  e = fused ? allow_smem(conv3x3_gn_swish_kernel) : allow_smem(conv3x3_same_kernel);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
+  const float* xt = static_cast<const float*>(x);
+  float* ot = static_cast<float*>(out);
   if (fused)
-    conv3x3_gn_swish_kernel<T><<<g.grid, kThreads, kSmemBytes, stream>>>(
-        xt, wt4, scale, bias, cbias, static_cast<const T*>(res), ot, C, Cout, H, W,
+    conv3x3_gn_swish_kernel<<<g.grid, kThreads, kSmemBytes, stream>>>(
+        xt, wt4, scale, bias, cbias, static_cast<const float*>(res), ot, C, Cout, H, W,
         g.tiles_w);
   else
-    conv3x3_same_kernel<T><<<g.grid, kThreads, kSmemBytes, stream>>>(
+    conv3x3_same_kernel<<<g.grid, kThreads, kSmemBytes, stream>>>(
         xt, wt4, ot, C, Cout, H, W, g.tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -447,7 +419,8 @@ int launch(const void* x, const void* w, float* wt, const float* scale,
 }  // namespace
 
 // x [B, C, H, W], w [Cout, C, 3, 3], out [B, Cout, H, W]: contiguous device
-// memory of one type, f32 (dtype 0) or bf16 (dtype 1). wt: scratch of
+// f32 device memory; dtype must be 0 (f32: bf16 convolutions take
+// csrc/conv3x3_bf16.cu). wt: scratch of
 // 2 * C * 9 * Cout floats (the weights' hi and lo parts), 16-byte aligned.
 // Needs C % 8 == 0 and Cout % 64 == 0.
 // Returns the cudaError_t of the launch (0 on success).
@@ -455,27 +428,18 @@ extern "C" int dcvic_conv3x3_same(const void* x, const void* w, float* wt, void*
                                   int B, int C, int Cout, int H, int W, int dtype,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w, wt, nullptr, nullptr, nullptr, nullptr, out, B, C, Cout,
-                         H, W, false, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, wt, nullptr, nullptr, nullptr, nullptr, out, B, C,
-                                 Cout, H, W, false, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, w, wt, nullptr, nullptr, nullptr, nullptr, out, B, C, Cout, H, W, false, s);
 }
 
 // As above, plus scale, bias [B, C] f32, cbias [Cout] f32 and res
-// [B, Cout, H, W] of x's type, or null for no residual.
+// [B, Cout, H, W] f32, or null for no residual.
 extern "C" int dcvic_conv3x3_gn_swish(const void* x, const void* w, float* wt,
                                       const float* scale, const float* bias,
                                       const float* cbias, const void* res, void* out,
                                       int B, int C, int Cout, int H, int W, int dtype,
                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w, wt, scale, bias, cbias, res, out, B, C, Cout, H, W, true, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, wt, scale, bias, cbias, res, out, B, C, Cout, H, W,
-                                 true, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(x, w, wt, scale, bias, cbias, res, out, B, C, Cout, H, W, true, s);
 }

@@ -165,7 +165,8 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
             vq_model=VQModel(n_embed, embed_dim, dict(vq.get("ddconfig") or {})),
             fusion_module=FusionModule(sched),
             entropy_model_z=EntropyBottleneck(bottleneck_z),
-            gaussian=gaussian, n_embed=n_embed, codec_dtype=cd, entropy_precision=ep)
+            gaussian=gaussian, n_embed=n_embed, codec_dtype=cd, entropy_precision=ep,
+            gumbel_sampling=model_cfg.get("gumbel_sampling", False))
     module.to(device)  # buffers made from numpy start on the CPU
     if cd == "bfloat16":
         for name in _CODEC_DTYPE_STACKS:

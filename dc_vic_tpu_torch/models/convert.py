@@ -37,3 +37,48 @@ def load_reference_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> No
                              f"model has {tuple(want)}")
         tensors[key] = t.to(own[key].dtype)
     model.load_state_dict(tensors, strict=True)
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def discriminator_state_dict(flax_params) -> Dict[str, np.ndarray]:
+    """The JAX package's PatchGAN discriminator parameters (the nested dict
+    of ``disc.init``, with or without its ``params`` level, leaves as numpy)
+    -> the port's discriminator state dict (``models/discriminators.py``):
+    convs HWIO -> OIHW, dense kernels transposed, norm scales -> weights.
+    Takes ``TamingNLayerDiscriminator`` (top-level convs) and
+    ``DualBetaCondTamingNLayerDiscriminator`` (``Dense_*``, ``trunk``, the
+    y_hat branch's ``Conv_0``)."""
+    from .discriminators import trunk_conv_position
+
+    tree = flax_params.get("params", flax_params)
+    dual = "trunk" in tree
+    out = {}
+    for path, leaf in _flatten(tree):
+        leaf = np.asarray(leaf)
+        name = path[-1]
+        if dual and path[0] != "trunk":
+            base = {"Dense_0": "cond_mlp.0", "Dense_1": "cond_mlp.2",
+                    "Conv_0": "y_hat_conv"}[path[0]]
+        else:
+            inner = path[1:] if dual else path
+            kind, i = inner[0].rsplit("_", 1)
+            pos = trunk_conv_position(int(i) + (1 if kind == "_Norm" else 0))
+            base = ("trunk.main." if dual else "main.") + str(
+                pos + (1 if kind == "_Norm" else 0))
+            if kind == "_Norm" and len(inner) > 2:      # a wrapped flax norm module
+                base += ".norm" if inner[1].startswith("LayerNorm") else ""
+        if name == "kernel":
+            leaf = np.transpose(leaf, (3, 2, 0, 1)) if leaf.ndim == 4 else leaf.T
+        key = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "loc": "loc", "mean": "running_mean", "var": "running_var"}[name]
+        if name == "scale" and len(path) >= 2 and path[-2].startswith("_Norm"):
+            key = "scale"                               # ActNorm's own parameters
+        out[f"{base}.{key}"] = np.ascontiguousarray(leaf)
+    return out

@@ -1,10 +1,11 @@
-"""The DC-VIC composite model, codec methods only (port of the eval and
-codec-side methods of dc_vic_tpu/models/dc_vic.py).
+"""The DC-VIC composite model (port of dc_vic_tpu/models/dc_vic.py).
 
-The codec drives these methods; the encoder derives its entropy parameters
-through the same methods the decoder calls (hyper_decode,
-charm_slice_params, charm_decode_step), so with deterministic kernels both
-sides compute bitwise identical mu and CDF indexes. Tensors are NCHW.
+The training forward (``forward``, ``estimate_entropy``, ``aux_loss``) and
+the codec's methods live on one class. The codec drives the codec methods;
+the encoder derives its entropy parameters through the same methods the
+decoder calls (hyper_decode, charm_slice_params, charm_decode_step), so with
+deterministic kernels both sides compute bitwise identical mu and CDF
+indexes. Tensors are NCHW.
 
 Numeric configuration. ``codec_dtype`` "bfloat16" puts the conv stacks whose
 outputs never have to repeat between two runs of the chain (VQGAN encode,
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -30,10 +32,12 @@ from torch import nn
 
 from ..codec.bottleneck import EntropyBottleneck
 from ..codec.gaussian import GaussianConditional, get_scale_table
+from ..codec.ops import Noise
 from ..nn.layers import FuseSftBlock
 from ..ops.layout import row_major as _row_major
 from .vqgan import VQModel
 
+GUMBEL_TAU = 1.0  # the Gumbel softmax temperature (the JAX package's default)
 STRIDE = 64  # reflect-pad multiple of the image (4 stride-2 convs + 2 in the hyperprior)
 
 
@@ -57,6 +61,17 @@ def to_model_range(x: torch.Tensor) -> torch.Tensor:
         t = x.float() / 255.0
         return (t - 0.5) / 0.5
     return x
+
+
+def likelihood_to_bpp(likelihood: torch.Tensor, num_pixel: int) -> torch.Tensor:
+    """Bits of the likelihoods over ``num_pixel`` pixels."""
+    return -torch.sum(torch.log(likelihood)) / math.log(2.0) / num_pixel
+
+
+def likelihood_to_bpp_per_sample(likelihood: torch.Tensor,
+                                 pixels_per_image: int) -> torch.Tensor:
+    """Bits per pixel of each image [B] (the per-sample beta-weighted rate)."""
+    return -torch.sum(torch.log(likelihood), dim=(1, 2, 3)) / math.log(2.0) / pixels_per_image
 
 
 class FusionModule(nn.Module):
@@ -153,9 +168,11 @@ class DCVICModel(EntropyChainMethods, nn.Module):
                  entropy_model_z: EntropyBottleneck,
                  gaussian: GaussianConditional, n_embed: int = 256,
                  codec_dtype: Optional[str] = None,
-                 entropy_precision: Optional[str] = "high"):
+                 entropy_precision: Optional[str] = "high",
+                 gumbel_sampling: bool = False):
         super().__init__()
         self.codec_dtype = codec_dtype
+        self.gumbel_sampling = gumbel_sampling
         self.entropy_precision = entropy_precision
         self.encoder = encoder
         self.decoder = decoder
@@ -212,14 +229,24 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         return y, z_sym.to(torch.int16)
 
     # -------------------------------------------------------------- decode
-    def decode_from_y_hat(self, y_hat, beta_rate, beta_vq, w: float = 1.0):
+    def decode_from_y_hat(self, y_hat, beta_rate, beta_vq, w: float = 1.0,
+                          noise: Optional[Noise] = None, use_gumbel: bool = False):
         """y_hat -> (image [-1, 1] f32, vq_latent_pred, vq_logits,
         vq_indices). y_hat comes in f32; the decoder's first conv casts it
-        to the codec dtype."""
+        to the codec dtype. With ``use_gumbel`` and the model's
+        ``gumbel_sampling``, the decoder reads the codebook mixed by a
+        Gumbel softmax of the logits instead of the argmax codewords."""
         feat, cond_feats = self.decoder.get_feats(y_hat, beta_rate, beta_vq)
         pred_embed, logits = self.vq_estimator(feat)
         indices = torch.argmax(logits, dim=1)
-        vq_latent = self.vq_model.post_quant_conv(self.vq_model.quantize.lookup(indices))
+        if use_gumbel and self.gumbel_sampling:
+            g = noise.gumbel(logits.shape, logits)
+            weights = torch.softmax((logits + g) / GUMBEL_TAU, dim=1)
+            vq_latent = torch.einsum("bnhw,nd->bdhw", weights,
+                                     self.vq_model.quantize.embedding.weight)
+        else:
+            vq_latent = self.vq_model.quantize.lookup(indices)
+        vq_latent = self.vq_model.post_quant_conv(vq_latent)
         fake = self.vq_model.decoder(vq_latent, self.fusion_module.fusion_modules,
                                      cond_feats, w)
         return fake.float(), pred_embed, logits, indices
@@ -229,6 +256,114 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         fake, *_ = self.decode_from_y_hat(y_hat, beta_rate, beta_vq, w)
         fake = torch.clamp(fake, -1.0, 1.0)
         return torch.round((fake + 1.0) * 127.5).to(torch.uint8)
+
+    # ------------------------------------------------------------ training
+    def estimate_entropy(self, y, is_train: bool, noise: Optional[Noise] = None) -> Dict:
+        """y -> the quantized codes, the latents and the likelihoods of y and
+        z, training (noise, straight-through rounds) or eval (hard rounds);
+        ``q_likelihoods`` are those of the hard-rounded codes either way."""
+        z = self.hyperencoder(y).float()
+        z_hat, z_lik = self.entropy_model_z(z, is_train, noise)
+        _, z_q_lik = self.entropy_model_z(z.detach(), False)
+        with self._entropy_convs():
+            hyper_out = self.hyperdecoder(z_hat)
+            y_hat, y_lik, y_q_lik = self.context_model(
+                y, hyper_out, is_train, noise, calc_q_likelihood=True)
+        return dict(quantized_code=dict(y=y_hat, z=z_hat),
+                    latent_code=dict(y=y, z=z),
+                    likelihoods=dict(y=y_lik, z=z_lik),
+                    q_likelihoods=dict(y=y_q_lik, z=z_q_lik))
+
+    def forward(self, x, beta_rate, beta_vq, is_train: bool = True,
+                noise: Optional[Noise] = None, fix_entropy_models: bool = False,
+                w: float = 1.0) -> Dict:
+        """The training (and eval) forward: x NCHW in [-1, 1], padded to a
+        multiple of 64. The frozen VQGAN's encode carries no gradient; with
+        ``fix_entropy_models`` neither does the encoder branch (the GAN
+        stages). Noise draws, in order: z, the y slices, the Gumbel noise."""
+        with torch.no_grad():
+            gt_vq_latent, gt_vq_indices = self.vq_encode(x)
+
+        def enc_branch():
+            y = self.comp_encode(x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq)
+            return y, self.estimate_entropy(y, is_train, noise)
+
+        if fix_entropy_models:
+            with torch.no_grad():
+                y, entropy = enc_branch()
+        else:
+            y, entropy = enc_branch()
+        fake, pred_embed, logits, indices = self.decode_from_y_hat(
+            entropy["quantized_code"]["y"], beta_rate, beta_vq, w, noise,
+            use_gumbel=is_train and self.gumbel_sampling)
+
+        B, _, H, W = x.shape
+        lik, q_lik = entropy["likelihoods"], entropy["q_likelihoods"]
+        return dict(
+            fake_images=fake,
+            bpp_per_sample=(likelihood_to_bpp_per_sample(lik["y"], H * W)
+                            + likelihood_to_bpp_per_sample(lik["z"], H * W)),
+            out_vq_latent=pred_embed,
+            gt_vq_latent=gt_vq_latent,
+            out_vq_logits=logits,
+            gt_vq_indices=gt_vq_indices,
+            vq_accuracy=torch.mean((indices == gt_vq_indices).float()),
+            bpp=(likelihood_to_bpp(lik["y"], B * H * W)
+                 + likelihood_to_bpp(lik["z"], B * H * W)),
+            qbpp=(likelihood_to_bpp(q_lik["y"], B * H * W)
+                  + likelihood_to_bpp(q_lik["z"], B * H * W)),
+            **entropy)
+
+    @torch.no_grad()
+    def extract_y_hat(self, x, beta_rate, beta_vq):
+        """Encode-only eval y_hat, without reconstruction (the
+        discriminator's y_hat condition for held-out real images)."""
+        gt_vq_latent, gt_vq_indices = self.vq_encode(x)
+        y = self.comp_encode(x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq)
+        return self.estimate_entropy(y, is_train=False)["quantized_code"]["y"]
+
+    @torch.no_grad()
+    def encode_deterministic(self, x, beta_rate, beta_vq,
+                             include_latents: bool = False) -> Dict:
+        """Image (uint8, or float in [-1, 1]) -> symbol planes and per-image
+        bit estimates in one pass: z and y symbols (int16), y CDF indexes
+        (uint8), y symbol and index packed in one 16-bit word (index << 10
+        | symbol + 512, as int16 bits), ``sym_plane`` (packed y then z per
+        image, NCHW order), ``stats`` (y bits, z bits, max |y_hat|, max
+        |symbol|). ``include_latents`` adds y_hat and z_hat."""
+        x = to_model_range(x)
+        gt_vq_latent, gt_vq_indices = self.vq_encode(x)
+        y = self.comp_encode(x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq)
+        z = self.hyperencoder(y).float()
+        z_sym = self.entropy_model_z.quantize_symbols(z)
+        z_hat = self.entropy_model_z.dequantize(z_sym)
+        with self._entropy_convs():
+            hyper_out = self.hyperdecoder(z_hat)
+            y_sym, sigma, y_hat, y_lik = self.context_model.compress_forward(y, hyper_out)
+        _, z_lik = self.entropy_model_z(z, False)
+        y_idx = self.y_indexes(sigma)
+        y_packed = ((y_idx << 10) | (torch.clamp(y_sym, -512, 511) + 512)).to(torch.int16)
+        z_i16 = torch.clamp(z_sym, -32000, 32000).to(torch.int16)
+        B = y.shape[0]
+        y_bits = -torch.sum(torch.log(y_lik), dim=(1, 2, 3)) / math.log(2.0)
+        z_bits = -torch.sum(torch.log(z_lik), dim=(1, 2, 3)) / math.log(2.0)
+        max_abs_y = torch.max(torch.abs(y_hat))
+        max_abs_sym = torch.max(torch.abs(y_sym)).float()
+        out = dict(
+            z_symbols=z_i16,
+            y_symbols=torch.clamp(y_sym, -32000, 32000).to(torch.int16),
+            y_indexes=y_idx.to(torch.uint8),
+            y_packed=y_packed,
+            sym_plane=torch.cat([y_packed.reshape(B, -1), z_i16.reshape(B, -1)], dim=1),
+            stats=torch.cat([y_bits, z_bits, max_abs_y[None], max_abs_sym[None]]),
+            y_bits=y_bits, z_bits=z_bits, max_abs_y=max_abs_y, max_abs_sym=max_abs_sym)
+        if include_latents:
+            out.update(y_hat=y_hat, z_hat=z_hat)
+        return out
+
+    def aux_loss(self) -> torch.Tensor:
+        """The entropy bottleneck's quantile loss (the aux optimizer's)."""
+        return self.entropy_model_z.aux_loss()
 
 
 class EntropyChain(EntropyChainMethods, nn.Module):

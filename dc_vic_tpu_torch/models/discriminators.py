@@ -1,0 +1,219 @@
+"""Discriminators of the GAN stages (port of the PatchGAN part of
+dc_vic_tpu/models/discriminators.py).
+
+The PatchGAN (pix2pix NLayer) trunk with a selectable normalization, and the
+dual-beta conditioned variant the shipped stage configs use: Fourier features
+of (beta_rate, beta_vq) through a two-layer MLP give a conditioning vector,
+broadcast over H and W and concatenated to the image channels, with an
+optional y_hat branch. NCHW modules; ``models/convert.py::
+discriminator_state_dict`` maps the JAX package's parameters onto them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..nn.layers import fourier_encode_beta, num_groups32
+from ..utils.registry import DISCRIMINATOR_REGISTRY
+
+
+class _ActNorm(nn.Module):
+    """Flow-style ActNorm: per-channel loc and scale, set from the first
+    batch it sees so that batch comes out zero-mean and unit-variance (a
+    constant batch leaves the identity)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.loc = nn.Parameter(torch.zeros(ch))
+        self.scale = nn.Parameter(torch.ones(ch))
+        self.register_buffer("initialized", torch.zeros((), dtype=torch.bool))
+
+    @torch.no_grad()
+    def _initialize(self, x):
+        flat = x.transpose(0, 1).reshape(x.shape[1], -1)
+        std = flat.std(dim=1)
+        self.scale.copy_(torch.where(std > 1e-12, 1.0 / (std + 1e-6), torch.ones_like(std)))
+        self.loc.copy_(-flat.mean(dim=1))
+        self.initialized.fill_(True)
+
+    def forward(self, x):
+        if not bool(self.initialized):
+            self._initialize(x)
+        return self.scale[None, :, None, None] * (x + self.loc[None, :, None, None])
+
+
+class _LayerNorm(nn.Module):
+    """LayerNorm over the channels of each position (flax LayerNorm on the
+    last axis of an NHWC map)."""
+
+    def __init__(self, ch: int, eps: float = 1e-6):
+        super().__init__()
+        self.norm = nn.LayerNorm(ch, eps=eps)
+
+    def forward(self, x):
+        return self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+class _InstanceNorm(nn.Module):
+    """Per-image, per-channel spatial normalization without an affine."""
+
+    def forward(self, x):
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        var = x.var(dim=(2, 3), keepdim=True, unbiased=False)
+        return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+def _Norm(norm_type: str, ch: int) -> nn.Module:
+    """The normalization after each inner PatchGAN conv."""
+    if norm_type == "none":
+        return nn.Identity()
+    if norm_type == "batchnorm":
+        return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.01)
+    if norm_type == "instancenorm":
+        return _InstanceNorm()
+    if norm_type == "layernorm":
+        return _LayerNorm(ch)
+    if norm_type == "groupnorm":
+        return nn.GroupNorm(num_groups32(ch), ch, eps=1e-6)
+    if norm_type == "actnorm":
+        return _ActNorm(ch)
+    raise NotImplementedError(norm_type)
+
+
+def trunk_conv_position(i: int) -> int:
+    """Index in ``TamingNLayerDiscriminator.main`` of the trunk's i-th conv
+    (its norm, where it has one, follows it)."""
+    return 0 if i == 0 else 2 + 3 * (i - 1)
+
+
+@DISCRIMINATOR_REGISTRY.register()
+class TamingNLayerDiscriminator(nn.Module):
+    """PatchGAN: stride-2 4x4 convs doubling the filters (up to 8 x ndf),
+    then two stride-1 convs; out_nc-channel patch logits. ``keep_shape``
+    makes the last two convs 3x3 (the spatial size is then kept)."""
+
+    def __init__(self, in_ch: int = 3, ndf: int = 64, out_nc: int = 1, n_layers: int = 3,
+                 keep_shape: bool = False, norm_type: str = "batchnorm",
+                 weight_init: bool = True):
+        super().__init__()
+        self.weight_init = weight_init
+        use_bias = norm_type != "batchnorm"
+        layers = [nn.Conv2d(in_ch, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
+        nf = 1
+        for n in range(1, n_layers):
+            nf_prev, nf = nf, min(2 ** n, 8)
+            layers += [nn.Conv2d(ndf * nf_prev, ndf * nf, 4, 2, 1, bias=use_bias),
+                       _Norm(norm_type, ndf * nf), nn.LeakyReLU(0.2)]
+        kw = 3 if keep_shape else 4
+        nf_prev, nf = nf, min(2 ** n_layers, 8)
+        layers += [nn.Conv2d(ndf * nf_prev, ndf * nf, kw, 1, 1, bias=use_bias),
+                   _Norm(norm_type, ndf * nf), nn.LeakyReLU(0.2),
+                   nn.Conv2d(ndf * nf, out_nc, kw, 1, 1)]
+        self.main = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.main(x)
+
+
+@DISCRIMINATOR_REGISTRY.register()
+class DualBetaCondTamingNLayerDiscriminator(nn.Module):
+    """PatchGAN conditioned on (beta_rate, beta_vq): Fourier + MLP
+    conditioning vector, broadcast over H and W and concatenated to the
+    input channels; with ``y_hat_cond`` a conv of the detached y_hat,
+    nearest-upsampled to the image, joins them."""
+
+    def __init__(self, ndf: int = 64, out_nc: int = 1, n_layers: int = 3,
+                 keep_shape: bool = False, norm_type: str = "none",
+                 max_beta_1: float = 3.0, max_beta_2: float = 3.5, L: int = 10,
+                 cond_ch: int = 8, use_pi: bool = False, include_x: bool = True,
+                 y_hat_cond: bool = False, y_hat_out_ch: Optional[int] = None,
+                 y_hat_in_ch: Optional[int] = None, weight_init: bool = True,
+                 in_ch: int = 3):
+        super().__init__()
+        self.beta_args = (L, use_pi, include_x)
+        self.max_betas = (max_beta_1, max_beta_2)
+        self.cond_ch = cond_ch
+        self.y_hat_cond = y_hat_cond
+        n_in = 2 * (2 * L + (1 if include_x else 0))
+        self.cond_mlp = nn.Sequential(nn.Linear(n_in, cond_ch), nn.ReLU(),
+                                      nn.Linear(cond_ch, cond_ch))
+        trunk_in = in_ch + cond_ch
+        if y_hat_cond:
+            if not (y_hat_in_ch and y_hat_out_ch):
+                raise ValueError("y_hat_cond needs y_hat_in_ch and y_hat_out_ch")
+            self.y_hat_conv = nn.Conv2d(y_hat_in_ch, y_hat_out_ch, 3, padding=1)
+            trunk_in += y_hat_out_ch
+        self.trunk = TamingNLayerDiscriminator(trunk_in, ndf, out_nc, n_layers, keep_shape,
+                                               norm_type, weight_init)
+
+    def forward(self, x, beta_1, beta_2, y_hat=None):
+        B, _, H, W = x.shape
+        L, use_pi, include_x = self.beta_args
+        e1 = fourier_encode_beta(beta_1, L, self.max_betas[0], use_pi, include_x)
+        e2 = fourier_encode_beta(beta_2, L, self.max_betas[1], use_pi, include_x)
+        cond = self.cond_mlp(torch.cat([e1, e2], dim=-1))
+        cond = cond[:, :, None, None].expand(B, self.cond_ch, H, W)
+        h = torch.cat([x, cond.to(x.dtype)], dim=1)
+        if self.y_hat_cond:
+            if y_hat is None:
+                raise ValueError("y_hat_cond: the discriminator needs y_hat")
+            y = F.leaky_relu(self.y_hat_conv(y_hat.detach()), 0.2)
+            y = y.repeat_interleave(H // y.shape[2], dim=2).repeat_interleave(
+                W // y_hat.shape[3], dim=3)
+            h = torch.cat([h, y], dim=1)
+        return self.trunk(h)
+
+
+def _not_ported(name: str):
+    def build(**kw):
+        raise NotImplementedError(
+            f"discriminator {name} is not ported to dc_vic_tpu_torch (ROADMAP.md queue 1, "
+            "item 5: variants)")
+    DISCRIMINATOR_REGISTRY.register(build, name)
+
+
+_not_ported("DualBetaFtTamingNLayerDiscriminator")
+_not_ported("OasisDualBetaCondTamingNLayerDiscriminator")
+
+
+@torch.no_grad()
+def init_discriminator(disc: nn.Module, generator: torch.Generator) -> None:
+    """Seeded initialisation following the JAX package's: conv weights
+    N(0, 0.02) when the discriminator's ``weight_init`` is set (else
+    lecun-normal), dense weights lecun-normal (truncated at two standard
+    deviations), zero biases, unit norm scales. The generator lives on the
+    discriminator's device."""
+    def lecun(w, fan_in):
+        std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+    dcgan = all(getattr(m, "weight_init", True) for m in disc.modules()
+                if isinstance(m, TamingNLayerDiscriminator))
+    for m in disc.modules():
+        if isinstance(m, nn.Conv2d):
+            if dcgan:
+                nn.init.normal_(m.weight, 0.0, 0.02, generator=generator)
+            else:
+                lecun(m.weight, m.weight[0].numel())
+        elif isinstance(m, nn.Linear):
+            lecun(m.weight, m.in_features)
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm, nn.LayerNorm)):
+            nn.init.ones_(m.weight)
+        if isinstance(m, (nn.Conv2d, nn.Linear, nn.BatchNorm2d, nn.GroupNorm,
+                          nn.LayerNorm)) and m.bias is not None:
+            nn.init.zeros_(m.bias)
+
+
+def build_discriminator(opt: Dict, device="cuda") -> nn.Module:
+    """Config -> discriminator on ``device`` (weights to be initialised with
+    ``init_discriminator`` or loaded)."""
+    cfg = dict(opt)
+    disc_type = cfg.pop("type")
+    for k in ("input_nc", "use_actnorm", "norm_kwargs"):
+        cfg.pop(k, None)
+    with torch.device(device):
+        return DISCRIMINATOR_REGISTRY.get(disc_type)(**cfg)

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..codec.gaussian import GaussianConditional
+from ..codec.ops import Noise
 from ..nn.layers import (BetaScaleShift, ChengNLAM, FemasrResBlock,
                          ResidualBottleneckBlocks, beta_cond, beta_mlp, conv,
                          deconv)
@@ -219,22 +220,67 @@ class Minnen20CharmContextModel(nn.Module):
         return slices if self.max_support_slices < 0 \
             else slices[:self.max_support_slices]
 
+    def _mu_sigma(self, i: int, hyper_out, sup: List[torch.Tensor]):
+        hyper_mean, hyper_scale = hyper_out.chunk(2, dim=1)
+        mean_support = torch.cat([hyper_mean] + sup, dim=1)
+        mu = self.mean_slice_transforms[i](mean_support)
+        sigma = self.scale_slice_transforms[i](torch.cat([hyper_scale] + sup, dim=1))
+        return mu, sigma, mean_support
+
+    def _lrp(self, i: int, mean_support, y_hat_slice):
+        lrp = self.lrp_slice_transforms[i](torch.cat([mean_support, y_hat_slice], dim=1))
+        return y_hat_slice + 0.5 * torch.tanh(lrp)
+
     def slice_params(self, i: int, hyper_out, y_hat_prev):
         """(mu, sigma) of slice i from the hyper output and the previously
         decoded slices stacked on the channel axis."""
-        hyper_mean, hyper_scale = hyper_out.chunk(2, dim=1)
-        sup = self._supports(y_hat_prev)
-        mu = self.mean_slice_transforms[i](torch.cat([hyper_mean] + sup, dim=1))
-        sigma = self.scale_slice_transforms[i](torch.cat([hyper_scale] + sup, dim=1))
+        mu, sigma, _ = self._mu_sigma(i, hyper_out, self._supports(y_hat_prev))
         return mu, sigma
 
     def slice_reconstruct(self, i: int, hyper_out, y_hat_prev, symbols, mu):
         """Dequantize slice i from its symbols and add the LRP term."""
         hyper_mean, _ = hyper_out.chunk(2, dim=1)
         mean_support = torch.cat([hyper_mean] + self._supports(y_hat_prev), dim=1)
-        y_hat_slice = self.gaussian.dequantize(symbols, mu)
-        lrp = self.lrp_slice_transforms[i](torch.cat([mean_support, y_hat_slice], dim=1))
-        return y_hat_slice + 0.5 * torch.tanh(lrp)
+        return self._lrp(i, mean_support, self.gaussian.dequantize(symbols, mu))
+
+    def compress_forward(self, y, hyper_out):
+        """The deterministic encode pass: (symbols int32, sigma, y_hat,
+        likelihood), slices concatenated on the channel axis. y_hat comes
+        from the clipped symbols, as the decoder rebuilds it."""
+        y_hat_slices, syms, sigmas, liks = [], [], [], []
+        for i, y_slice in enumerate(y.chunk(self.num_slices, dim=1)):
+            sup = y_hat_slices if self.max_support_slices < 0 \
+                else y_hat_slices[:self.max_support_slices]
+            mu, sigma, mean_support = self._mu_sigma(i, hyper_out, sup)
+            sym = self.gaussian.quantize_symbols(y_slice, mu)
+            y_hat_slice = self.gaussian.dequantize(sym, mu)
+            syms.append(sym)
+            sigmas.append(sigma)
+            liks.append(self.gaussian.likelihood(y_hat_slice, sigma, mu))
+            y_hat_slices.append(self._lrp(i, mean_support, y_hat_slice))
+        return (torch.cat(syms, dim=1), torch.cat(sigmas, dim=1),
+                torch.cat(y_hat_slices, dim=1), torch.cat(liks, dim=1))
+
+    def forward(self, y, hyper_out, is_train: bool, noise: Optional[Noise] = None,
+                calc_q_likelihood: bool = True):
+        """All slices in one pass (the training and eval forward). Returns
+        (y_hat, y_likelihood) and, with ``calc_q_likelihood``, the
+        likelihood of the hard-rounded y under detached parameters."""
+        y_hat_slices, liks, q_liks = [], [], []
+        for i, y_slice in enumerate(y.chunk(self.num_slices, dim=1)):
+            sup = y_hat_slices if self.max_support_slices < 0 \
+                else y_hat_slices[:self.max_support_slices]
+            mu, sigma, mean_support = self._mu_sigma(i, hyper_out, sup)
+            params = torch.cat([mu, sigma], dim=1)
+            y_hat_slice, lik = self.gaussian(y_slice, params, is_train, noise)
+            liks.append(lik)
+            if calc_q_likelihood:
+                q_liks.append(self.gaussian(y_slice.detach(), params.detach(), False)[1])
+            y_hat_slices.append(self._lrp(i, mean_support, y_hat_slice))
+        y_hat, y_lik = torch.cat(y_hat_slices, dim=1), torch.cat(liks, dim=1)
+        if calc_q_likelihood:
+            return y_hat, y_lik, torch.cat(q_liks, dim=1)
+        return y_hat, y_lik
 
 
 @VQ_ESTIMATOR_REGISTRY.register()

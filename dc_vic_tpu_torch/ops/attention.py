@@ -1,22 +1,28 @@
 """Single-head attention: the CUDA kernel K2 (``csrc/flash_attn_f32.cu``)
 and its plain PyTorch version.
 
-Port of ``dc_vic_tpu/ops/attention.py`` (forward only: the codec path runs
-under ``torch.no_grad``). The kernel takes its products on the tensor cores
+Port of ``dc_vic_tpu/ops/attention.py``. The kernel takes its products on the tensor cores
 as an error-compensated 3xTF32 split (``csrc/tf32x3.cuh``, ``ops/tf32.py``),
 so its results stay f32-class. Dispatch is by device and shape: a CPU tensor
 takes ``attention_plain``; a CUDA tensor launches the kernel where
 ``use_kernel`` allows it and takes ``attention_plain`` on the card otherwise,
-as the JAX package takes XLA outside its kernel's rule.
+as the JAX package takes XLA outside its kernel's rule. The kernel's output
+carries a gradient: ``_FlashAttention`` is a ``torch.autograd.Function``
+whose backward recomputes the probabilities in PyTorch, as the JAX package's
+custom VJP recomputes them in XLA (``attention_backward``). On the CPU the
+same Function runs the plain forward.
 """
 from __future__ import annotations
 
 import torch
 
 from . import native
+from .layout import widen
 
-# Kernel launches since the last reset (counted where the kernel launches).
+# Kernel launches since the last reset (counted where the kernel launches),
+# and backward passes of the Function on a CUDA tensor (PyTorch, no kernel).
 launches = 0
+backwards = 0
 
 _WIDTHS = (128, 256, 384, 512)
 
@@ -29,8 +35,8 @@ def use_kernel(shape, dtype) -> bool:
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v over [B, N, C] in f32 (q pre-scaled)."""
-    s = torch.bmm(q.float(), k.float().transpose(1, 2))
-    return torch.bmm(torch.softmax(s, dim=-1), v.float())
+    s = torch.bmm(widen(q), widen(k).transpose(1, 2))
+    return torch.bmm(torch.softmax(s, dim=-1), widen(v))
 
 
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -61,14 +67,47 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> 
     return out
 
 
+def attention_backward(q, k, v, g):
+    """(dq, dk, dv) of softmax(q k^T) v for the output gradient g, the
+    probabilities recomputed in f32 (the JAX package's ``_bwd``)."""
+    p = torch.softmax(torch.bmm(widen(q), widen(k).transpose(1, 2)), dim=-1)
+    gf = widen(g)
+    dv = torch.bmm(p.transpose(1, 2), gf)
+    dp = torch.bmm(gf, widen(v).transpose(1, 2))
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    dq = torch.bmm(ds, widen(k))
+    dk = torch.bmm(ds.transpose(1, 2), widen(q))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K2 forward (the plain version on the CPU), ``attention_backward``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return attention_plain(q, k, v)
+        return _flash_attention_cuda(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        global backwards
+        q, k, v = ctx.saved_tensors
+        if q.device.type == "cuda":
+            backwards += 1
+        return attention_backward(q, k, v, g)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v for [B, N, C] operands with q pre-scaled by C^-1/2.
     On a CUDA tensor the kernel runs where ``use_kernel`` allows it; other
-    shapes and dtypes take the plain version on the card."""
+    shapes and dtypes take the plain version on the card (differentiated by
+    autograd). Kernel and CPU calls go through ``_FlashAttention``."""
     if q.device.type == "cpu":
-        return attention_plain(q, k, v)
+        return _FlashAttention.apply(q, k, v)
     if q.device.type == "cuda":
         if use_kernel(q.shape, q.dtype):
-            return _flash_attention_cuda(q, k, v)
+            return _FlashAttention.apply(q, k, v)
         return attention_plain(q, k, v)
     raise ValueError(f"flash_attention: unsupported device {q.device}")

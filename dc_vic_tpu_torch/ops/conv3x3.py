@@ -3,13 +3,17 @@ kernels K5 and K6 (``csrc/conv3x3.cu`` for f32, ``csrc/conv3x3_bf16.cu``
 for bf16) and their plain PyTorch versions.
 
 Port of ``dc_vic_tpu/ops/conv3x3.py`` in the port's layouts (NCHW maps, OIHW
-weights; forward only: the codec path runs under ``torch.no_grad``).
+weights).
 ``conv3x3_same`` (K5) is the conv alone, without bias; ``conv3x3_gn_swish``
 (K6) is ``conv3x3(swish(x * scale[b] + bias[b])) + cbias (+ res)`` with the
 zero padding applied after the affine and swish. Dispatch is by device: a CPU
 tensor takes the ``*_plain`` version; a CUDA tensor launches the kernel or
 raises. ``use_kernel`` is the shape rule by which the modules choose these
-kernels over their ordinary PyTorch code.
+kernels over their ordinary PyTorch code. Both go through a
+``torch.autograd.Function`` (on the CPU too) whose backward is PyTorch, as the
+JAX package's custom VJPs take XLA's: K5 the conv's input and weight
+gradients, K6 those of its plain composite, with the affine and swish
+recomputed from the saved input (the activations are not kept).
 """
 from __future__ import annotations
 
@@ -20,9 +24,12 @@ import torch.nn.functional as F
 
 from . import native
 from .layout import row_major as _row_major
+from .layout import widen
 
-# Kernel launches since the last reset (counted where each kernel launches).
+# Kernel launches since the last reset (counted where each kernel launches),
+# and backward passes of the Functions on CUDA tensors (PyTorch, no kernel).
 launches = {"conv3x3_same": 0, "conv3x3_gn_swish": 0}
+backwards = {"conv3x3_same": 0, "conv3x3_gn_swish": 0}
 
 # what the kernels' tiles need, by dtype: input channels staged 8 (f32,
 # csrc/conv3x3.cu: one TF32 k8 step per tap) or 16 (bf16, csrc/conv3x3_bf16.cu:
@@ -143,17 +150,44 @@ def _conv3x3_same_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _Conv3x3Same(torch.autograd.Function):
+    """K5 forward (the plain version on the CPU); backward: the conv's
+    input and weight gradients."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        if x.device.type == "cpu":
+            return conv3x3_same_plain(x, w)
+        return _conv3x3_same_cuda(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if x.device.type == "cuda":
+            backwards["conv3x3_same"] += 1
+        g = g.to(x.dtype)
+        need_x, need_w = ctx.needs_input_grad
+        dx = torch.nn.grad.conv2d_input(x.shape, w, g, padding=1) if need_x else None
+        dw = torch.nn.grad.conv2d_weight(x, w.shape, g, padding=1) if need_w else None
+        return dx, dw
+
+
 def conv3x3_same(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """3x3 stride-1 SAME conv of x [B, C, H, W] against w [Cout, C, 3, 3]
     with f32 accumulation and no bias; returns [B, Cout, H, W] in x's type."""
-    if x.device.type == "cpu":
-        return conv3x3_same_plain(x, w)
-    if x.device.type == "cuda":
-        return _conv3x3_same_cuda(x, w)
-    raise ValueError(f"conv3x3_same: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_same: unsupported device {x.device}")
+    return _Conv3x3Same.apply(x, w)
 
 
 # ------------------------------------------------------------------- K6
+
+def _swish_affine(x, scale, bias):
+    """The K6 prologue as its plain version computes it, cast to x's type."""
+    h = widen(x) * widen(scale)[:, :, None, None] + widen(bias)[:, :, None, None]
+    return (h * torch.sigmoid(h)).to(x.dtype)
+
 
 def conv3x3_gn_swish_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                            bias: torch.Tensor, cbias: torch.Tensor,
@@ -164,11 +198,10 @@ def conv3x3_gn_swish_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor
     activations and the weights runs in f32 (products of bf16 values are
     exact there), so a bf16 result is rounded once, as the kernels and the
     JAX package's kernel round it."""
-    h = x.float() * scale.float()[:, :, None, None] + bias.float()[:, :, None, None]
-    h = (h * torch.sigmoid(h)).to(x.dtype)
-    y = F.conv2d(h.float(), w.float(), padding=1) + cbias.float()[None, :, None, None]
+    h = _swish_affine(x, scale, bias)
+    y = F.conv2d(widen(h), widen(w), padding=1) + widen(cbias)[None, :, None, None]
     if res is not None:
-        y = y + res.float()
+        y = y + widen(res)
     return y.to(x.dtype)
 
 
@@ -203,6 +236,46 @@ def _conv3x3_gn_swish_cuda(x, w, scale, bias, cbias, res):
     return out
 
 
+class _Conv3x3GnSwish(torch.autograd.Function):
+    """K6 forward (the plain version on the CPU). Saves x, w, scale and
+    bias; the backward recomputes the prologue and takes the gradient of
+    ``conv3x3_gn_swish_plain``: the conv's input and weight gradients of
+    the f32 sum, the prologue by autograd, cbias and res directly."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, bias, cbias, res):
+        ctx.save_for_backward(x, w, scale, bias)
+        ctx.res_dtype = None if res is None else res.dtype
+        ctx.cbias_dtype = cbias.dtype
+        if x.device.type == "cpu":
+            return conv3x3_gn_swish_plain(x, w, scale, bias, cbias, res)
+        return _conv3x3_gn_swish_cuda(x, w, scale, bias, cbias, res)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, bias = ctx.saved_tensors
+        if x.device.type == "cuda":
+            backwards["conv3x3_gn_swish"] += 1
+        need_x, need_w, need_s, need_b, need_cb, need_res = ctx.needs_input_grad
+        gf = widen(g)
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((x, scale, bias), (need_x, need_s, need_b))]
+        with torch.enable_grad():
+            h = _swish_affine(*inputs)
+        dw = None
+        if need_w:
+            dw = torch.nn.grad.conv2d_weight(widen(h.detach()), w.shape, gf, padding=1).to(w.dtype)
+        grads = [None, None, None]
+        if need_x or need_s or need_b:
+            dh = torch.nn.grad.conv2d_input(h.shape, widen(w), gf, padding=1)
+            want = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(h, want, dh.to(h.dtype)))
+            grads = [next(got) if t.requires_grad else None for t in inputs]
+        dcb = gf.sum(dim=(0, 2, 3)).to(ctx.cbias_dtype) if need_cb else None
+        dres = g.to(ctx.res_dtype) if need_res else None
+        return grads[0], dw, grads[1], grads[2], dcb, dres
+
+
 def conv3x3_gn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                      bias: torch.Tensor, cbias: torch.Tensor,
                      res: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -220,8 +293,6 @@ def conv3x3_gn_swish(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if res is not None and tuple(res.shape) != (B, Cout) + tuple(x.shape[2:]):
         raise ValueError(f"conv3x3_gn_swish: res {tuple(res.shape)} for output "
                          f"{(B, Cout) + tuple(x.shape[2:])}")
-    if x.device.type == "cpu":
-        return conv3x3_gn_swish_plain(x, w, scale, bias, cbias, res)
-    if x.device.type == "cuda":
-        return _conv3x3_gn_swish_cuda(x, w, scale, bias, cbias, res)
-    raise ValueError(f"conv3x3_gn_swish: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_gn_swish: unsupported device {x.device}")
+    return _Conv3x3GnSwish.apply(x, w, scale, bias, cbias, res)

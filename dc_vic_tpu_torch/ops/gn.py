@@ -8,7 +8,10 @@ E[x^2] - E[x]^2 clipped at zero, and ``apply_affine`` (K4) is the folded
 per-(image, channel) affine with an optional swish. Dispatch is by device: a
 CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the kernel or
 raises. ``use_kernel`` is the shape rule by which ``nn.layers.GroupNorm``
-chooses this path over its ordinary PyTorch code.
+chooses this path over its ordinary PyTorch code. Both go through a
+``torch.autograd.Function`` (on the CPU too) whose backward is the gradient
+of the plain version in PyTorch, as XLA differentiates the JAX package's
+plain math.
 """
 from __future__ import annotations
 
@@ -18,9 +21,12 @@ import torch
 
 from . import native
 from .layout import row_major as _row_major
+from .layout import widen
 
-# Kernel launches since the last reset (counted where each kernel launches).
+# Kernel launches since the last reset (counted where each kernel launches),
+# and backward passes of the Functions on CUDA tensors (PyTorch, no kernel).
 launches = {"gn_channel_sums": 0, "gn_apply": 0}
+backwards = {"gn_channel_sums": 0, "gn_apply": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = (None, "swish")
@@ -52,7 +58,7 @@ def _check_map(x: torch.Tensor, what: str) -> int:
 def channel_sums_plain(x: torch.Tensor) -> torch.Tensor:
     """Per-(image, channel) [sum, sum of squares] of x [B, C, ...] in f32:
     [B, 2, C]."""
-    xf = x.float().reshape(x.shape[0], x.shape[1], -1)
+    xf = widen(x).reshape(x.shape[0], x.shape[1], -1)
     return torch.stack([xf.sum(-1), (xf * xf).sum(-1)], dim=1)
 
 
@@ -71,14 +77,32 @@ def _channel_sums_cuda(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class _ChannelSums(torch.autograd.Function):
+    """K3 forward (the plain version on the CPU); backward: d sum = g0,
+    d sum of squares = 2 x g1, per (image, channel)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        if x.device.type == "cpu":
+            return channel_sums_plain(x)
+        return _channel_sums_cuda(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        if x.device.type == "cuda":
+            backwards["gn_channel_sums"] += 1
+        g = _per_channel(g, x)                                # [B, 2, C, 1, ...]
+        return (g[:, 0] + 2.0 * widen(x) * g[:, 1]).to(x.dtype)
+
+
 def channel_sums(x: torch.Tensor) -> torch.Tensor:
     """Per-(image, channel) [sum, sum of squares] of x [B, C, ...], f32
     [B, 2, C]."""
-    if x.device.type == "cpu":
-        return channel_sums_plain(x)
-    if x.device.type == "cuda":
-        return _channel_sums_cuda(x)
-    raise ValueError(f"channel_sums: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"channel_sums: unsupported device {x.device}")
+    return _ChannelSums.apply(x)
 
 
 # ------------------------------------------------------------------- K4
@@ -90,7 +114,7 @@ def _per_channel(t: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def apply_affine_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                        act: Optional[str] = None) -> torch.Tensor:
     """act(x * scale[b, c] + bias[b, c]) in f32, cast back to x's type."""
-    y = x.float() * _per_channel(scale.float(), x) + _per_channel(bias.float(), x)
+    y = widen(x) * _per_channel(widen(scale), x) + _per_channel(widen(bias), x)
     if act == "swish":
         y = y * torch.sigmoid(y)
     return y.to(x.dtype)
@@ -116,6 +140,32 @@ def _apply_affine_cuda(x, scale, bias, act):
     return out
 
 
+class _ApplyAffine(torch.autograd.Function):
+    """K4 forward (the plain version on the CPU); backward: autograd of
+    ``apply_affine_plain`` on the saved inputs (elementwise recomputation)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.act = act
+        if x.device.type == "cpu":
+            return apply_affine_plain(x, scale, bias, act)
+        return _apply_affine_cuda(x, scale, bias, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        if x.device.type == "cuda":
+            backwards["gn_apply"] += 1
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip((x, scale, bias), ctx.needs_input_grad)]
+        with torch.enable_grad():
+            y = apply_affine_plain(*inputs, ctx.act)
+            want = [t for t in inputs if t.requires_grad]
+            got = iter(torch.autograd.grad(y, want, g))
+        return tuple(next(got) if t.requires_grad else None for t in inputs) + (None,)
+
+
 def apply_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                  act: Optional[str] = None) -> torch.Tensor:
     """act(x * scale[b, c] + bias[b, c]) for x [B, C, ...] and scale, bias
@@ -125,11 +175,9 @@ def apply_affine(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if tuple(scale.shape) != tuple(x.shape[:2]) or scale.shape != bias.shape:
         raise ValueError(f"apply_affine: scale {tuple(scale.shape)} / bias "
                          f"{tuple(bias.shape)} for x {tuple(x.shape)}")
-    if x.device.type == "cpu":
-        return apply_affine_plain(x, scale, bias, act)
-    if x.device.type == "cuda":
-        return _apply_affine_cuda(x, scale, bias, act)
-    raise ValueError(f"apply_affine: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"apply_affine: unsupported device {x.device}")
+    return _ApplyAffine.apply(x, scale, bias, act)
 
 
 # ------------------------------------------------------------ GroupNorm

@@ -19,3 +19,9 @@ def row_major(t: torch.Tensor) -> torch.Tensor:
     if tuple(reversed(want)) == t.stride():
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """t in f32, the plain versions' arithmetic type; float64 stays float64
+    (so that their gradients can be checked in double precision)."""
+    return t if t.dtype == torch.float64 else t.float()

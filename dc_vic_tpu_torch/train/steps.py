@@ -1,0 +1,239 @@
+"""The training steps of the curriculum (port of dc_vic_tpu/train/steps.py):
+
+  stage 1_2          rate-distortion + VQ-code losses, per-sample dual-beta
+                     weights                                      -> rd_step
+  stage 1_3, stage 3 GAN fine-tune of the decoder, the VQ estimator and the
+                     fusion blocks, the entropy path frozen       -> gan_step
+
+Each step does the main (g) update, the aux (quantile) update where the
+stage has one, and the reference's skip of a step whose loss is not finite
+or too large (|loss| >= 1e4): the skip is a ``torch.where`` on the device
+inside the optimizers, so a step never waits for the host. The step counter
+advances either way.
+
+The loss assemblies (``rd_losses``, ``gan_g_losses``, ``gan_d_loss``) take
+explicit betas and a ``Noise``, so a caller can replay another run's draws.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..codec.ops import Noise
+from .optim import Optimizer
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step reads and updates: the model, its optimizers, the
+    discriminator's (GAN stages), the step count and the generator of the
+    betas and the noise (on the model's device)."""
+    model: nn.Module
+    g_opt: Optimizer
+    generator: torch.Generator
+    aux_opt: Optional[Optimizer] = None
+    disc: Optional[nn.Module] = None
+    d_opt: Optional[Optimizer] = None
+    step: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class BetaPolicy:
+    """How betas are sampled and how they weight the losses."""
+    use_beta: bool = True
+    use_selected_pairs: bool = False
+    selected_beta_rate: Tuple[float, ...] = ()
+    selected_beta_vq: Tuple[float, ...] = ()
+    max_beta_rate: float = 3.0
+    max_beta_vq: float = 3.5
+    num_levels: int = 100
+    sample_batch_beta: bool = False
+    weight_type: str = "exp"     # 'exp' -> e^beta, 'linear' -> beta + offset
+    weight_offset: float = 1.0
+
+    def sample(self, generator: torch.Generator, batch_size: int):
+        """(beta_rate, beta_vq), each [batch_size] or [1] f32 on the
+        generator's device: one of the selected pairs, or each beta on a
+        grid of num_levels + 1 levels up to its maximum."""
+        if not self.use_beta:
+            return None, None
+        n = batch_size if self.sample_batch_beta else 1
+        dev = generator.device
+        if self.use_selected_pairs:
+            i = torch.randint(0, len(self.selected_beta_rate), (n,), generator=generator,
+                              device=dev)
+            table_r = torch.tensor(self.selected_beta_rate, dtype=torch.float32, device=dev)
+            table_v = torch.tensor(self.selected_beta_vq, dtype=torch.float32, device=dev)
+            return table_r[i], table_v[i]
+        i1 = torch.randint(0, self.num_levels + 1, (n,), generator=generator, device=dev)
+        i2 = torch.randint(0, self.num_levels + 1, (n,), generator=generator, device=dev)
+        return (self.max_beta_rate * i1.float() / self.num_levels,
+                self.max_beta_vq * i2.float() / self.num_levels)
+
+    def weight(self, beta):
+        if self.weight_type == "exp":
+            return torch.exp(beta)
+        return beta + self.weight_offset
+
+
+def _finite(x: torch.Tensor) -> torch.Tensor:
+    return torch.isfinite(x) & (torch.abs(x) < 10000.0)
+
+
+def _apply_sample_weight(loss_val: torch.Tensor, weight) -> torch.Tensor:
+    """Per-sample weighting: the mean over each sample's other dims, times
+    its (broadcastable) weight, then the mean; a scalar loss takes the mean
+    weight."""
+    if loss_val.dim() == 0:
+        return torch.mean(weight) * loss_val
+    per_sample = loss_val.reshape(loss_val.shape[0], -1).mean(dim=1)
+    return torch.mean(per_sample * weight)
+
+
+def _g_losses(losses: Dict, out: Dict, batch, beta_rate, beta_vq, policy: BetaPolicy,
+              include_rate: bool = True, lpips_fn=None) -> Tuple[torch.Tensor, Dict]:
+    """The generator-side loss terms and their sum. With dual-beta
+    conditioning the rate term is weighted by w(beta_rate) and the VQ-code
+    terms by w(beta_vq), per sample when the betas are."""
+    terms: Dict[str, torch.Tensor] = {}
+    if include_rate and "rate_loss" in losses:
+        if policy.use_beta:
+            terms["rate"] = _apply_sample_weight(
+                losses["rate_loss"].loss_weight * out["bpp_per_sample"],
+                policy.weight(beta_rate))
+        else:
+            terms["rate"] = losses["rate_loss"](out["bpp"])
+    if "distortion_loss" in losses:
+        terms["distortion"] = losses["distortion_loss"](batch, out["fake_images"])
+    if "perceptual_loss" in losses:
+        terms["perceptual"] = losses["perceptual_loss"](batch, out["fake_images"],
+                                                        lpips_fn=lpips_fn)
+    code_w = policy.weight(beta_vq) if policy.use_beta else None
+    if "code_distortion_loss" in losses:
+        per_elem = losses["code_distortion_loss"].loss_weight * (
+            out["gt_vq_latent"] - out["out_vq_latent"]) ** 2
+        terms["code_distortion"] = (_apply_sample_weight(per_elem, code_w)
+                                    if code_w is not None else torch.mean(per_elem))
+    if "code_ce_loss" in losses:
+        ce = losses["code_ce_loss"]
+        logp = F.log_softmax(out["out_vq_logits"], dim=1)
+        logpt = torch.gather(logp, 1, out["gt_vq_indices"].long()[:, None])[:, 0]
+        nll = -logpt
+        gamma = getattr(ce, "gamma", None)
+        if gamma is not None:
+            nll = ((1.0 - torch.exp(logpt)) ** gamma) * nll
+        per_elem = ce.loss_weight * nll
+        terms["code_ce"] = (_apply_sample_weight(per_elem, code_w)
+                            if code_w is not None else torch.mean(per_elem))
+    return sum(terms.values()), terms
+
+
+def rd_losses(model, losses: Dict, batch, beta_rate, beta_vq, policy: BetaPolicy,
+              noise: Noise, lpips_fn=None):
+    """The RD step's forward: (total, terms, model outputs)."""
+    out = model(batch, beta_rate, beta_vq, is_train=True, noise=noise)
+    total, terms = _g_losses(losses, out, batch, beta_rate, beta_vq, policy,
+                             include_rate=True, lpips_fn=lpips_fn)
+    return total, terms, out
+
+
+def _disc(disc, img, beta_rate, beta_vq, y_hat=None):
+    return disc(img, beta_rate, beta_vq, y_hat)
+
+
+def gan_g_losses(model, disc, losses: Dict, batch, beta_rate, beta_vq,
+                 policy: BetaPolicy, noise: Noise, lpips_fn=None):
+    """The GAN step's generator forward (entropy path frozen) and its loss
+    with the adversarial term: (total, terms, model outputs)."""
+    out = model(batch, beta_rate, beta_vq, is_train=True, noise=noise,
+                fix_entropy_models=True)
+    total, terms = _g_losses(losses, out, batch, beta_rate, beta_vq, policy,
+                             include_rate=False, lpips_fn=lpips_fn)
+    d_out = _disc(disc, out["fake_images"], beta_rate, beta_vq, out["quantized_code"]["y"])
+    terms["adv"] = losses["gan_loss"](d_out, is_real=True, is_disc=False)
+    return total + terms["adv"], terms, out
+
+
+def gan_d_loss(disc, gan_loss, real, fake, beta_rate, beta_vq, real_y_hat=None,
+               fake_y_hat=None) -> torch.Tensor:
+    """The discriminator's loss on reals and (detached) fakes."""
+    l_real = gan_loss(_disc(disc, real, beta_rate, beta_vq, real_y_hat),
+                      is_real=True, is_disc=True)
+    l_fake = gan_loss(_disc(disc, fake.detach(), beta_rate, beta_vq, fake_y_hat),
+                      is_real=False, is_disc=True)
+    return 0.5 * (l_real + l_fake)
+
+
+def _zero_grads(*modules):
+    for m in modules:
+        for p in m.parameters():
+            p.grad = None
+
+
+def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPolicy,
+            lpips_fn=None) -> Dict[str, torch.Tensor]:
+    """One RD step (stage 1_2) on a batch NCHW in [-1, 1]: main and aux
+    updates in one backward (the aux loss reaches only the quantiles, which
+    the main loss never does). Returns the terms as device scalars."""
+    model = state.model
+    beta_rate, beta_vq = policy.sample(state.generator, batch.shape[0])
+    _zero_grads(model)
+    total, terms, out = rd_losses(model, losses, batch, beta_rate, beta_vq, policy,
+                                  Noise(state.generator), lpips_fn)
+    aux = model.aux_loss()
+    (total + aux).backward()
+    ok = _finite(total.detach())
+    state.g_opt.step(ok=ok)
+    state.aux_opt.step(ok=ok)
+    state.step += 1
+    terms = {k: v.detach() for k, v in terms.items()}
+    terms.update(bpp=out["bpp"].detach(), qbpp=out["qbpp"].detach(),
+                 vq_accuracy=out["vq_accuracy"].detach(), total=total.detach(),
+                 aux=aux.detach(), skipped=(~ok).float())
+    return terms
+
+
+def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPolicy,
+             mc_sampling: bool = False, y_hat_cond: bool = False,
+             lpips_fn=None) -> Dict[str, torch.Tensor]:
+    """One GAN step (stages 1_3 and 3): the generator's update against the
+    discriminator as it is, then the discriminator's on the reals and the
+    generator's (detached) fakes; both are skipped unless both losses are
+    finite. ``mc_sampling`` trains D on the batch's second half as reals
+    and G on its first; ``y_hat_cond`` gives D the y_hat of each."""
+    model, disc = state.model, state.disc
+    gan_loss = losses["gan_loss"]
+    if mc_sampling:
+        half = batch.shape[0] // 2
+        g_batch, d_real_batch = batch[:half], batch[half:half * 2]
+    else:
+        g_batch = d_real_batch = batch
+    beta_rate, beta_vq = policy.sample(state.generator, g_batch.shape[0])
+
+    _zero_grads(model, disc)
+    disc.requires_grad_(False)
+    try:
+        g_total, terms, out = gan_g_losses(model, disc, losses, g_batch, beta_rate, beta_vq,
+                                           policy, Noise(state.generator), lpips_fn)
+        g_total.backward()
+    finally:
+        disc.requires_grad_(True)
+    # the encoder branch is frozen in the GAN stages, so the reals' y_hat is
+    # the same before and after the generator's update
+    real_y_hat = model.extract_y_hat(d_real_batch, beta_rate, beta_vq) if y_hat_cond else None
+    fake_y_hat = out["quantized_code"]["y"].detach() if y_hat_cond else None
+    d_total = gan_d_loss(disc, gan_loss, d_real_batch, out["fake_images"], beta_rate,
+                         beta_vq, real_y_hat, fake_y_hat)
+    d_total.backward()
+    ok = _finite(g_total.detach()) & _finite(d_total.detach())
+    state.g_opt.step(ok=ok)
+    state.d_opt.step(ok=ok)
+    state.step += 1
+    terms = {k: v.detach() for k, v in terms.items()}
+    terms.update(bpp=out["bpp"].detach(), vq_accuracy=out["vq_accuracy"].detach(),
+                 total=g_total.detach(), d_loss=d_total.detach(), skipped=(~ok).float())
+    return terms
