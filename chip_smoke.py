@@ -122,6 +122,30 @@
    forward and backward timed with CUDA events. Prints seconds per step,
    images/s, peak memory and launches per step; the kernels line carries
    the training keys (train_*).
+14. The evaluation and calibration path on the f32 flagship with the
+   workload's weights and every reconstruction kernel on: (1) fifty
+   768x512 images (smooth content plus noise, seed 0; fifty is FID's
+   minimum) through the compress CLI's body (tools/compress.py
+   compress_arrays: tpu format, device backend, lanes 512, batch 16,
+   selfcheck and decompress), K1 to K6, R1 and R2 launches held against the
+   shape rules; (2) seeded random LPIPS(alex), DISTS and InceptionV3 weights
+   (tools/workload.py metric_state_dicts) written to .pth files and loaded
+   through the loaders on the card and on the host CPU: LPIPS and DISTS of
+   two pairs within METRIC_TOL, the pool3 features of their patches within
+   POOL3_RTOL; Inception's patches per second (host clock around the FID
+   feature function) and LPIPS's and DISTS's milliseconds per image (CUDA
+   events) timed, then calc_metrics over the
+   fifty pairs (PSNR, MS-SSIM, LPIPS, DISTS, FID, all finite, none skipped);
+   (3) build_val_dataset's crops and token maps of the fifty images, the
+   rate search over CALIB_IMAGES crops on both paths (token maps and the
+   eval forward) for two beta_vq and two target rates: every target within
+   TOL, the two paths' results equal to rtol 1e-5, and each path's probe
+   launches held against the shape rules; (4) beta_selection of two of the
+   search's candidates over the fifty crops with FID, one selected; (5) a
+   stage 1_2 trainer with the LPIPS file as lpips_weights: RD steps timed,
+   and the LPIPS loss's forward and backward on the same batch by CUDA
+   events, its share of the step. The kernels line
+   carries this phase's launches (launches_eval_*).
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -2223,6 +2247,279 @@ def check_training(ops, smi, dev, gen):
                 worst_grad_rel_l2=worst)
 
 
+# ------------------------------------------------------- evaluation (item 14)
+
+EVAL_IMAGES = 50          # FID's minimum (metrics/fid.py MIN_IMAGES)
+EVAL_SIZE = (768, 512)
+EVAL_BATCH = 16
+HOST_PAIRS = 2            # reals and reconstructions the host CPU recomputes
+CALIB_IMAGES = 18         # crops the rate search runs over: one batch of 16 and a remainder
+CALIB_BATCH = 16
+BETA_VQS = (1.0, 3.0)     # the rate search's cut sweep
+# bpp inside the range the random-weight model spans at both beta_vq (about
+# 0.254 to 0.260 over beta_rate 0 to 3 at 18 crops: random weights leave the
+# rate nearly flat in beta_rate)
+TARGET_RATES = (0.256, 0.258)
+METRIC_TOL = 1e-4         # LPIPS and DISTS, card against host CPU
+POOL3_RTOL, POOL3_ATOL = 1e-3, 1e-5    # Inception pool3 features, card against host CPU
+RD_STEPS = 4              # RD steps with LPIPS; the first is not warm
+
+
+def counted_run(module, ops, run, rans=(0, 0)):
+    """``run()`` with every launch counter set to 0 just before it and read
+    just after, held against the shape rules for the modules that ran, with
+    ``rans`` = (R1, R2) launches expected. Returns (run's result,
+    launches)."""
+    import torch
+    want, _, handles = expected_launch_recorder(module)
+    want.update(rans_encode_pack=rans[0], rans_decode_section=rans[1])
+    reset_counters(*ops)
+    try:
+        result = run()
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    got = counters(*ops)
+    if got != want:
+        raise AssertionError(f"launches {got}, the shape rules give {want}")
+    return result, got
+
+
+def check_metric_nets(paths, reals, fakes, smi, dev):
+    """The evaluation networks loaded through their loaders on the card and
+    on the host CPU: LPIPS and DISTS on the first HOST_PAIRS pairs within
+    METRIC_TOL, Inception's pool3 features of their patches within
+    POOL3_RTOL; timed on the card. Returns (the card's networks, times)."""
+    import torch
+    from dc_vic_tpu_torch.metrics.feature_nets import load_dists, load_lpips
+    from dc_vic_tpu_torch.metrics.fid import collect_patches
+    from dc_vic_tpu_torch.metrics.inception import load_inception
+    from dc_vic_tpu_torch.tools.calc_metrics import to_pm1
+    card = dict(lpips=load_lpips(paths["lpips_alex"], "alex", dev),
+                dists=load_dists(paths["dists"], dev),
+                inception=load_inception(paths["inception"], dev))
+    host = dict(lpips=load_lpips(paths["lpips_alex"], "alex", device="cpu"),
+                dists=load_dists(paths["dists"], device="cpu"),
+                inception=load_inception(paths["inception"], device="cpu"))
+    nchw = lambda a, dev: torch.from_numpy(np.ascontiguousarray(a)).permute(0, 3, 1, 2).to(dev)
+    worst = {}
+    with torch.no_grad():
+        for name, scale in (("lpips", to_pm1), ("dists", lambda u8: u8 / np.float32(255))):
+            got = [float(card[name](nchw(scale(r)[None], dev), nchw(scale(f)[None], dev)))
+                   for r, f in zip(reals[:HOST_PAIRS], fakes[:HOST_PAIRS])]
+            want = [float(host[name](nchw(scale(r)[None], "cpu"), nchw(scale(f)[None], "cpu")))
+                    for r, f in zip(reals[:HOST_PAIRS], fakes[:HOST_PAIRS])]
+            worst[name] = float(np.max(np.abs(np.subtract(got, want))))
+            if not np.all(np.isfinite(got)) or worst[name] > METRIC_TOL:
+                raise AssertionError(f"{name} on the card {got}, on the host {want}")
+    patches = np.stack(collect_patches(list(reals[:HOST_PAIRS])))
+    got, want = card["inception"](patches), host["inception"](patches)
+    # each feature within POOL3_RTOL of the host's, plus POOL3_ATOL for those
+    # near 0: the worst share of that allowance used
+    worst["pool3"] = float(np.max(np.abs(got - want) / (POOL3_ATOL + POOL3_RTOL * np.abs(want))))
+    if got.shape != (len(patches), 2048) or worst["pool3"] > 1.0:
+        raise AssertionError(f"pool3 features on the card differ from the host's: "
+                             f"{worst['pool3']:.3f} of the allowance")
+    # Inception as FID calls it: uint8 patches from the host, features back
+    batch = np.stack(collect_patches(list(reals[:4]))[:32])
+    card["inception"](batch)
+    secs = []
+    for _ in range(3):
+        t = time.perf_counter()
+        card["inception"](batch)
+        secs.append(time.perf_counter() - t)
+    with torch.no_grad():
+        a = nchw(to_pm1(reals[0])[None], dev)
+        b = nchw(to_pm1(fakes[0])[None], dev)
+        lpips_ms = _time_ms(card["lpips"], a, b)
+        dists_ms = _time_ms(card["dists"], (a + 1) / 2, (b + 1) / 2)
+    times = dict(inception_patches_per_s=len(batch) / float(np.median(secs)),
+                 lpips_ms_per_image=lpips_ms, dists_ms_per_image=dists_ms)
+    print(f"metric networks on the card against the host CPU ({HOST_PAIRS} pairs of "
+          f"{reals[0].shape[0]}x{reals[0].shape[1]}, {len(patches)} patches): worst LPIPS "
+          f"{worst['lpips']:.2e}, DISTS {worst['dists']:.2e} (atol {METRIC_TOL}), pool3 "
+          f"{worst['pool3']:.3f} of its allowance (rtol {POOL3_RTOL}, atol {POOL3_ATOL}); "
+          f"Inception "
+          f"{times['inception_patches_per_s']:.1f} patches/s at batch 32 (host clock, "
+          f"uint8 in, features out), LPIPS(alex) {lpips_ms:.3f} ms and DISTS "
+          f"{dists_ms:.3f} ms per {reals[0].shape[0]}x{reals[0].shape[1]} image (CUDA "
+          f"events; {smi})")
+    return card, dict(times, **{f"worst_{k}": v for k, v in worst.items()})
+
+
+def check_evaluation(opt, sd, ops, smi, dev):
+    """Item 14 of the module docstring. Returns {kernel name: its launches
+    in this phase}, and the phase's figures."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.metrics.fid import MIN_IMAGES
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model
+    from dc_vic_tpu_torch.tools import beta_selection, binary_rate_search
+    from dc_vic_tpu_torch.tools import compress as cli
+    from dc_vic_tpu_torch.tools.build_val_dataset import crop_and_tokenize
+    from dc_vic_tpu_torch.tools.calc_metrics import calc_metrics_arrays, to_pm1
+    from dc_vic_tpu_torch.tools.workload import metric_state_dicts, smooth_images
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    from dc_vic_tpu_torch.utils.backends import backend_flags
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dcvic_eval_")
+    figures, launches = {}, {}
+    try:
+        paths = {}
+        for name, state in metric_state_dicts(0).items():
+            paths[name] = os.path.join(root, f"{name}.pth")
+            torch.save({k: torch.from_numpy(v) for k, v in state.items()}, paths[name])
+        spec = build_comp_model(opt, dev, recon_kernels=RECON_KERNELS)
+        spec.module.load_state_dict(sd, strict=True)
+        module = spec.module.eval()
+        codec = Codec(spec, encode_backend="device", lanes=512)
+
+        # (1) the compress CLI's body over fifty 768x512 images
+        reals = smooth_images(EVAL_IMAGES, *EVAL_SIZE)
+        named = [(f"img{i:02d}.png", a) for i, a in enumerate(reals)]
+        chunks = -(-EVAL_IMAGES // EVAL_BATCH)
+        t = time.perf_counter()
+        (rows, decoded), launches["compress_50"] = counted_run(
+            module, ops, lambda: cli.compress_arrays(
+                codec, named, 0, os.path.join(root, "out"), batch_size=EVAL_BATCH,
+                selfcheck=True, decompress=True),
+            rans=(2 * chunks, 2 * chunks * (1 + codec.num_slices)))
+        compress_s = time.perf_counter() - t
+        fakes = np.stack([decoded[n] for n, _ in named])
+        if fakes.shape != reals.shape or fakes.dtype != np.uint8:
+            raise AssertionError(f"decoded {fakes.shape} {fakes.dtype}")
+        missing = [k for k, n in launches["compress_50"].items() if n < 1]
+        if missing:
+            raise AssertionError(f"the evaluation's compress never launched {missing}")
+        with open(os.path.join(root, "out", "_avg_bitrate.json")) as f:
+            bitrate = json.load(f)["avg_bpp"]
+        print(f"compress_arrays, {EVAL_IMAGES} images {EVAL_SIZE[0]}x{EVAL_SIZE[1]}, tpu "
+              f"format, device backend, lanes 512, reconstruction kernels on, batch "
+              f"{EVAL_BATCH} ({chunks} chunks), "
+              f"selfcheck and decompress: {compress_s:.2f} s, {bitrate:.4f} bpp; launches "
+              f"{launches['compress_50']}")
+
+        # (2) the metrics: the networks on the card held to the host CPU,
+        # then calc_metrics over the fifty pairs
+        nets, times = check_metric_nets(paths, reals, fakes, smi, dev)
+        figures.update(times)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = calc_metrics_arrays(list(reals), list(fakes), nets["lpips"], nets["dists"],
+                                      nets["inception"], bitrate)
+        figures["calc_metrics_s"] = time.perf_counter() - t
+        if (metrics["skipped"] or metrics["num_images"] != EVAL_IMAGES
+                or not all(np.isfinite(metrics[k]) for k in ("psnr", "ms_ssim", "fid",
+                                                              "lpips", "dists"))):
+            raise AssertionError(f"calc_metrics gave {metrics}")
+        print(f"calc_metrics over {EVAL_IMAGES} pairs (random network weights, seed 0): "
+              f"{metrics}; {figures['calc_metrics_s']:.2f} s (host clock)")
+
+        # (3) the validation set and the rate search on both paths
+        t = time.perf_counter()
+        names, crops, maps = crop_and_tokenize(module, list(reals), np.random.default_rng(0),
+                                               num_images=EVAL_IMAGES, crop=256,
+                                               batch_size=EVAL_BATCH)
+        if crops.shape != (EVAL_IMAGES, 256, 256, 3) or maps.shape != (EVAL_IMAGES, 32, 32) \
+                or maps.dtype != np.uint8:
+            raise AssertionError(f"validation set {crops.shape}, token maps {maps.shape} "
+                                 f"{maps.dtype}")
+        print(f"build_val_dataset: {len(names)} crops 256x256 and uint8 token maps "
+              f"{maps.shape[1:]} in {time.perf_counter() - t:.2f} s")
+        imgs = to_pm1(crops)
+        sub = slice(0, CALIB_IMAGES)
+        avg = {"token maps": binary_rate_search.make_avg_bpp(module, imgs[sub], CALIB_BATCH,
+                                                             maps[sub]),
+               "forward": binary_rate_search.make_avg_bpp(module, imgs[sub], CALIB_BATCH)}
+        rem = CALIB_IMAGES % CALIB_BATCH
+        for label, fn in avg.items():
+            _, launches[f"probe_{label}"] = counted_run(module, ops, lambda: fn(1.5, 2.0))
+        curve = {bv: [(br, round(avg["token maps"](br, bv), 5))
+                      for br in (0.0, 0.75, 1.5, 2.25, spec.max_beta_rate)] for bv in BETA_VQS}
+        print(f"estimated bpp of {CALIB_IMAGES} crops by beta_rate, for beta_vq {BETA_VQS}: "
+              f"{curve}")
+        results, secs, probes = {}, {}, {}
+        for label, fn in avg.items():
+            calls = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results[label] = binary_rate_search.search(
+                lambda br, bv, fn=fn, calls=calls: calls.append(br) or fn(br, bv), BETA_VQS,
+                TARGET_RATES, spec.max_beta_rate)
+            secs[label], probes[label] = time.perf_counter() - t, len(calls)
+        for a, b in zip(results["token maps"], results["forward"]):
+            if (a["beta_rate"] != b["beta_rate"]
+                    or not np.isclose(a["achieved_bpp"], b["achieved_bpp"], rtol=1e-5, atol=0)):
+                raise AssertionError(f"the search's paths disagree: {a} against {b}")
+            if abs(a["achieved_bpp"] - a["target_rate"]) > binary_rate_search.TOL:
+                raise AssertionError(f"the search missed its target: {a}")
+        figures.update(rate_search_s=secs, rate_search_probes=probes)
+        print(f"binary_rate_search over {CALIB_IMAGES} crops (batch {CALIB_BATCH} and a "
+              f"remainder of {rem}), beta_vq {BETA_VQS}, targets {TARGET_RATES}: "
+              f"{results['forward']}; the token-map path agrees to rtol 1e-5; probes "
+              f"{probes}, seconds {secs} (host clock)")
+
+        # (4) beta selection on two of the search's candidates, with FID
+        cands = [results["forward"][0], results["forward"][len(TARGET_RATES)]]
+        feats = nets["inception"]
+        t = time.perf_counter()
+        chosen = beta_selection.score_candidates(
+            cands, imgs, beta_selection.make_reconstruct(module, imgs, EVAL_BATCH), feats)
+        figures["beta_selection_s"] = time.perf_counter() - t
+        if (len(imgs) < MIN_IMAGES or not all(r["fid_in_score"] and np.isfinite(r["score"])
+                                              for r in chosen)
+                or sum(r["selected"] for r in chosen) != 1):
+            raise AssertionError(f"beta_selection gave {chosen}")
+        print(f"beta_selection of {len(cands)} candidates over {len(imgs)} crops with FID: "
+              f"{chosen}; {figures['beta_selection_s']:.2f} s (host clock)")
+        del codec, module, spec, nets
+        torch.cuda.empty_cache()
+
+        # (5) RD steps with the real (random) LPIPS, and the LPIPS loss's
+        # forward and backward alone on the same batch
+        _training_images(os.path.join(root, "train"))
+        train_opt = training_opt("1_2", os.path.join(root, "train"))
+        train_opt["lpips_weights"] = paths["lpips_alex"]
+        tr = build_trainer(train_opt, dev)
+        if tr.lpips_fn is None:
+            raise AssertionError("the trainer did not load the LPIPS weights")
+        loader = tr.train_loader.infinite()
+        try:
+            batch = tr._to_device(next(loader)["real_images"])
+            secs = []
+            for _ in range(RD_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                terms = tr.step(batch)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                if not all(np.isfinite(float(v)) for v in terms.values()):
+                    raise AssertionError(f"an RD step with LPIPS gave {terms}")
+        finally:
+            loader.close()
+        fake = (batch + 0.05 * torch.randn_like(batch)).requires_grad_(True)
+        # the backend settings the trainer's steps run with
+        with backend_flags(allow_tf32=False, deterministic=False, benchmark=True):
+            lpips_ms = _time_ms(lambda: tr.lpips_fn(batch, fake).mean().backward())
+        step_s = float(np.median(secs[1:]))
+        figures.update(rd_step_s=step_s, lpips_fwd_bwd_ms=lpips_ms)
+        print(f"RD step (stage 1_2, batch {TRAIN_BATCH} of {TRAIN_CROP}x{TRAIN_CROP}, kernels "
+              f"on, LPIPS(alex) as lpips_weights) {step_s:.4f} s (host clock, median of "
+              f"{RD_STEPS - 1} warm steps); LPIPS forward + backward on that batch "
+              f"{lpips_ms:.3f} ms (CUDA events), {lpips_ms / 10 / step_s:.2f}% of the step "
+              f"({smi})")
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    figures["phase_s"] = time.perf_counter() - t_phase
+    print(f"evaluation and calibration phase {figures['phase_s']:.1f} s")
+    return launches, figures
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2415,10 +2712,13 @@ def main():
     torch.cuda.empty_cache()
 
     launches_tiled, _ = check_tiled(opt, deployment_sd, ops, smi, dev, gen)
-    del deployment_sd
     torch.cuda.empty_cache()
 
     training = check_training(ops, smi, dev, gen)
+    torch.cuda.empty_cache()
+
+    launches_eval, _ = check_evaluation(opt, deployment_sd, ops, smi, dev)
+    del deployment_sd
     torch.cuda.empty_cache()
 
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
@@ -2427,6 +2727,8 @@ def main():
         k["launches_bf16_batch16"] = launches16[k["name"]]
         k["launches_tiled_2048x1365"] = launches_tiled[k["name"]]
         k.update(training["kernels"].get(k["name"], {}))
+        for phase, table in launches_eval.items():
+            k[f"launches_eval_{phase.replace(' ', '_')}"] = table[k["name"]]
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

@@ -37,11 +37,12 @@ def _clean(cfg, drop=()) -> dict:
 @dataclasses.dataclass
 class CompModelSpec:
     """A built model plus the host-side codec metadata (quality-level beta
-    tables). The numeric configuration (``codec_dtype``,
+    tables; the largest beta_rate, the rate search's bound). The numeric configuration (``codec_dtype``,
     ``entropy_precision``) is carried by ``module``."""
     module: DCVICModel
     selected_beta_rate: Optional[List[float]] = None
     selected_beta_vq: Optional[List[float]] = None
+    max_beta_rate: float = 3.0
 
     def quality_betas(self, quality_ind: int):
         if self.selected_beta_rate is None:
@@ -175,7 +176,8 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
     return CompModelSpec(
         module=module,
         selected_beta_rate=model_cfg.get("selected_beta_rate"),
-        selected_beta_vq=model_cfg.get("selected_beta_vq"))
+        selected_beta_vq=model_cfg.get("selected_beta_vq"),
+        max_beta_rate=enc_kw.get("max_beta_1", 3.0))
 
 
 @torch.no_grad()

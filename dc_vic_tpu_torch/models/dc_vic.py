@@ -206,6 +206,11 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         indices)."""
         return self.vq_model.quantize(h)
 
+    def vq_indices_to_latent(self, indices):
+        """Codebook lookup of a token map: indices [B, h8, w8] -> latents
+        [B, D, h8, w8] (the rate search's precomputed-token path)."""
+        return self.vq_model.quantize.lookup(indices)
+
     def comp_encode(self, x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq):
         onehot = F.one_hot(gt_vq_indices.long(), self.n_embed).permute(0, 3, 1, 2)
         feat = torch.cat([gt_vq_latent, onehot.to(gt_vq_latent.dtype)], dim=1)

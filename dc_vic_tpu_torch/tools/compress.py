@@ -117,17 +117,22 @@ def load_checkpoint(module: torch.nn.Module, path: str) -> None:
     load_reference_state_dict(module, sd)
 
 
-def build_codec(config_path: str, model_path=None, device="cuda", stream_format="tpu",
-                portable=True, params_backend=None) -> Codec:
-    """The flags' codec: the config's model on ``device`` with the
-    checkpoint's weights, or seed 0's."""
+def build_model(config_path: str, model_path=None, device="cuda"):
+    """The config's model (``build_comp_model``'s spec) on ``device`` with
+    the checkpoint's weights, or seed 0's."""
     spec = build_comp_model(load_config(config_path), device=device)
     if model_path:
         load_checkpoint(spec.module, model_path)
     else:
         init_weights(spec.module, torch.Generator(device=device).manual_seed(0))
-    return Codec(spec, stream_format=stream_format, portable=portable,
-                 params_backend=params_backend)
+    return spec
+
+
+def build_codec(config_path: str, model_path=None, device="cuda", stream_format="tpu",
+                portable=True, params_backend=None) -> Codec:
+    """The flags' codec over ``build_model``'s model."""
+    return Codec(build_model(config_path, model_path, device), stream_format=stream_format,
+                 portable=portable, params_backend=params_backend)
 
 
 def compress_arrays(codec: Codec, images: Sequence[Tuple[str, np.ndarray]], quality: int,

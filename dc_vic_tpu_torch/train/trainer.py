@@ -82,17 +82,20 @@ class Trainer:
             build_dataset(dcfg["eval_dataset"], is_train=False), 1, num_workers=1)
 
     def _set_lpips(self):
-        """LPIPS when the perceptual loss asks for weights (not ported: it
-        raises); without a weights path the loss takes its gradient-L1
-        proxy, as the JAX package's does."""
+        """LPIPS on the trainer's device when the perceptual loss is
+        configured with weights (``loss.perceptual_loss.weights_path`` or a
+        top-level ``lpips_weights``); without them the loss takes its
+        gradient-L1 proxy, as the JAX package's does, and says so."""
         self.lpips_fn = None
         if "perceptual_loss" not in self.losses:
             return
         pl_cfg = dict((self.opt.get("loss") or {}).get("perceptual_loss") or {})
         self.lpips_fn = load_lpips(pl_cfg.get("weights_path") or self.opt.get("lpips_weights"),
-                                   net=pl_cfg.get("net", "alex"))
-        self.logger.warning("perceptual_loss: LPIPS weights not configured, training on the "
-                            "gradient-L1 proxy")
+                                   net=pl_cfg.get("net", "alex"), device=self.device)
+        calibrated = self.lpips_fn is not None
+        log = self.logger.info if calibrated else self.logger.warning
+        log(f"perceptual_loss calibrated={calibrated}"
+            + ("" if calibrated else " — LPIPS weights missing, using gradient-L1 proxy"))
 
     def _set_state(self):
         opt = self.opt

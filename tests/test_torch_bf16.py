@@ -22,14 +22,15 @@ f32, as a bf16-to-f32 gap of exactly 0, which is refused too; the dtype of
 every result is asserted as well. The entropy
 chain has no tolerance against the f32 port: it must be bitwise equal.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from torch import nn
 
+import torch_threads  # noqa: F401
 from helpers import tiny_config
+from train_helpers import flax_template
 from test_torch_layers import DD, _init, _load, _nchw, _x
 from test_torch_recon_kernels import any_shape, interpret_pallas  # noqa: F401 (fixtures)
 
@@ -319,9 +320,7 @@ def _build_pair(cfg_extra):
     from dc_vic_tpu_torch.models.convert import load_reference_state_dict
     cfg = dict(tiny_config(), **cfg_extra)
     m = jax_build(cfg).module
-    x0, b = jnp.zeros((1, 64, 64, 3)), jnp.array([1.0])
-    template = jax.eval_shape(
-        lambda r: m.init({"params": r}, x0, b, b, is_train=False), jax.random.PRNGKey(0))
+    template = flax_template(m, cfg)
     seed_model = build_comp_model(tiny_config(), device="cpu").module
     init_weights(seed_model, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)

@@ -29,6 +29,28 @@ def test_jax_free_copies_are_byte_equal(rel, port_rel):
         assert f.read() == want
 
 
+def test_fid_copy_differs_from_jax_only_in_the_sqrtm_call():
+    """metrics/fid.py is the JAX package's file but for its docstring's
+    first lines and SciPy's sqrtm, which lost its disp argument in 1.18;
+    tests/test_torch_metrics.py holds the two copies' FIDs equal on the same
+    features."""
+    import difflib
+    with open(os.path.join(ROOT, "dc_vic_tpu", "metrics", "fid.py")) as f:
+        want = f.read().splitlines()
+    with open(os.path.join(ROOT, "dc_vic_tpu_torch", "metrics", "fid.py")) as f:
+        got = f.read().splitlines()
+    changed = [line for line in difflib.unified_diff(want, got, lineterm="", n=0)
+               if line[:1] in "+-" and line[:3] not in ("+++", "---")]
+    assert changed == [
+        '-"""FID with the HiFiC 256-patch protocol (ref: scripts/calc_metrics.py:220-320).',
+        '+"""FID with the HiFiC 256-patch protocol (ref: scripts/calc_metrics.py:220-320);',
+        "+the port's copy of dc_vic_tpu/metrics/fid.py.",
+        "-    covmean, _ = linalg.sqrtm(sigma1.dot(sigma2), disp=False)",
+        "+    # sqrtm's disp argument is gone from SciPy 1.18 on; without it the call",
+        "+    # returns the same root on every version",
+        "+    covmean = linalg.sqrtm(sigma1.dot(sigma2))"]
+
+
 def test_native_sources_lie_inside_the_port():
     """Every source the port compiles is its own file under csrc/."""
     from dc_vic_tpu_torch.ops import native

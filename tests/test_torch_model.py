@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from helpers import tiny_config
+from train_helpers import flax_template
 
 from dc_vic_tpu.models import build_comp_model as jax_build
 from dc_vic_tpu.models.convert import convert_state_dict, export_state_dict
@@ -59,10 +60,7 @@ def _near_boundary_ok(got, want, pre_round, label):
 def models():
     spec = jax_build(tiny_config())
     m = spec.module
-    x0, b = jnp.zeros((1, 64, 64, 3)), jnp.array([1.0])
-    template = jax.eval_shape(
-        lambda r: m.init({"params": r}, x0, b, b, is_train=False),
-        jax.random.PRNGKey(0))
+    template = flax_template(m, tiny_config())
     seed_model = build_comp_model(tiny_config(), device="cpu").module
     init_weights(seed_model, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from test_torch_codec import spec  # noqa: F401 (fixture: the tiny model, JAX-round-tripped weights)
+from train_helpers import flax_template
 
 FORMATS = ["tpu-host", "tpu-device", "compressai"]
 
@@ -226,17 +227,12 @@ def test_portable_streams_cross_decode_with_the_jax_codec(spec):
     latents its own encoder held, bitwise. Pixels of the two packages: one
     uint8 step apart at most, as tests/test_torch_model.py holds the
     reconstruction."""
-    import jax
-    import jax.numpy as jnp
     from dc_vic_tpu.codec.driver import Codec as JaxCodec
     from dc_vic_tpu.models import build_comp_model as jax_build
     from dc_vic_tpu.models.convert import convert_state_dict
     from helpers import tiny_config
     jspec = jax_build(tiny_config())
-    x0, b = jnp.zeros((1, 64, 64, 3)), jnp.array([1.0])
-    template = jax.eval_shape(
-        lambda r: jspec.module.init({"params": r}, x0, b, b, is_train=False),
-        jax.random.PRNGKey(0))
+    template = flax_template(jspec.module, tiny_config())
     params, _ = convert_state_dict(
         {k: v.numpy() for k, v in spec.module.state_dict().items()}, template, strict=True)
     jcodec = JaxCodec(jspec, params, stream_format="tpu", encode_backend="host", lanes=8,

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from helpers import tiny_config
+from train_helpers import flax_template
 
 TOL = dict(atol=1e-3, rtol=1e-3)
 BETAS = (2.29, 3.0)
@@ -32,16 +33,12 @@ def models():
     """(the JAX module, its params, the port's spec): the tiny model with
     seeded weights that went through the JAX package's parameter tree and
     back (export_state_dict -> load_reference_state_dict)."""
-    import jax
-    import jax.numpy as jnp
     from dc_vic_tpu.models import build_comp_model as jax_build
     from dc_vic_tpu.models.convert import convert_state_dict, export_state_dict
     from dc_vic_tpu_torch.models import build_comp_model, init_weights
     from dc_vic_tpu_torch.models.convert import load_reference_state_dict
     m = jax_build(tiny_config()).module
-    x0, b = jnp.zeros((1, 64, 64, 3)), jnp.array([1.0])
-    template = jax.eval_shape(
-        lambda r: m.init({"params": r}, x0, b, b, is_train=False), jax.random.PRNGKey(0))
+    template = flax_template(m, tiny_config())
     seed_model = build_comp_model(tiny_config(), device="cpu").module
     init_weights(seed_model, torch.Generator().manual_seed(0))
     params, _ = convert_state_dict(

@@ -16,6 +16,7 @@ import torch
 import yaml
 from PIL import Image
 
+import torch_threads  # noqa: F401
 from helpers import tiny_config
 
 from dc_vic_tpu.data.datasets import BaseImageDataset as JaxDataset

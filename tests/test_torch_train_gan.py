@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from helpers import tiny_config
 from train_helpers import (TOL, _nchw, _port_layout, check_gradients, jax_params, recording,
                            zero_by_construction)

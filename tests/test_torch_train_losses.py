@@ -15,16 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from helpers import tiny_config
 
 from dc_vic_tpu.metrics import image as jax_image
 from dc_vic_tpu.train import losses as jax_losses
 from dc_vic_tpu.train import optim as jax_optim
 from dc_vic_tpu_torch.metrics import image
-from dc_vic_tpu_torch.metrics.feature_nets import load_lpips
+from dc_vic_tpu_torch.metrics.feature_nets import LPIPS, load_lpips
 from dc_vic_tpu_torch.models import build_comp_model, init_weights
 from dc_vic_tpu_torch.train import losses
 from dc_vic_tpu_torch.train import optim
+from dc_vic_tpu_torch.tools.workload import metric_state_dicts
 from dc_vic_tpu_torch.train.steps import BetaPolicy, TrainState, rd_step
 
 RTOL = 1e-5
@@ -118,10 +120,18 @@ def test_ssim_and_ms_ssim_match_jax(shape):
     assert image.calc_ms_ssim(_nchw(a2[:, :160]), _nchw(b2[:, :160])) == -1.0
 
 
-def test_load_lpips():
+def test_load_lpips(tmp_path):
+    """None without a path (the LPIPS loss then takes its proxy); with a
+    state-dict file, the frozen LPIPS network on the device asked for."""
     assert load_lpips(None) is None
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        load_lpips("/weights/alex.pth")
+    path = str(tmp_path / "alex.pth")
+    torch.save({k: torch.from_numpy(v)
+                for k, v in metric_state_dicts(0)["lpips_alex"].items()}, path)
+    net = load_lpips(path, device="cpu")
+    assert isinstance(net, LPIPS) and not net.training
+    assert not any(p.requires_grad for p in net.parameters())
+    with pytest.raises(FileNotFoundError):
+        load_lpips(str(tmp_path / "missing.pth"), device="cpu")
 
 
 # ------------------------------------------------------------------ optimizers
@@ -180,6 +190,7 @@ def test_reset_schedule_counts_matches_optax():
     jtx = jax_optim.build_optimizer(dict(opt_cfg), sched, 1.0)
     jp = {n: jnp.asarray(v) for n, v in p0.items()}
     jstate = jtx.init(jp)
+    update = jax.jit(jtx.update)
     params = {n: torch.nn.Parameter(torch.tensor(v)) for n, v in p0.items()}
     popt = optim.build_optimizer(params, dict(opt_cfg), sched, 1.0)
     for step in range(4):
@@ -188,7 +199,7 @@ def test_reset_schedule_counts_matches_optax():
             popt.load_state_dict(optim.reset_schedule_counts(popt.state_dict()))
             assert (int(popt.count), int(popt.sched_count)) == (3, 0)
         g = _grads(step + 1, 1.0)
-        u, jstate = jtx.update({n: jnp.asarray(v) for n, v in g.items()}, jstate, jp)
+        u, jstate = update({n: jnp.asarray(v) for n, v in g.items()}, jstate, jp)
         jp = jax.tree.map(lambda a, b: a + b, jp, u)
         popt.step([torch.tensor(g[n]) for n in popt.names])
     for n in p0:
@@ -253,12 +264,19 @@ def test_rd_step_updates_as_optax(tiny_state):
     assert float(terms["skipped"]) == 0.0 and state.step == 1
     grads = {n: (p.grad.numpy() if p.grad is not None else np.zeros(p.shape, np.float32))
              for n, p in model.named_parameters()}
-    jp = {n: jnp.asarray(v.numpy()) for n, v in before.items()}
+    # the ~800 leaves as one vector: the chains are elementwise but for the
+    # global norm, which sums the same squares; one small jit per chain
+    names = list(before)
+    ends = np.cumsum([before[n].numel() for n in names])
+    flat = lambda d: jnp.asarray(np.concatenate([np.ravel(d[n]) for n in names]))
+    jflat = flat({n: v.numpy() for n, v in before.items()})
     for mask, cfg in ((main, g_cfg), (aux, ({"type": "Adam", "lr": 1e-2}, None, None))):
         tx = jax_optim.build_optimizer(dict(cfg[0]), cfg[1], cfg[2])
-        g = {n: jnp.asarray(grads[n] if mask[n] else np.zeros_like(grads[n])) for n in jp}
-        u, _ = jax.jit(tx.update)(g, tx.init(jp), jp)
-        jp = jax.tree.map(lambda a, b: a + b, jp, u)
+        g = flat({n: grads[n] if mask[n] else np.zeros_like(grads[n]) for n in names})
+        u, _ = jax.jit(tx.update)(g, tx.init(jflat), jflat)
+        jflat = jflat + u
+    jp = {n: v.reshape(before[n].shape)
+          for n, v in zip(names, np.split(np.asarray(jflat), ends[:-1]))}
     for n, p in model.named_parameters():
         if not (main[n] or aux[n]):
             assert torch.equal(p, before[n]), n

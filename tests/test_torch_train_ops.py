@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from helpers import tiny_config
 from train_helpers import TOL, _nchw, jax_params
 

@@ -2,6 +2,7 @@
 weights carried from the port into flax, layouts, and the recorder of the
 JAX forward's noise draws."""
 import sys
+from collections.abc import Mapping
 
 import jax
 import jax.numpy as jnp
@@ -26,11 +27,33 @@ def _port_layout(a):
     return _nchw(a) if a.ndim == 4 else torch.from_numpy(a)
 
 
+_TEMPLATES = {}
+
+
+def _frozen(cfg):
+    if isinstance(cfg, Mapping):
+        return tuple(sorted((k, _frozen(v)) for k, v in cfg.items()))
+    if isinstance(cfg, (list, tuple)):
+        return tuple(_frozen(v) for v in cfg)
+    return cfg
+
+
+def flax_template(m, cfg):
+    """The shapes of the flax parameters of ``m``, the JAX model built from
+    ``cfg`` (``jax.eval_shape`` of its init: seconds of tracing), traced
+    once per configuration in a process and shared by the port's test
+    files."""
+    key = _frozen(cfg)
+    if key not in _TEMPLATES:
+        x0, b = jnp.zeros((1, 64, 64, 3)), jnp.array([1.0])
+        _TEMPLATES[key] = jax.eval_shape(
+            lambda r: m.init({"params": r}, x0, b, b, is_train=False), jax.random.PRNGKey(0))
+    return _TEMPLATES[key]
+
+
 def jax_params(m, cfg):
     """Seeded port weights plus noise, carried into flax."""
-    x0, b = jnp.zeros((1, 64, 64, 3)), jnp.array([1.0])
-    template = jax.eval_shape(lambda r: m.init({"params": r}, x0, b, b, is_train=False),
-                              jax.random.PRNGKey(0))
+    template = flax_template(m, cfg)
     seed = build_comp_model(cfg, device="cpu").module
     init_weights(seed, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
