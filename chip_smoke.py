@@ -146,6 +146,36 @@
    and the LPIPS loss's forward and backward on the same batch by CUDA
    events, its share of the step. The kernels line
    carries this phase's launches (launches_eval_*).
+15. The rest of the model family, random weights from seed 0: (a) stage
+   1_1 of the curriculum (config/exp1_stage1_1.yaml: HyperpriorCharmVicModel,
+   no betas) at full width and depth, batch 6 of 256x256, f32, the encoder
+   not scaled (at 0.55 stage 1_1's y_hat is 0 everywhere; check_stage1_1
+   says why that fails): one RD step's gradients with K3 to K6 off and on
+   (K2, which carries no gradient here, on in both) under deterministic
+   cuDNN algorithms (GRAD_TOL, as item 13),
+   TRAIN_STEPS timed steps off and on (encoder and decoder move, the VQGAN
+   prior does not), seconds per step and peak memory, a checkpoint; stage
+   1_2 boots it with the shipped knobs (strict false): every stage 1_1
+   tensor carried bit for bit, the beta FiLM (FILM_KEYS) at its
+   initialisation, one 1_2 step. (b) Two codecs with every reconstruction
+   kernel on, encoder x 0.55, batch 4 768x512 (smooth content plus noise):
+   the stage 1_1 model (it selects no beta pairs, so it is driven at
+   VARIANT_BETAS and decoded with decompress_raw) and
+   config/dc_vic_patchgan.yaml as a HyperpriorDualCondVicModel
+   (hyper_out_ch 384), each in the compressai format (the chain on the card
+   for the ChARM model, on the host CPU for the other) and the tpu format
+   (device backend, lanes 512, the decode chain under
+   torch.cuda.set_sync_debug_mode("error")): latents bit-exact, pixels equal
+   to reconstruct_uint8 of the encoder's y_hat, launches held to the shape
+   rules and to the flagship's (K1 to K6 the same, R1 2, R2 7 with ChARM
+   and 2 without: z and the one y section). (c) R1 and R2 on that one
+   section, [4, 192, 48, 32] (294,912 symbols an image, six times a ChARM
+   slice), at lanes 128 and 512 and the three symbol mixes: bytes, symbols,
+   cursors and lane states against the plain versions and the host coder,
+   R2's symbols and consumed words against the host decoder; R2 timed there
+   beside its dependent chain. The kernels line carries the launches of
+   these paths (launches_<model>_<format>, train_launches_stage1_1_step)
+   and the one section's times (*_one_section_lanes512).
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -174,6 +204,7 @@ is left.
 Any failure raises and the script exits non-zero. It needs CUDA and fails
 without it. The last line is a JSON object naming the device.
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -1190,44 +1221,75 @@ def check_portable(spec, fresh_spec, plain_codec, plain_strings, images, parts16
         print(f"a portable and a non-portable stream in one batch raise: {str(e)[:60]}...")
     else:
         raise AssertionError("mixed portable and non-portable streams did not raise")
-    pipeline = codec._decode_pipeline
-    seen = []
-
-    def no_sync(*args, **kwargs):
-        seen.append(kwargs.get("portable"))
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return pipeline(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    codec._decode_pipeline = no_sync
-    again = codec.decompress(strings)
-    codec._decode_pipeline = pipeline
-    if seen != [True] or not np.array_equal(again, whole):
+    calls = []
+    with sync_free_decode(codec, calls):
+        again = codec.decompress(strings)
+    if [c.get("portable") for c in calls] != [True] or not np.array_equal(again, whole):
         raise AssertionError("the portable decode chain did not run, or is not repeatable")
     print("portable: the decode chain (16 per-image parameter chains, 7 batched section "
           "decodes) ran with torch.cuda.set_sync_debug_mode('error') and gave the same pixels")
     return codec, float(np.mean([r["bpp"] for r in res]))
 
 
-def drive(codec, images):
-    """The main path: compress -> bitstreams -> decompress. Returns
-    (results, decoded images, encode s, decode s)."""
+@contextlib.contextmanager
+def sync_free_decode(codec, calls=None):
+    """Inside the block the codec's tpu-format decode chain runs under
+    torch.cuda.set_sync_debug_mode("error"), where PyTorch raises on any
+    synchronising call; ``calls`` collects each chain's keyword arguments."""
+    import torch
+    pipeline = codec._decode_pipeline
+
+    def no_sync(*args, **kwargs):
+        if calls is not None:
+            calls.append(kwargs)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return pipeline(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    codec._decode_pipeline = no_sync
+    try:
+        yield
+    finally:
+        codec._decode_pipeline = pipeline
+
+
+def decompress_at(codec, strings, betas):
+    """Codec.decompress at given betas instead of the header's quality (a
+    model whose config selects no beta pairs): the header's stream fields,
+    then decompress_raw."""
+    hdr = codec._parse(strings)
+    tpu = hdr["stream_format"] == "tpu"
+    return codec.decompress_raw(
+        [s[1] for s in strings], [s[2] for s in strings], hdr["img_size"], *betas,
+        stream_format=hdr["stream_format"], lanes=hdr["lanes"],
+        esc_dense=tpu and hdr["esc_dense"], portable=bool(hdr["portable"]),
+        t2free=tpu and hdr["t2free"], escfree=tpu and hdr["escfree"])
+
+
+def drive(codec, images, betas=None):
+    """The main path: compress -> bitstreams -> decompress, at quality 0 or
+    at ``betas`` (beta_rate, beta_vq). Returns (results, decoded images,
+    encode s, decode s)."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = codec.compress(images, 0, debug=True)
+    if betas is None:
+        res = codec.compress(images, 0, debug=True)
+    else:
+        res = codec.compress(images, beta_rate=betas[0], beta_vq=betas[1], debug=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    out = codec.decompress([r["string_list"] for r in res])
+    strings = [r["string_list"] for r in res]
+    out = codec.decompress(strings) if betas is None else decompress_at(codec, strings, betas)
     torch.cuda.synchronize()
     return res, out, t1 - t0, time.perf_counter() - t1
 
 
-def verify(codec, images, res, out, enc_s, dec_s, label):
+def verify(codec, images, res, out, enc_s, dec_s, label, betas=None):
     """The decoder's y_hat equals the encoder's bitwise, and the decoded
-    images are the reconstruction of the encoder's y_hat. Returns y_hat on
-    the device."""
+    images are the reconstruction of the encoder's y_hat (at quality 0's
+    betas, or at ``betas``). Returns y_hat on the device."""
     import torch
     B, H, W = images.shape[:3]
     if out.shape != (B, H, W, 3) or out.dtype != np.uint8:
@@ -1238,7 +1300,7 @@ def verify(codec, images, res, out, enc_s, dec_s, label):
     if not codec.verify_roundtrip(res, [r["string_list"] for r in res], (H, W)):
         raise AssertionError(f"{label}: decode-side y_hat differs from the encoder's")
     y_hat = torch.from_numpy(np.ascontiguousarray(y_hat.transpose(0, 3, 1, 2))).to(codec.device)
-    b1, b2 = codec._betas(0)
+    b1, b2 = codec._betas(0) if betas is None else codec._beta_tensors(*betas)
     with torch.no_grad():
         recon = codec.module.reconstruct_uint8(y_hat, b1, b2)
         recon = recon[:, :, :H, :W].permute(0, 2, 3, 1).cpu().numpy()
@@ -1315,19 +1377,22 @@ def expected_launch_recorder(module):
     return want, shapes, handles
 
 
-def counted_round_trip(codec, images, label, ops):
-    """The main path with every launch counter set to 0 just before it and
-    read just after, held against what the shape rules give for the modules
-    that ran in between; then the checks of what came out. Returns (y_hat,
-    launches, the conv kernels' launch shapes)."""
+def counted_round_trip(codec, images, label, ops, betas=None, sync_free=False):
+    """The main path (at quality 0, or at ``betas``) with every launch
+    counter set to 0 just before it and read just after, held against what
+    the shape rules give for the modules that ran in between; then the
+    checks of what came out. ``sync_free``: the tpu decode chain runs under
+    ``sync_free_decode``. Returns (y_hat, launches, the conv kernels' launch
+    shapes)."""
     want, shapes, handles = expected_launch_recorder(codec.module)
     # the coder kernels: y and z pack per compress on the device backend, z
-    # and one section per ChARM slice per decompress
+    # and one section per ChARM slice (one without ChARM) per decompress
     tpu = codec.stream_format == "tpu"
     want["rans_encode_pack"] = 2 if tpu and codec.encode_backend == "device" else 0
-    want["rans_decode_section"] = 1 + codec.num_slices if tpu else 0
+    want["rans_decode_section"] = 1 + codec.y_sections if tpu else 0
     reset_counters(*ops)
-    res, out, enc_s, dec_s = drive(codec, images)
+    with sync_free_decode(codec) if sync_free else contextlib.nullcontext():
+        res, out, enc_s, dec_s = drive(codec, images, betas)
     launches = counters(*ops)
     for h in handles:
         h.remove()
@@ -1335,7 +1400,7 @@ def counted_round_trip(codec, images, label, ops):
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, the shape rules "
                              f"give {want}")
-    return verify(codec, images, res, out, enc_s, dec_s, label), launches, shapes
+    return verify(codec, images, res, out, enc_s, dec_s, label, betas), launches, shapes
 
 
 def recon_parts(module, y_hat, b1, b2, indices=None):
@@ -1465,21 +1530,12 @@ def tiled_round_trip(codec, images, ops, label):
     want, shapes, handles = expected_launch_recorder(codec.module)
     tpu = codec.stream_format == "tpu"
     want["rans_encode_pack"] = 2 if tpu and codec.encode_backend == "device" else 0
-    want["rans_decode_section"] = 1 + codec.num_slices if tpu else 0
-    pipeline = codec._decode_pipeline
-
-    def no_sync(*args, **kwargs):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return pipeline(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    codec._decode_pipeline = no_sync
+    want["rans_decode_section"] = 1 + codec.y_sections if tpu else 0
     reset_counters(*ops)
     try:
-        res, out, _, _ = drive(codec, images)
+        with sync_free_decode(codec):
+            res, out, _, _ = drive(codec, images)
     finally:
-        codec._decode_pipeline = pipeline
         for h in handles:
             h.remove()
     launches = counters(*ops)
@@ -1977,9 +2033,10 @@ def recorded_step(module, ops, run):
     return result, got, shapes
 
 
-def compare_training_gradients(tr, batch, switch, ops):
+def compare_training_gradients(tr, batch, switch, ops, flags=None):
     """Item 13.1: one RD step's gradients with every kernel off and on, the
-    same betas, noise and VQ targets. Returns the worst relative error."""
+    same betas, noise and VQ targets, under the trainer's backend flags or
+    ``flags``. Returns the worst relative error."""
     import torch
     from dc_vic_tpu_torch.codec.ops import Noise
     from dc_vic_tpu_torch.train.steps import rd_losses
@@ -1995,7 +2052,7 @@ def compare_training_gradients(tr, batch, switch, ops):
     grads = {}
 
     def run():
-        with backend_flags(**_TRAIN_FLAGS):
+        with backend_flags(**(flags or _TRAIN_FLAGS)):
             total, _, _ = rd_losses(model, tr.losses, batch, beta_rate, beta_vq, tr.policy,
                                     Noise(torch.Generator(batch.device).manual_seed(1)))
             (total + model.aux_loss()).backward()
@@ -2386,7 +2443,7 @@ def check_evaluation(opt, sd, ops, smi, dev):
             module, ops, lambda: cli.compress_arrays(
                 codec, named, 0, os.path.join(root, "out"), batch_size=EVAL_BATCH,
                 selfcheck=True, decompress=True),
-            rans=(2 * chunks, 2 * chunks * (1 + codec.num_slices)))
+            rans=(2 * chunks, 2 * chunks * (1 + codec.y_sections)))
         compress_s = time.perf_counter() - t
         fakes = np.stack([decoded[n] for n, _ in named])
         if fakes.shape != reals.shape or fakes.dtype != np.uint8:
@@ -2520,6 +2577,237 @@ def check_evaluation(opt, sd, ops, smi, dev):
     return launches, figures
 
 
+# ------------------------------------------- the rest of the model family (item 15)
+
+# the beta FiLM of the dual-beta ELIC transforms: what stage 1_1 cannot carry
+FILM_KEYS = ("encoder.mlp.", "encoder.beta_ft_list.", "decoder.mlp.", "decoder.beta_ft_list.",
+             "decoder.init_fuse.")
+ONE_SECTION = (4, 192, 48, 32)   # y of four 768x512 images without ChARM: one section
+# stage 1_1's gradient comparison: the same cuDNN algorithms in both runs
+DETERMINISTIC = dict(allow_tf32=False, deterministic=True, benchmark=False)
+VARIANT_BETAS = (0.0, 0.0)       # the betas a model that selects no beta pairs is given
+
+
+def check_stage1_1(ops, smi, dev):
+    """Item 15 (a): stage 1_1 of the curriculum at full width, then its
+    hand-off to stage 1_2. The encoder keeps seed 0's weights unscaled:
+    scaled by 0.55, as the codec items have it, stage 1_1's y rounds to 0
+    everywhere, the decoder and the estimator see an all-zero map (no FiLM
+    shifts it, as in stage 1_2), and each of the estimator's eighteen Swin
+    LayerNorms multiplies the gradient by 1 / sqrt(1e-6): past 1e38 it is no
+    longer finite, on the card and on the host CPU alike. The gradients with
+    the kernels off and on are compared under DETERMINISTIC: under the
+    trainer's flags (cuDNN free to choose its algorithms) two runs of one
+    route already differ in the hyperprior's gradients by nearly GRAD_TOL,
+    under DETERMINISTIC each route repeats bit for bit. K2 stays on in both
+    runs: here it runs before the fusion taps and carries no gradient (no
+    Function backward), so all it can change is the operating point, and
+    switched with the others it brought the worst error close to GRAD_TOL,
+    as a near-tie of the VQ targets would (which compare_training_gradients
+    pins for that reason). The comparison holds K3 to K6, the kernels whose
+    backwards the step runs. Returns the
+    step's launches."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.models import (RECON_KERNELS, build_comp_model, init_weights,
+                                         set_recon_kernels)
+    from dc_vic_tpu_torch.ops import attention
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dcvic_stage11_")
+    switch = _KernelSwitch(attention)
+    loaders = []
+    try:
+        _training_images(root)
+        tr = build_trainer(training_opt("1_1", root))
+        if tr.model.use_beta or tr.policy.sample(tr.state.generator, 2) != (None, None):
+            raise AssertionError("stage 1_1 sampled betas")
+        frozen0 = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                   if n.startswith("vq_model.")}
+        loaders.append(tr.train_loader.infinite())
+        loader = loaders[-1]
+        batch = tr._to_device(next(loader)["real_images"])
+        with torch.no_grad():
+            nonzero = float((tr.model.extract_y_hat(batch) != 0).float().mean())
+        if nonzero == 0:
+            raise AssertionError("stage 1_1: y_hat is 0 everywhere, the decoder sees nothing")
+        print(f"stage 1_1 trainer ({type(tr.model.encoder).__name__}, "
+              f"{type(tr.model.decoder).__name__}, f32, random weights from seed 0): "
+              f"{sum(p.numel() for p in tr.model.parameters())} parameters; "
+              f"{nonzero:.2%} of the first batch's y_hat is not 0")
+        worst = compare_training_gradients(
+            tr, batch, lambda module, on: set_recon_kernels(module, RECON_KERNELS if on else ()),
+            ops, DETERMINISTIC)
+        before = {n: p.detach().clone() for n, p in tr.model.named_parameters()
+                  if n.startswith(("encoder.", "decoder."))}
+        off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        torch.cuda.reset_peak_memory_stats()
+        on, launched, _ = timed_steps(tr, loader, switch, ops, True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params = dict(tr.model.named_parameters())
+        for part in ("encoder.", "decoder."):
+            if all(torch.equal(before[n], params[n]) for n in before if n.startswith(part)):
+                raise AssertionError(f"stage 1_1: the {part[:-1]} did not move")
+        moved = [n for n in frozen0 if not torch.equal(frozen0[n], params[n])]
+        if moved:
+            raise AssertionError(f"stage 1_1 moved the frozen VQGAN prior: {moved[:5]}")
+        n11 = tr.state.step
+        tr.save(n11)
+        saved = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        del tr, params, before, frozen0
+        torch.cuda.empty_cache()
+
+        # stage 1_2 boots from it with the shipped knobs
+        opt12 = training_opt("1_2", root, dict(exp="exp1_stage1_1", iter=n11,
+                                                load_optimizer=False, load_scheduler=False,
+                                                strict=False))
+        tr = build_trainer(opt12)
+        init = build_comp_model(opt12, dev).module
+        init_weights(init, torch.Generator(device=dev).manual_seed(int(opt12.get("seed", 0))))
+        booted, fresh = tr.model.state_dict(), init.state_dict()
+        film = sorted(k for k in booted if k.startswith(FILM_KEYS))
+        if set(booted) - set(film) != set(saved):
+            raise AssertionError("stage 1_2 boot: the carried keys are not stage 1_1's")
+        bad = [k for k in saved if not torch.equal(booted[k], saved[k])]
+        bad += [k for k in film if not torch.equal(booted[k], fresh[k])]
+        if bad or not film:
+            raise AssertionError(f"stage 1_2 boot: {bad[:5]} not as carried or initialised")
+        del init, fresh, saved
+        loaders.append(tr.train_loader.infinite())
+        s12, _, _ = timed_steps(tr, loaders[-1], switch, ops, True, n=1)
+        print(f"stage 1_2 booted from stage 1_1's checkpoint at {n11} steps (strict false): "
+              f"{len(booted) - len(film)} tensors carried bit-exactly, {len(film)} beta-FiLM "
+              f"tensors at their initialisation; one 1_2 step {s12[0]:.4f} s")
+        del tr, booted
+        torch.cuda.empty_cache()
+    finally:
+        for it in loaders:
+            it.close()
+        shutil.rmtree(root, ignore_errors=True)
+        switch(torch.nn.Module(), True)
+    warm = lambda secs: float(np.median(secs[1:]))
+    print(f"stage 1_1 RD steps, batch {TRAIN_BATCH} of {TRAIN_CROP}x{TRAIN_CROP}, f32 (host "
+          f"clock, medians of {TRAIN_STEPS - 1} warm steps; {smi}): kernels off "
+          f"{warm(off):.4f} s, on {warm(on):.4f} s ({TRAIN_BATCH / warm(on):.2f} images/s); "
+          f"peak device memory with the kernels on {peak:.2f} GiB; launches per step "
+          f"{launched['forward']}, Function backwards {launched['backward']}; worst gradient "
+          f"error {worst:.3e}; phase {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
+
+def variant_opts():
+    """The two codec models of item 15: config/exp1_stage1_1.yaml's
+    HyperpriorCharmVicModel, and config/dc_vic_patchgan.yaml as a
+    HyperpriorDualCondVicModel (hyper_out_ch 384: the means and scales of
+    192 channels, the widths the JAX package builds for that type)."""
+    from dc_vic_tpu_torch.utils.config import load_config
+    stage11 = load_config(os.path.join(ROOT, "config", "exp1_stage1_1.yaml"))
+    dual = load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml"))
+    dual["model"]["type"] = "HyperpriorDualCondVicModel"
+    dual["subnet"]["hyperdecoder"]["hyper_out_ch"] = 384
+    return {"HyperpriorCharmVicModel": stage11, "HyperpriorDualCondVicModel": dual}
+
+
+def check_variants(ops, flagship, smi, dev):
+    """Item 15 (b): both models' codecs at full width, batch 4 768x512,
+    every reconstruction kernel on, in the compressai format (the ChARM
+    model's chain on the card, the other's on the host CPU) and the tpu
+    format (device backend, lanes 512, decode chain sync-free). Each round
+    trip is bit-exact and its launches are held to the shape rules and to
+    the flagship's (``flagship``: format -> launches): the same K1 to K6,
+    R1 twice per compress, R2 once per y section and once for z. Returns
+    {model/format: launches}."""
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model, init_weights
+    from dc_vic_tpu_torch.tools.workload import scale_encoder, smooth_images
+    images = smooth_images(4, 768, 512)
+    launches = {}
+    for name, opt in variant_opts().items():
+        spec = build_comp_model(opt, recon_kernels=RECON_KERNELS)
+        init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
+        spec.module.load_state_dict(scale_encoder(spec.module.state_dict()))
+        m = spec.module
+        betas = None if spec.selected_beta_rate else VARIANT_BETAS
+        print(f"{name} (use_charm {m.use_charm}, use_beta {m.use_beta}): "
+              f"{sum(p.numel() for p in m.parameters())} parameters"
+              + ("" if betas is None else f"; no beta pairs selected, driven at betas "
+                                          f"{betas}"))
+        codecs = {"compressai": Codec(spec, stream_format="compressai",
+                                      params_backend="accel" if m.use_charm else "cpu"),
+                  "tpu": Codec(spec, encode_backend="device", lanes=512)}
+        for fmt, codec in codecs.items():
+            label = f"{name}, {fmt} format, kernels on, batch 4 768x512"
+            _, got, _ = counted_round_trip(codec, images, label, ops, betas,
+                                           sync_free=fmt == "tpu")
+            want = dict(flagship[fmt])
+            if fmt == "tpu":
+                want["rans_decode_section"] = 1 + (6 if m.use_charm else 1)
+            if got != want:
+                raise AssertionError(f"{label}: launches {got}, the flagship's path gives {want}")
+            res, _, enc, dec = drive(codec, images, betas)
+            launches[f"{name}/{fmt}"] = got
+            print(f"{label}: warm encode {enc:.4f} s, decode {dec:.4f} s, "
+                  f"{float(np.mean([r['bpp'] for r in res])):.4f} bpp ({smi})")
+        del codecs, spec, m
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_one_section(rd, rans_host, dev):
+    """Item 15 (c): R1 and R2 on the y stream of a model without ChARM,
+    one section of 4 x 192 x 48 x 32 symbols, six times the flagship's
+    section: against their plain versions and the host coder (lanes 128
+    and 512, the three symbol mixes; R2's symbols and consumed words also
+    against the host decoder), then R2 timed at lanes 512 beside its
+    dependent chain. Returns the keys this adds to R1's and R2's entries."""
+    import torch
+    from dc_vic_tpu_torch.codec.gaussian import GaussianConditional, get_scale_table
+    y_host = GaussianConditional().build_cdf_table(get_scale_table())
+    table = rd.DeviceCdfTable(y_host, dev)
+    rng = np.random.default_rng(15)
+    B, C, H, W = ONE_SECTION
+    kept = {}
+    for lanes in (128, 512):
+        L = rd.section_lanes(C * H * W, lanes)
+        for mix in RANS_MIXES:
+            sym, idx, words, base, counts = kept[lanes, mix] = _rans_case(
+                rd, rans_host, dev, y_host, table, ONE_SECTION, 1, lanes, mix, rng,
+                f"R1/R2 one y section {list(ONE_SECTION)} ({C * H * W // L} steps), lanes "
+                f"{lanes}, {mix}")
+            words_np = words.cpu().numpy().view(np.uint16)
+            rows = rd.to_stream(idx, L).cpu().numpy()
+            want = rd.to_stream(sym, L).cpu().numpy()
+            for b in range(B):
+                o, n = int(base[b]), int(counts[b])
+                dec, used = rans_host.tpu_decode_stream(words_np[o:o + n], [rows[b]], y_host)
+                if used != n or not np.array_equal(dec[0], want[b]):
+                    raise AssertionError(f"one section, lanes {lanes}, {mix}: the host "
+                                         f"decoder reads other symbols or words, image {b}")
+    print("one y section: R2's symbols and consumed words equal the host decoder's")
+    sym, idx, words, base, counts = kept[512, "no escapes"]
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    L = rd.section_lanes(C * H * W, 512)
+    steps = C * H * W // L
+    r2 = _time_ms(rd.decode_section, words, base, zero, None, idx, ONE_SECTION, 512, table)
+    r1 = _time_ms(rd.encode_pack, sym, idx, 1, 512, table)
+    r2_plain = _time_ms(rd.decode_section_plain, words, base, zero, None,
+                        rd.to_stream(idx, L), table, reps=1)
+    # one step's latency: a single warp (batch 1, 32 lanes) leaves nothing else
+    p1, _, c1, _, _ = rd.encode_pack(sym[:1].contiguous(), idx[:1].contiguous(), 1, 32, table)
+    z1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    r2_step = _time_ms(rd.decode_section, p1[:int(c1[0])].contiguous(), z1, z1, None,
+                       idx[:1].contiguous(), (1, C, H, W), 32, table) / (C * H * W // 32)
+    chain = steps * r2_step
+    print(f"one y section at lanes 512 ({steps} steps): R2 kernel {r2:.4f} ms, plain "
+          f"{r2_plain:.1f} ms, dependent chain {chain:.4f} ms ({chain / r2:.0%} of the "
+          f"kernel's time); R1 over the whole stream {r1:.4f} ms")
+    return ({"ms_one_section_lanes512": r1},
+            {"ms_one_section_lanes512": r2, "plain_ms_one_section_lanes512": r2_plain,
+             "chain_ms_one_section_lanes512": chain, "steps_one_section_lanes512": steps})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2632,15 +2920,6 @@ def main():
         raise AssertionError("a batch-4 stream decoded as batch 2 did not raise")
     # the decode chain must not wait for the card: PyTorch raises on any
     # synchronising call while the debug mode is "error"
-    c = tpu["device", 128]
-    pipeline = c._decode_pipeline
-
-    def no_sync(*args, **kwargs):
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return pipeline(*args, **kwargs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
     probe = torch.ones(1, device=dev)
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2651,9 +2930,8 @@ def main():
         raise AssertionError("the sync debug mode let a device-to-host copy through")
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    c._decode_pipeline = no_sync
-    out_tpu = c.decompress(strings["device", 128])
-    c._decode_pipeline = pipeline
+    with sync_free_decode(tpu["device", 128]):
+        out_tpu = tpu["device", 128].decompress(strings["device", 128])
     print("tpu format: the decode chain ran with torch.cuda.set_sync_debug_mode('error'): "
           "no host synchronisation between the upload and the final fetch")
     pending = tpu["device", 128].decompress(strings["host", 128], defer_fetch=True)
@@ -2721,6 +2999,19 @@ def main():
     del deployment_sd
     torch.cuda.empty_cache()
 
+    t15 = time.perf_counter()
+    launches_11 = check_stage1_1(ops, smi, dev)
+    torch.cuda.empty_cache()
+    launches_var = check_variants(ops, {"compressai": launches_c, "tpu": launches}, smi, dev)
+    torch.cuda.empty_cache()
+    r1_one, r2_one = check_one_section(rans_device, rans_host, dev)
+    r1.update(r1_one)
+    r2.update(r2_one)
+    print(f"R2 over the one y section of a model without ChARM: "
+          f"{r2['ms_one_section_lanes512']:.4f} ms, against six sections of the flagship's "
+          f"stream {6 * r2['ms_lanes512']:.4f} ms (six launches of {r2['ms_lanes512']:.4f} ms)")
+    print(f"item 15 took {time.perf_counter() - t15:.1f} s")
+
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -2729,6 +3020,10 @@ def main():
         k.update(training["kernels"].get(k["name"], {}))
         for phase, table in launches_eval.items():
             k[f"launches_eval_{phase.replace(' ', '_')}"] = table[k["name"]]
+        for path, table in launches_var.items():
+            k[f"launches_{path.replace('/', '_')}"] = table[k["name"]]
+        k["train_launches_stage1_1_step"] = launches_11["forward"][k["name"]]
+        k["train_backwards_stage1_1_step"] = launches_11["backward"].get(k["name"], 0)
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

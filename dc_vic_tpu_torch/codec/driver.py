@@ -3,9 +3,12 @@ dc_vic_tpu/codec/driver.py::Codec, single device).
 
 compress: image -> encode_front on the device -> the entropy-parameter chain
 (hyper_decode, charm_slice_params, then charm_symbolize and
-charm_decode_step per slice) on the device -> entropy coding. decompress
-runs the same chain with symbols read back from the streams, so both sides
-derive their CDF indexes from identical computations.
+charm_decode_step per slice; without ChARM y_means_indexes, y_symbolize and
+y_dequantize over the whole of y) on the device -> entropy coding.
+decompress runs the same chain with symbols read back from the streams, so
+both sides derive their CDF indexes from identical computations. A model
+without beta conditioning ignores the betas; the header records the
+quality all the same.
 
 Two stream formats; decode detects the format from the header, so one Codec
 reads both:
@@ -13,7 +16,8 @@ reads both:
 * "tpu" (default): the interleaved 32-bit rANS format of
   ``ops/rans_device.py``. Decode runs wholly on the device: z decode ->
   hyper_decode -> per slice (section decode -> charm_decode_step) ->
-  reconstruction are queued on one stream, cursors and lane states stay on
+  reconstruction are queued on one stream (a y stream has one section per
+  ChARM slice, or one section without ChARM), cursors and lane states stay on
   the device, and the image comes back with the consumed-word counts in one
   fetch: no host synchronisation inside the chain. Encode is on the device
   too with ``encode_backend="device"`` (symbols never leave it), or through
@@ -137,36 +141,47 @@ def _join(parts: List[torch.Tensor]) -> torch.Tensor:
 
 class _ParamChain:
     """The entropy-parameter chain both sides run on the z symbols:
-    hyper_decode, the first slice's parameters, then one charm_decode_step
-    per slice. It runs over the whole batch, or with ``per_image`` (portable
-    streams) once per image at the batch-1 shape; either way the caller sees
-    batch planes: ``indexes()`` of the slice to come, ``step`` with that
-    slice's symbols, ``y_hat()`` and ``z_hat()`` at the end. Nothing here
-    waits for the device. ``chain``: the model, or its ``EntropyChain``
-    copy on the CPU; it runs where its operands lie."""
+    hyper_decode, the first section's parameters, then one step per section
+    of y: a ChARM slice (charm_decode_step), or without ChARM the whole of y
+    (y_means_indexes, then y_dequantize). It runs over the whole batch, or
+    with ``per_image`` (portable streams) once per image at the batch-1
+    shape; either way the caller sees batch planes: ``indexes()`` of the
+    section to come, ``step`` with that section's symbols, ``y_hat()`` and
+    ``z_hat()`` at the end. Nothing here waits for the device. ``chain``:
+    the model, or its ``EntropyChain`` copy on the CPU; it runs where its
+    operands lie."""
 
     def __init__(self, chain, z_sym: torch.Tensor, y_plane: Tuple[int, int],
                  per_image: bool):
         self.m, self.per_image = chain, per_image
+        self.charm = chain.num_slices > 0
         self.hyper = [chain.hyper_decode(z) for z in _split(z_sym, per_image)]
         n = z_sym.shape[0] // len(self.hyper)
         self.prevs = [torch.zeros((n, 0) + tuple(y_plane), dtype=torch.float32,
                                   device=z_sym.device) for _ in self.hyper]
-        self.params = [chain.charm_slice_params(0, ho, prev)
+        self.params = [chain.charm_slice_params(0, ho, prev) if self.charm
+                       else chain.y_means_indexes(ho)
                        for (ho, _), prev in zip(self.hyper, self.prevs)]
 
     def indexes(self) -> torch.Tensor:
         return _join([idx for _, idx in self.params])
 
     def symbolize(self, i: int, ys: List[torch.Tensor]) -> torch.Tensor:
-        """Encode side: slice i's symbols of y (split as the chain is)."""
-        return _join([self.m.charm_symbolize(i, y, mu)
+        """Encode side: section i's symbols of y (split as the chain is)."""
+        return _join([self.m.charm_symbolize(i, y, mu) if self.charm
+                      else self.m.y_symbolize(y, mu)
                       for y, (mu, _) in zip(ys, self.params)])
 
     def step(self, i: int, sym: torch.Tensor) -> None:
+        parts = _split(sym, self.per_image)
+        if not self.charm:
+            self.prevs = [self.m.y_dequantize(part, mu)
+                          for part, (mu, _) in zip(parts, self.params)]
+            self.params = [(None, None)] * len(parts)
+            return
         steps = [self.m.charm_decode_step(i, ho, prev, part, mu)
                  for (ho, _), prev, part, (mu, _) in zip(
-                     self.hyper, self.prevs, _split(sym, self.per_image), self.params)]
+                     self.hyper, self.prevs, parts, self.params)]
         self.prevs = [s[0] for s in steps]
         self.params = [s[1:] for s in steps]
 
@@ -282,7 +297,9 @@ class Codec:
         self.module.scale_boundaries(self.device)
         self._chain.scale_boundaries(self._chain_device)
         self.num_slices = self.module.num_slices
-        self.bottleneck_y = self.module.context_model.slice_ch * self.num_slices
+        self.bottleneck_y = self.module.bottleneck_y
+        # sections of a y stream: one per ChARM slice, or one
+        self.y_sections = max(1, self.num_slices)
         self.bottleneck_z = self.module.entropy_model_z.channels
         # the numeric configuration a tpu-format header records and a
         # decoder must share
@@ -326,9 +343,9 @@ class Codec:
 
     def _tpu_y_sections(self, Cy: int) -> List[Tuple[int, int]]:
         """Channel ranges of the y stream's sections in decode order: one
-        per ChARM slice."""
-        sc = Cy // self.num_slices
-        return [(s * sc, (s + 1) * sc) for s in range(self.num_slices)]
+        per ChARM slice, or all of y without ChARM."""
+        sc = Cy // self.y_sections
+        return [(s * sc, (s + 1) * sc) for s in range(self.y_sections)]
 
     # ------------------------------------------------------- split paths
     def _chunks(self, tiles: List[torch.Tensor]):
@@ -420,7 +437,7 @@ class Codec:
         chain = _ParamChain(self._chain, z_sym, y.shape[2:], self.portable)
         ys = _split(y, self.portable)
         syms, idxs = [], []
-        for i in range(self.num_slices):
+        for i in range(self.y_sections):
             idxs.append(chain.indexes())
             syms.append(chain.symbolize(i, ys))
             chain.step(i, syms[-1])
@@ -433,7 +450,7 @@ class Codec:
         [6, B]: y words, z words, largest per-section y escapes, z escapes,
         y tier-2 escapes, z tier-2 escapes."""
         py, y_off, y_counts, y_esc, y_big = rd.encode_pack(
-            y_sym, y_idx, self.num_slices, self.lanes, self._dtable("y"))
+            y_sym, y_idx, self.y_sections, self.lanes, self._dtable("y"))
         pz, z_off, z_counts, z_esc, z_big = rd.encode_pack(
             z_sym, None, 1, self.lanes, self._dtable("z"))
         stats = torch.stack([y_counts, z_counts, y_esc.max(dim=1).values,
@@ -545,9 +562,9 @@ class Codec:
         B, H, W = handle["B"], handle["H"], handle["W"]
         tpu = handle["fmt"] == "tpu_host"
 
-        def slice_major(planes):  # per image: slice, then (h, w, c) order
+        def slice_major(planes):  # per image: section, then (h, w, c) order
             return torch.stack([p.permute(0, 2, 3, 1) for p in planes], dim=1) \
-                .reshape(B, self.num_slices, -1).to(torch.int32).cpu().numpy()
+                .reshape(B, self.y_sections, -1).to(torch.int32).cpu().numpy()
         y_sym, y_idx = slice_major(out["syms"]), slice_major(out["idxs"])
         z_np = _nhwc(out["z_sym"]).astype(np.int32).reshape(B, -1)
         y_bits, z_bits = out["y_bits"].cpu().numpy(), out["z_bits"].cpu().numpy()
@@ -563,7 +580,7 @@ class Codec:
                     range(B)))
                 y_enc = list(pool.map(lambda b: tpu_encode_sections(
                     [(y_sym[b, s].reshape(-1, L), y_idx[b, s].reshape(-1, L))
-                     for s in range(self.num_slices)], self.y_table, True), range(B)))
+                     for s in range(self.y_sections)], self.y_table, True), range(B)))
             else:
                 z_strs = list(pool.map(lambda b: encode_with_indexes(
                     z_np[b], z_idx, self.z_table), range(B)))
@@ -656,10 +673,11 @@ class Codec:
         return first
 
     def _decode_latents(self, z_strs, y_strs, H: int, W: int, portable: bool = False):
-        """compressai format: entropy-decode z and the ChARM slices of y on
-        the host, the parameter chain where ``params_backend`` puts it;
-        returns (y_hat, z_hat) there. The symbol decode is per image either
-        way; ``portable`` runs the parameter chain per image too."""
+        """compressai format: entropy-decode z and the sections of y (the
+        ChARM slices, or y whole) on the host, the parameter chain where
+        ``params_backend`` puts it; returns (y_hat, z_hat) there. The symbol
+        decode is per image either way; ``portable`` runs the parameter
+        chain per image too."""
         B = len(z_strs)
         _, _, zH, zW, yH, yW = _geometry(H, W)
         Cz = self.bottleneck_z
@@ -671,7 +689,7 @@ class Codec:
                 .reshape(zH, zW, Cz), z_strs)))
             chain = _ParamChain(self._chain, _nchw_tensor(z_np, dev), (yH, yW), portable)
             decoders = [RansDecoder(s) for s in y_strs]
-            for i in range(self.num_slices):
+            for i in range(self.y_sections):
                 idx_np = _nhwc(chain.indexes()).astype(np.int32)
                 sc = idx_np.shape[-1]
                 sym = np.stack(list(pool.map(
@@ -683,7 +701,7 @@ class Codec:
     def _tpu_caps(self, B: int, yH: int, yW: int, zH: int, zW: int, lanes: int):
         """Most words the y and z buffers of a batch can hold."""
         yN, zN = yH * yW * self.bottleneck_y, zH * zW * self.bottleneck_z
-        Ly = rd.section_lanes(yN // self.num_slices, lanes)
+        Ly = rd.section_lanes(yN // self.y_sections, lanes)
         return (B * rd.word_capacity(yN, Ly),
                 B * rd.word_capacity(zN, rd.section_lanes(zN, lanes)))
 
@@ -708,7 +726,7 @@ class Codec:
                          b1, b2, tier2: bool = True, escfree: bool = False,
                          portable: bool = False) -> Dict:
         """tpu-format decode as one chain on the device: z section decode ->
-        hyper_decode -> per slice (y section decode -> charm_decode_step) ->
+        hyper_decode -> per y section (section decode -> the chain's step) ->
         optional reconstruction (tiled where ``_tiled`` says so). Cursors and lane
         states stay on the device and nothing here waits for it. With
         ``portable`` the float chain runs per image (``_split``) while the
@@ -724,9 +742,9 @@ class Codec:
         # the tpu format's parameters were derived on the model's device
         # (``params_backend`` places only the compressai format's chain)
         chain = _ParamChain(self.module, z_sym, (yH, yW), portable)
-        sc = self.bottleneck_y // self.num_slices
+        sc = self.bottleneck_y // self.y_sections
         cursor, state = zero, None
-        for i in range(self.num_slices):
+        for i in range(self.y_sections):
             sym, cursor, state = rd.decode_section(
                 y_words, y_base, cursor, state, chain.indexes(), (B, sc, yH, yW), lanes,
                 self._dtable("y"), **flags)

@@ -1,5 +1,5 @@
 """Model factory: reference-compatible YAML config -> torch model + codec
-spec (port of dc_vic_tpu/models/__init__.py, flagship model family only)."""
+spec (port of dc_vic_tpu/models/__init__.py, the DCVICModel family)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,6 +22,18 @@ from .vqgan import VQModel, VQResnetBlock
 
 _DROP = {"type"}
 
+# the model types and their flags (use_charm, use_beta): the reference reads
+# them from the name
+MODEL_TYPES = {
+    "HyperpriorCharmDualCondVicModel": (True, True),
+    "HyperpriorDualCondVicModel": (False, True),
+    "HyperpriorCharmVicModel": (True, False),
+    "HyperpriorVicModel": (False, False),
+}
+# the encoder and decoder keys of the dual-beta conditioning, dropped for
+# the models without it
+_BETA_KEYS = ("max_beta_1", "max_beta_2", "cond_ch", "L", "use_pi", "include_x")
+
 # build_comp_model's recon_kernels: each name switches on one family of
 # reconstruction kernels, the JAX package's three opt-ins one for one.
 RECON_KERNELS = ("gn", "conv3x3", "fused_resblock")
@@ -37,12 +49,14 @@ def _clean(cfg, drop=()) -> dict:
 @dataclasses.dataclass
 class CompModelSpec:
     """A built model plus the host-side codec metadata (quality-level beta
-    tables; the largest beta_rate, the rate search's bound). The numeric configuration (``codec_dtype``,
+    tables; the largest betas, the rate search's bound, 0 for a model
+    without beta conditioning). The numeric configuration (``codec_dtype``,
     ``entropy_precision``) is carried by ``module``."""
     module: DCVICModel
     selected_beta_rate: Optional[List[float]] = None
     selected_beta_vq: Optional[List[float]] = None
     max_beta_rate: float = 3.0
+    max_beta_vq: float = 3.5
 
     def quality_betas(self, quality_ind: int):
         if self.selected_beta_rate is None:
@@ -113,8 +127,9 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
     if cd not in (None, "bfloat16", "float32"):
         raise ValueError(f"codec_dtype={cd!r}: expected 'bfloat16' or 'float32'/null")
     model_cfg = dict(opt["model"])
-    if model_cfg.get("type") != "HyperpriorCharmDualCondVicModel":
+    if model_cfg.get("type") not in MODEL_TYPES:
         raise NotImplementedError(f"model type {model_cfg.get('type')!r} is not ported")
+    use_charm, use_beta = MODEL_TYPES[model_cfg["type"]]
     if model_cfg.get("enc_vq_input", "onehot_indices") != "onehot_indices":
         raise NotImplementedError("only enc_vq_input=onehot_indices is ported")
     if model_cfg.get("enc_input_vq_recon", False) or opt.get("convert_img_range_to_01", False):
@@ -132,13 +147,19 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
     enc_kw = _clean(enc, drop=("input_feat_ch", "proj_init", "proj_init_std"))
     dec_kw = _clean(dec, drop=("in_ch",))
     dec_kw["fusion_layer_dict"] = dict(dec_kw.get("fusion_layer_dict") or {})
+    # a null max_beta in a base config is "set by the experiment config"
     for kw in (enc_kw, dec_kw):
         for k in ("max_beta_1", "max_beta_2"):
-            if kw.get(k, 0) is None:
-                raise ValueError(f"{k} must be set for dual-cond models")
-    ctx = _clean(sub.get("context_model"), drop=("bottleneck_y",))
-    hyper_out_ch = dict(sub["hyperdecoder"]).get("hyper_out_ch", 256)
-    ctx.setdefault("hyper_out_ch", hyper_out_ch)
+            if k in kw and kw[k] is None:
+                if use_beta:
+                    raise ValueError(f"{k} must be set for dual-cond models")
+                kw.pop(k)
+        if not use_beta:
+            for k in _BETA_KEYS:
+                kw.pop(k, None)
+    if use_charm:
+        ctx = _clean(sub.get("context_model"), drop=("bottleneck_y",))
+        ctx.setdefault("hyper_out_ch", dict(sub["hyperdecoder"]).get("hyper_out_ch", 256))
     est = _clean(sub.get("vq_estimator"),
                  drop=("in_ch", "input_resolution", "n_embed", "embed_dim"))
     fusion = dict(sub.get("fusion_module") or {})
@@ -151,22 +172,27 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
         scale_bound=dict(sub.get("entropy_model_y") or {}).get("scale_bound", 0.11))
 
     with torch.device(device):
+        # built in the order of DCVICModel's arguments (the global RNG's
+        # draws of the default initialisers follow it)
+        encoder = ENCODER_REGISTRY.get(enc["type"])(input_feat_ch=feat_ch, **enc_kw)
+        decoder = DECODER_REGISTRY.get(dec["type"])(in_ch=bottleneck_y, **dec_kw)
+        hyperencoder = HYPERENCODER_REGISTRY.get(sub["hyperencoder"]["type"])(
+            in_ch=bottleneck_y, **_clean(sub["hyperencoder"], drop=("bottleneck_y",)))
+        hyperdecoder = HYPERDECODER_REGISTRY.get(sub["hyperdecoder"]["type"])(
+            in_ch=bottleneck_z, **_clean(sub["hyperdecoder"], drop=("bottleneck_z",)))
+        context_model = CONTEXTMODEL_REGISTRY.get(sub["context_model"]["type"])(
+            bottleneck_y=bottleneck_y, gaussian=gaussian, **ctx) if use_charm else None
         module = DCVICModel(
-            encoder=ENCODER_REGISTRY.get(enc["type"])(input_feat_ch=feat_ch, **enc_kw),
-            decoder=DECODER_REGISTRY.get(dec["type"])(in_ch=bottleneck_y, **dec_kw),
-            hyperencoder=HYPERENCODER_REGISTRY.get(sub["hyperencoder"]["type"])(
-                in_ch=bottleneck_y, **_clean(sub["hyperencoder"], drop=("bottleneck_y",))),
-            hyperdecoder=HYPERDECODER_REGISTRY.get(sub["hyperdecoder"]["type"])(
-                in_ch=bottleneck_z, **_clean(sub["hyperdecoder"], drop=("bottleneck_z",))),
-            context_model=CONTEXTMODEL_REGISTRY.get(sub["context_model"]["type"])(
-                bottleneck_y=bottleneck_y, gaussian=gaussian, **ctx),
+            encoder=encoder, decoder=decoder, hyperencoder=hyperencoder,
+            hyperdecoder=hyperdecoder, context_model=context_model,
             vq_estimator=VQ_ESTIMATOR_REGISTRY.get(sub["vq_estimator"]["type"])(
                 in_ch=dec_kw.get("main_ch", 192), n_embed=n_embed,
                 embed_dim=embed_dim, **est),
             vq_model=VQModel(n_embed, embed_dim, dict(vq.get("ddconfig") or {})),
             fusion_module=FusionModule(sched),
             entropy_model_z=EntropyBottleneck(bottleneck_z),
-            gaussian=gaussian, n_embed=n_embed, codec_dtype=cd, entropy_precision=ep,
+            gaussian=gaussian, n_embed=n_embed, bottleneck_y=bottleneck_y,
+            use_beta=use_beta, codec_dtype=cd, entropy_precision=ep,
             gumbel_sampling=model_cfg.get("gumbel_sampling", False))
     module.to(device)  # buffers made from numpy start on the CPU
     if cd == "bfloat16":
@@ -177,7 +203,8 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
         module=module,
         selected_beta_rate=model_cfg.get("selected_beta_rate"),
         selected_beta_vq=model_cfg.get("selected_beta_vq"),
-        max_beta_rate=enc_kw.get("max_beta_1", 3.0))
+        max_beta_rate=enc_kw.get("max_beta_1", 3.0) if use_beta else 0.0,
+        max_beta_vq=enc_kw.get("max_beta_2", 3.5) if use_beta else 0.0)
 
 
 @torch.no_grad()

@@ -47,6 +47,38 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def balle18_hyperprior_state_dict(flax_params) -> Dict[str, np.ndarray]:
+    """The JAX package's Balle18 hyperprior parameters -> the port's keys.
+
+    Its flax children are anonymous (``hyperencoder/Conv_0..2`` and
+    ``hyperdecoder/DeconvTorch_0..1, Conv_0``, each wrapping a ``Conv_0``),
+    names the JAX package's own path map reads as the Minnen'20 towers' (a
+    deconv would get the conv layout), so they are mapped here: the model's
+    parameter tree (with or without its ``params`` level, leaves as numpy)
+    -> ``hyperencoder.conv{1,2,3}`` and ``hyperdecoder.conv{1,2,3}`` (conv1
+    and conv2 transposed convs). Only the Balle18 modules in the tree give
+    keys."""
+    tree = flax_params.get("params", flax_params)
+    names = {"hyperencoder": {"Conv_0": "conv1", "Conv_1": "conv2", "Conv_2": "conv3"},
+             "hyperdecoder": {"DeconvTorch_0": "conv1", "DeconvTorch_1": "conv2",
+                              "Conv_0": "conv3"}}
+    out = {}
+    for root, children in names.items():
+        sub = tree.get(root, {})
+        if not set(sub) <= set(children) or not sub:
+            continue                                   # not a Balle18 module
+        for child, name in children.items():
+            leaves = sub[child]["Conv_0"]
+            w = np.asarray(leaves["kernel"])           # HWIO
+            if child.startswith("DeconvTorch"):        # a correlation over the dilated input
+                w = np.transpose(w, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            else:
+                w = np.transpose(w, (3, 2, 0, 1))
+            out[f"{root}.{name}.weight"] = np.ascontiguousarray(w)
+            out[f"{root}.{name}.bias"] = np.asarray(leaves["bias"])
+    return out
+
+
 def discriminator_state_dict(flax_params) -> Dict[str, np.ndarray]:
     """The JAX package's PatchGAN discriminator parameters (the nested dict
     of ``disc.init``, with or without its ``params`` level, leaves as numpy)

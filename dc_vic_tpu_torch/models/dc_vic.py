@@ -1,11 +1,19 @@
 """The DC-VIC composite model (port of dc_vic_tpu/models/dc_vic.py).
 
+One class covers the model family through two flags, as the reference's
+does: ``use_beta`` (dual beta_rate / beta_vq FiLM conditioning of the ELIC
+transforms; without it the betas are ignored) and ``use_charm`` (the ChARM
+context model over y's channel slices; without it y's means and scales come
+from the hyper output directly, means first). ``build_comp_model`` sets them
+from the model type's name.
+
 The training forward (``forward``, ``estimate_entropy``, ``aux_loss``) and
 the codec's methods live on one class. The codec drives the codec methods;
 the encoder derives its entropy parameters through the same methods the
 decoder calls (hyper_decode, charm_slice_params, charm_decode_step), so with
 deterministic kernels both sides compute bitwise identical mu and CDF
-indexes. Tensors are NCHW.
+indexes (a model without ChARM: y_means_indexes, y_dequantize). Tensors are
+NCHW.
 
 Numeric configuration. ``codec_dtype`` "bfloat16" puts the conv stacks whose
 outputs never have to repeat between two runs of the chain (VQGAN encode,
@@ -89,9 +97,9 @@ class EntropyChainMethods:
     run it: ``DCVICModel`` and ``EntropyChain``, its f32 copy on another
     device. Both sides of the codec call these methods, so with
     deterministic kernels they derive bitwise identical mu and CDF indexes.
-    Reads ``hyperdecoder``, ``context_model``, ``entropy_model_z``,
-    ``gaussian``, ``num_slices``, ``entropy_precision``, ``_scale_table``
-    and ``_index_boundaries``."""
+    Reads ``hyperdecoder``, ``context_model`` (None without ChARM),
+    ``entropy_model_z``, ``gaussian``, ``num_slices`` (0 without ChARM),
+    ``entropy_precision``, ``_scale_table`` and ``_index_boundaries``."""
 
     @contextlib.contextmanager
     def _entropy_convs(self):
@@ -134,6 +142,20 @@ class EntropyChainMethods:
         """CDF rows of the given scales."""
         return self.gaussian.build_indexes(sigma, self.scale_boundaries(sigma.device))
 
+    def y_means_indexes(self, hyper_out):
+        """Without ChARM: (means, CDF indexes uint8) of y from the hyper
+        output, whose channels are the means, then the scales."""
+        means, sigma = _row_major(hyper_out).chunk(2, dim=1)
+        return _row_major(means), self.y_indexes(sigma).to(torch.uint8)
+
+    def y_symbolize(self, y, means):
+        """Without ChARM: clip(round(y - means)) as int16."""
+        return _row_major(self.gaussian.quantize_symbols(y, means).to(torch.int16))
+
+    def y_dequantize(self, symbols, means):
+        """Without ChARM: y_hat from the symbols and the means."""
+        return self.gaussian.dequantize(_row_major(symbols).to(torch.int32), means)
+
     def charm_slice_params(self, slice_ind: int, hyper_out, y_hat_prev):
         """(mu, CDF indexes uint8) of one slice."""
         with self._entropy_convs():
@@ -158,19 +180,24 @@ class EntropyChainMethods:
 
 
 class DCVICModel(EntropyChainMethods, nn.Module):
-    """HyperpriorCharmDualCondVicModel: dual-beta ELIC transforms, VQGAN
-    prior, Minnen'20 hyperprior and ChARM context model."""
+    """The DCVICModel family: ELIC transforms (dual-beta FiLM with
+    ``use_beta``), VQGAN prior, a hyperprior and, unless ``context_model``
+    is None, the ChARM context model."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  hyperencoder: nn.Module, hyperdecoder: nn.Module,
-                 context_model: nn.Module, vq_estimator: nn.Module,
+                 context_model: Optional[nn.Module], vq_estimator: nn.Module,
                  vq_model: VQModel, fusion_module: FusionModule,
                  entropy_model_z: EntropyBottleneck,
                  gaussian: GaussianConditional, n_embed: int = 256,
+                 bottleneck_y: int = 192, use_beta: bool = True,
                  codec_dtype: Optional[str] = None,
                  entropy_precision: Optional[str] = "high",
                  gumbel_sampling: bool = False):
         super().__init__()
+        self.use_beta = use_beta
+        self.use_charm = context_model is not None
+        self.bottleneck_y = bottleneck_y
         self.codec_dtype = codec_dtype
         self.gumbel_sampling = gumbel_sampling
         self.entropy_precision = entropy_precision
@@ -185,7 +212,7 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         self.entropy_model_z = entropy_model_z
         self.gaussian = gaussian
         self.n_embed = n_embed
-        self.num_slices = context_model.num_slices
+        self.num_slices = context_model.num_slices if self.use_charm else 0
         self._scale_table = get_scale_table()
         self._index_boundaries = {}   # device -> the scale table's boundaries there
 
@@ -211,20 +238,24 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         [B, D, h8, w8] (the rate search's precomputed-token path)."""
         return self.vq_model.quantize.lookup(indices)
 
-    def comp_encode(self, x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq):
+    def comp_encode(self, x, gt_vq_latent, gt_vq_indices, beta_rate=None, beta_vq=None):
+        """Image and VQ codes -> y f32; the betas only where ``use_beta``."""
         onehot = F.one_hot(gt_vq_indices.long(), self.n_embed).permute(0, 3, 1, 2)
         feat = torch.cat([gt_vq_latent, onehot.to(gt_vq_latent.dtype)], dim=1)
-        return self.encoder(x, feat, beta_rate, beta_vq).float()
+        if self.use_beta:
+            return self.encoder(x, feat, beta_rate, beta_vq).float()
+        return self.encoder(x, feat).float()
 
     # ------------------------------------------------------- codec stages
-    def encode_front(self, x, beta_rate, beta_vq):
+    def encode_front(self, x, beta_rate=None, beta_vq=None):
         """Encode stage 1: image -> (y f32, z symbols int16). Everything after
         it is recomputed by the decoder through the methods below."""
         x = to_model_range(x)
         gt_vq_latent, gt_vq_indices = self.vq_encode(x)
         return self.encode_front_from_vq(x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq)
 
-    def encode_front_from_vq(self, x, gt_vq_latent, gt_vq_indices, beta_rate, beta_vq):
+    def encode_front_from_vq(self, x, gt_vq_latent, gt_vq_indices, beta_rate=None,
+                             beta_vq=None):
         """encode_front with the VQ stage done already (the >1024 px split
         path)."""
         x = to_model_range(x)
@@ -234,14 +265,17 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         return y, z_sym.to(torch.int16)
 
     # -------------------------------------------------------------- decode
-    def decode_from_y_hat(self, y_hat, beta_rate, beta_vq, w: float = 1.0,
+    def decode_from_y_hat(self, y_hat, beta_rate=None, beta_vq=None, w: float = 1.0,
                           noise: Optional[Noise] = None, use_gumbel: bool = False):
         """y_hat -> (image [-1, 1] f32, vq_latent_pred, vq_logits,
         vq_indices). y_hat comes in f32; the decoder's first conv casts it
         to the codec dtype. With ``use_gumbel`` and the model's
         ``gumbel_sampling``, the decoder reads the codebook mixed by a
         Gumbel softmax of the logits instead of the argmax codewords."""
-        feat, cond_feats = self.decoder.get_feats(y_hat, beta_rate, beta_vq)
+        if self.use_beta:
+            feat, cond_feats = self.decoder.get_feats(y_hat, beta_rate, beta_vq)
+        else:
+            feat, cond_feats = self.decoder.get_feats(y_hat)
         pred_embed, logits = self.vq_estimator(feat)
         indices = torch.argmax(logits, dim=1)
         if use_gumbel and self.gumbel_sampling:
@@ -256,7 +290,7 @@ class DCVICModel(EntropyChainMethods, nn.Module):
                                      cond_feats, w)
         return fake.float(), pred_embed, logits, indices
 
-    def reconstruct_uint8(self, y_hat, beta_rate, beta_vq, w: float = 1.0):
+    def reconstruct_uint8(self, y_hat, beta_rate=None, beta_vq=None, w: float = 1.0):
         """y_hat -> uint8 image [B, 3, H, W]."""
         fake, *_ = self.decode_from_y_hat(y_hat, beta_rate, beta_vq, w)
         fake = torch.clamp(fake, -1.0, 1.0)
@@ -266,20 +300,25 @@ class DCVICModel(EntropyChainMethods, nn.Module):
     def estimate_entropy(self, y, is_train: bool, noise: Optional[Noise] = None) -> Dict:
         """y -> the quantized codes, the latents and the likelihoods of y and
         z, training (noise, straight-through rounds) or eval (hard rounds);
-        ``q_likelihoods`` are those of the hard-rounded codes either way."""
+        ``q_likelihoods`` are those of the hard-rounded codes either way.
+        Without ChARM the Gaussian reads the hyper output as it is."""
         z = self.hyperencoder(y).float()
         z_hat, z_lik = self.entropy_model_z(z, is_train, noise)
         _, z_q_lik = self.entropy_model_z(z.detach(), False)
         with self._entropy_convs():
             hyper_out = self.hyperdecoder(z_hat)
-            y_hat, y_lik, y_q_lik = self.context_model(
-                y, hyper_out, is_train, noise, calc_q_likelihood=True)
+            if self.use_charm:
+                y_hat, y_lik, y_q_lik = self.context_model(
+                    y, hyper_out, is_train, noise, calc_q_likelihood=True)
+        if not self.use_charm:
+            y_hat, y_lik = self.gaussian(y, hyper_out, is_train, noise)
+            _, y_q_lik = self.gaussian(y.detach(), hyper_out.detach(), False)
         return dict(quantized_code=dict(y=y_hat, z=z_hat),
                     latent_code=dict(y=y, z=z),
                     likelihoods=dict(y=y_lik, z=z_lik),
                     q_likelihoods=dict(y=y_q_lik, z=z_q_lik))
 
-    def forward(self, x, beta_rate, beta_vq, is_train: bool = True,
+    def forward(self, x, beta_rate=None, beta_vq=None, is_train: bool = True,
                 noise: Optional[Noise] = None, fix_entropy_models: bool = False,
                 w: float = 1.0) -> Dict:
         """The training (and eval) forward: x NCHW in [-1, 1], padded to a
@@ -320,7 +359,7 @@ class DCVICModel(EntropyChainMethods, nn.Module):
             **entropy)
 
     @torch.no_grad()
-    def extract_y_hat(self, x, beta_rate, beta_vq):
+    def extract_y_hat(self, x, beta_rate=None, beta_vq=None):
         """Encode-only eval y_hat, without reconstruction (the
         discriminator's y_hat condition for held-out real images)."""
         gt_vq_latent, gt_vq_indices = self.vq_encode(x)
@@ -328,7 +367,7 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         return self.estimate_entropy(y, is_train=False)["quantized_code"]["y"]
 
     @torch.no_grad()
-    def encode_deterministic(self, x, beta_rate, beta_vq,
+    def encode_deterministic(self, x, beta_rate=None, beta_vq=None,
                              include_latents: bool = False) -> Dict:
         """Image (uint8, or float in [-1, 1]) -> symbol planes and per-image
         bit estimates in one pass: z and y symbols (int16), y CDF indexes
@@ -344,7 +383,13 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         z_hat = self.entropy_model_z.dequantize(z_sym)
         with self._entropy_convs():
             hyper_out = self.hyperdecoder(z_hat)
-            y_sym, sigma, y_hat, y_lik = self.context_model.compress_forward(y, hyper_out)
+            if self.use_charm:
+                y_sym, sigma, y_hat, y_lik = self.context_model.compress_forward(y, hyper_out)
+        if not self.use_charm:
+            means, sigma = hyper_out.chunk(2, dim=1)
+            y_sym = self.gaussian.quantize_symbols(y, means)
+            y_hat = self.gaussian.dequantize(y_sym, means)
+            _, y_lik = self.gaussian(y, hyper_out, False)
         _, z_lik = self.entropy_model_z(z, False)
         y_idx = self.y_indexes(sigma)
         y_packed = ((y_idx << 10) | (torch.clamp(y_sym, -512, 511) + 512)).to(torch.int16)
@@ -373,18 +418,20 @@ class DCVICModel(EntropyChainMethods, nn.Module):
 
 class EntropyChain(EntropyChainMethods, nn.Module):
     """f32 copies, on the CPU, of exactly the modules the entropy chain
-    reads (hyperdecoder, context model, z bottleneck; the Gaussian model is
-    parameter-free and shared). The codec's ``params_backend="cpu"`` runs
-    the chain on this copy, so that a stream's entropy parameters come from
-    the CPU on both sides whatever card encoded it. The model's own
-    submodules, and with them its state-dict keys, stay where they are."""
+    reads (hyperdecoder, context model where the model has one, z
+    bottleneck; the Gaussian model is parameter-free and shared). The
+    codec's ``params_backend="cpu"`` runs the chain on this copy, so that a
+    stream's entropy parameters come from the CPU on both sides whatever
+    card encoded it. The model's own submodules, and with them its
+    state-dict keys, stay where they are."""
 
     def __init__(self, model: DCVICModel):
         super().__init__()
         hyperdecoder, context_model, entropy_model_z = copy.deepcopy(
             (model.hyperdecoder, model.context_model, model.entropy_model_z))
         self.hyperdecoder = hyperdecoder.to(device="cpu", dtype=torch.float32).eval()
-        self.context_model = context_model.to(device="cpu", dtype=torch.float32).eval()
+        self.context_model = None if context_model is None else \
+            context_model.to(device="cpu", dtype=torch.float32).eval()
         self.entropy_model_z = entropy_model_z.to(device="cpu", dtype=torch.float32).eval()
         self.gaussian = model.gaussian
         self.num_slices = model.num_slices

@@ -1,7 +1,7 @@
-"""Compression subnets of the flagship model (port of the six
-dc_vic_tpu/models/subnets.py modules that config/dc_vic_patchgan.yaml uses):
-the dual-beta ELIC analysis and synthesis transforms, the Minnen'20
-hyperprior, the ChARM context model and the Swin VQ estimator.
+"""Compression subnets of the DCVICModel family (port of the
+dc_vic_tpu/models/subnets.py modules its configs use): the ELIC analysis and
+synthesis transforms with and without dual-beta FiLM, the Minnen'20 and
+Balle'18 hyperpriors, the ChARM context model and the Swin VQ estimator.
 
 NCHW modules with the reference's torch parameter names. Unlike flax, torch
 needs every input width at construction; build_comp_model supplies them.
@@ -77,31 +77,66 @@ class ElicDualBetaFtVqScEncoder(_BetaFilm):
         return ft(8, self.attn4(x))
 
 
-@DECODER_REGISTRY.register()
-class ElicDualBetaFtFeatFusionDecoder(_BetaFilm):
-    """Shipped decoder: beta-FiLM before each ELIC synthesis layer plus an
-    initial residual FiLM; get_feats returns the transformer feature and
-    the fusion features, and stops at the last layer it needs (so the
-    layers after it are not built at all)."""
+@ENCODER_REGISTRY.register()
+class ElicVqCatScEncoder(nn.Module):
+    """The stage 1_1 encoder: the ELIC analysis layers of
+    ElicDualBetaFtVqScEncoder without the FiLM, and the VQ feature
+    concat-projection after conv3 (/8) or, with ``proj_pos`` "conv4", after
+    conv4 (/16)."""
+
+    def __init__(self, in_ch: int = 3, input_feat_ch: int = 260, out_ch: int = 192,
+                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
+                 res_in_res: bool = False, proj_pos: str = "conv3"):
+        super().__init__()
+        if proj_pos not in ("conv3", "conv4"):
+            raise ValueError(f"proj_pos {proj_pos!r}: 'conv3' or 'conv4'")
+        self.proj_pos = proj_pos
+        rb = lambda: ResidualBottleneckBlocks(main_ch, block_mid_ch, num_blocks, res_in_res)
+        proj_ch = main_ch if proj_pos == "conv3" else out_ch
+        self.conv1 = conv(in_ch, main_ch, 5, 2)
+        self.block1 = rb()
+        self.conv2 = conv(main_ch, main_ch, 5, 2)
+        self.block2 = rb()
+        self.attn2 = ChengNLAM(main_ch)
+        self.conv3 = conv(main_ch, main_ch, 5, 2)
+        self.projection = conv(input_feat_ch + proj_ch, proj_ch, 3)
+        self.block3 = rb()
+        self.conv4 = conv(main_ch, out_ch, 5, 2)
+        self.attn4 = ChengNLAM(out_ch)
+
+    def forward(self, x, feat):
+        project = lambda h: h + self.projection(torch.cat([feat, h], dim=1))
+        x = self.attn2(self.block2(self.conv2(self.block1(self.conv1(x)))))
+        x = self.conv3(x)
+        if self.proj_pos == "conv3":
+            x = project(x)
+        x = self.conv4(self.block3(x))
+        if self.proj_pos == "conv4":
+            x = project(x)
+        return self.attn4(x)
+
+
+class _ElicFeatDecoder(nn.Module):
+    """The ELIC synthesis stack with fusion taps, shared by the decoders
+    with and without FiLM: ``_run`` returns the transformer feature and the
+    fusion features, and stops at the last layer it needs (so the layers
+    after it are not built at all)."""
 
     LAYER_NAMES = ("attn1", "conv1", "block1", "conv2", "attn2", "block2",
                    "conv3", "block3", "conv4")
 
-    def __init__(self, fusion_layer_dict: Dict[str, str], in_ch: int = 192,
-                 feat_layer_name: str = "block1", out_ch: int = 3,
-                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
-                 use_tanh: bool = False, pixel_shuffle: bool = False,
-                 res_in_res: bool = False, max_beta_1: float = 3.0,
-                 max_beta_2: float = 3.5, cond_ch: int = 128, L: int = 10,
-                 use_pi: bool = False, include_x: bool = True):
-        super().__init__()
+    @classmethod
+    def _num_layers(cls, fusion_layer_dict, feat_layer_name) -> int:
+        wanted = set(fusion_layer_dict) | {feat_layer_name}
+        return 1 + max(cls.LAYER_NAMES.index(n) for n in wanted)
+
+    def _build_layers(self, fusion_layer_dict, in_ch, feat_layer_name, out_ch, main_ch,
+                      block_mid_ch, num_blocks, pixel_shuffle, res_in_res):
         if pixel_shuffle:
             raise NotImplementedError("pixel-shuffle ELIC decoders are not ported")
-        self._init_beta(cond_ch, L, max_beta_1, max_beta_2, use_pi, include_x)
         self.fusion_layer_dict = dict(fusion_layer_dict)
         self.feat_layer_name = feat_layer_name
-        wanted = set(self.fusion_layer_dict) | {feat_layer_name}
-        self.num_layers = 1 + max(self.LAYER_NAMES.index(n) for n in wanted)
+        self.num_layers = self._num_layers(self.fusion_layer_dict, feat_layer_name)
         rb = lambda: ResidualBottleneckBlocks(main_ch, block_mid_ch, num_blocks, res_in_res)
         make = {
             "attn1": lambda: ChengNLAM(in_ch),
@@ -114,24 +149,64 @@ class ElicDualBetaFtFeatFusionDecoder(_BetaFilm):
             "block3": rb,
             "conv4": lambda: deconv(main_ch, out_ch),
         }
-        self.init_fuse = BetaScaleShift(in_ch, cond_ch)
-        self.beta_ft_list = nn.ModuleList(
-            BetaScaleShift(in_ch if i < 2 else main_ch, cond_ch)
-            for i in range(self.num_layers))
         for name in self.LAYER_NAMES[:self.num_layers]:
             self.add_module(name, make[name]())
 
-    def get_feats(self, x, beta_1, beta_2) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        cond = self.cond(beta_1, beta_2)
-        x = self.init_fuse(x, cond) + x
+    def _run(self, x, film=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The layers in order, ``film(i, x)`` before layer i where given."""
         feat, fusion_feats = None, {}
         for i, name in enumerate(self.LAYER_NAMES[:self.num_layers]):
-            x = getattr(self, name)(self.beta_ft_list[i](x, cond))
+            x = getattr(self, name)(x if film is None else film(i, x))
             if name == self.feat_layer_name:
                 feat = x
             if name in self.fusion_layer_dict:
                 fusion_feats[self.fusion_layer_dict[name]] = x
         return feat, fusion_feats
+
+
+@DECODER_REGISTRY.register()
+class ElicFeatFusionDecoder(_ElicFeatDecoder):
+    """The stage 1_1 decoder: the ELIC synthesis stack with fusion taps and
+    no FiLM."""
+
+    def __init__(self, fusion_layer_dict: Dict[str, str], in_ch: int = 192,
+                 feat_layer_name: str = "block1", out_ch: int = 3,
+                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
+                 use_tanh: bool = False, pixel_shuffle: bool = False,
+                 res_in_res: bool = False):
+        super().__init__()
+        self._build_layers(fusion_layer_dict, in_ch, feat_layer_name, out_ch, main_ch,
+                           block_mid_ch, num_blocks, pixel_shuffle, res_in_res)
+
+    def get_feats(self, x) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self._run(x)
+
+
+@DECODER_REGISTRY.register()
+class ElicDualBetaFtFeatFusionDecoder(_ElicFeatDecoder, _BetaFilm):
+    """Shipped decoder: beta-FiLM before each ELIC synthesis layer plus an
+    initial residual FiLM."""
+
+    def __init__(self, fusion_layer_dict: Dict[str, str], in_ch: int = 192,
+                 feat_layer_name: str = "block1", out_ch: int = 3,
+                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
+                 use_tanh: bool = False, pixel_shuffle: bool = False,
+                 res_in_res: bool = False, max_beta_1: float = 3.0,
+                 max_beta_2: float = 3.5, cond_ch: int = 128, L: int = 10,
+                 use_pi: bool = False, include_x: bool = True):
+        super().__init__()
+        self._init_beta(cond_ch, L, max_beta_1, max_beta_2, use_pi, include_x)
+        self.init_fuse = BetaScaleShift(in_ch, cond_ch)
+        self.beta_ft_list = nn.ModuleList(
+            BetaScaleShift(in_ch if i < 2 else main_ch, cond_ch)
+            for i in range(self._num_layers(fusion_layer_dict, feat_layer_name)))
+        self._build_layers(fusion_layer_dict, in_ch, feat_layer_name, out_ch, main_ch,
+                           block_mid_ch, num_blocks, pixel_shuffle, res_in_res)
+
+    def get_feats(self, x, beta_1, beta_2) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        cond = self.cond(beta_1, beta_2)
+        x = self.init_fuse(x, cond) + x
+        return self._run(x, lambda i, h: self.beta_ft_list[i](h, cond))
 
 
 @HYPERENCODER_REGISTRY.register()
@@ -172,6 +247,31 @@ class Minnen20HyperDecoder(nn.Module):
 
     def forward(self, z):
         return torch.cat([self.hd_mu(z), self.hd_std(z)], dim=1)
+
+
+@HYPERENCODER_REGISTRY.register()
+class Balle18HyperEncoder(nn.Module):
+    """|y| -> 3x3 conv -> two stride-2 5x5 convs, ReLU between."""
+
+    def __init__(self, in_ch: int = 192, bottleneck_z: int = 192):
+        super().__init__()
+        self.conv1 = conv(in_ch, bottleneck_z, 3)
+        self.conv2 = conv(bottleneck_z, bottleneck_z, 5, 2)
+        self.conv3 = conv(bottleneck_z, bottleneck_z, 5, 2)
+
+    def forward(self, y):
+        y = F.relu(self.conv1(torch.abs(y)))
+        y = F.relu(self.conv2(y))
+        return self.conv3(y)
+
+
+@HYPERDECODER_REGISTRY.register()
+class Balle18HyperDecoder(_HyperDecoderBlock):
+    """One deconv tower -> [B, hyper_out_ch, h, w] (the non-ChARM models
+    read it as means then scales)."""
+
+    def __init__(self, in_ch: int = 192, hyper_out_ch: int = 256):
+        super().__init__(in_ch, hyper_out_ch)
 
 
 class SliceTransform(nn.Module):

@@ -4,9 +4,9 @@
     python3 -m dc_vic_tpu_torch.tools.train --config_path config/exp1_stage1_2.yaml \\
         [--device cuda] [key.subkey=value ...]
 
-The dual-beta stages run (``exp1_stage1_2``, ``exp1_stage1_3``,
-``exp1_stage3``); each boots from the previous stage's checkpoint as its
-``load_checkpoint`` says. ``recon_kernels=[gn,conv3x3,fused_resblock]``
+The stages of the curriculum run (``exp1_stage1_1``, ``exp1_stage1_2``,
+``exp1_stage1_3``, ``exp1_stage3``); each after the first boots from the
+previous stage's checkpoint as its ``load_checkpoint`` says. ``recon_kernels=[gn,conv3x3,fused_resblock]``
 routes the reconstruction stacks through kernels K3-K6; ``dry_run=true``
 builds the trainer and exits.
 """

@@ -1,7 +1,7 @@
 """The training steps of the curriculum (port of dc_vic_tpu/train/steps.py):
 
-  stage 1_2          rate-distortion + VQ-code losses, per-sample dual-beta
-                     weights                                      -> rd_step
+  stage 1_1          rate-distortion + VQ-code losses, no betas   -> rd_step
+  stage 1_2          the same with per-sample dual-beta weights   -> rd_step
   stage 1_3, stage 3 GAN fine-tune of the decoder, the VQ estimator and the
                      fusion blocks, the entropy path frozen       -> gan_step
 
@@ -176,7 +176,7 @@ def _zero_grads(*modules):
 
 def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPolicy,
             lpips_fn=None) -> Dict[str, torch.Tensor]:
-    """One RD step (stage 1_2) on a batch NCHW in [-1, 1]: main and aux
+    """One RD step (stages 1_1 and 1_2) on a batch NCHW in [-1, 1]: main and aux
     updates in one backward (the aux loss reaches only the quantiles, which
     the main loss never does). Returns the terms as device scalars."""
     model = state.model

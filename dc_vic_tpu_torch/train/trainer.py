@@ -1,15 +1,25 @@
-"""Stage trainers (port of dc_vic_tpu/train/trainer.py, the dual-beta
-stages of the curriculum on one card):
+"""Stage trainers (port of dc_vic_tpu/train/trainer.py, the stages of the
+curriculum on one card):
 
+  RateDistortionVqCodeTrainer              stage 1_1 (rd_step, no betas)
   DualBetaCondRateDistortionVqCodeTrainer  stage 1_2 (rd_step)
   DualBetaCondGanDistortionVqCodeTrainer   stages 1_3 and 3 (gan_step)
+
+The beta policy follows the model: a model without beta conditioning (stage
+1_1's HyperpriorCharmVicModel) samples no betas, takes the unweighted rate
+and VQ-code terms and validates once, without betas.
 
 The loop keeps the reference's cadence: log every ``log_step``, validate
 every ``eval_step``, save every ``save_step``; the skip of a non-finite step
 happens on the device. A stage boots from the previous stage's checkpoint
 through ``load_checkpoint`` (``exp``/``iter`` or ``path``, ``strict``,
 ``load_optimizer``, ``load_scheduler``, ``load_discriminator``,
-``new_g_lr``/``new_d_lr``).
+``new_g_lr``/``new_d_lr``). With ``strict: false`` the keys present in both
+models with equal shapes are carried and the others keep their
+initialisation: stage 1_2 booting from stage 1_1 carries the ELIC layers,
+the projection, the hyperprior, the context model, the estimator and the
+fusion blocks, and starts the beta FiLM (``mlp``, ``beta_ft_list``,
+``init_fuse``) from its initialisation.
 
 Numerics: the steps and the validation run inside ``backend_flags`` with
 TF32 off (the stage configs train in f32) and cuDNN free to benchmark its
@@ -126,7 +136,7 @@ class Trainer:
         trainer_cfg = dict(opt.get("trainer") or {})
         enc_cfg = dict(opt["subnet"]["encoder"])
         self.policy = BetaPolicy(
-            use_beta=True,
+            use_beta=self.model.use_beta,
             use_selected_pairs=model_cfg.get("use_selected_beta_pairs", False),
             selected_beta_rate=tuple(model_cfg.get("selected_beta_rate") or ()),
             selected_beta_vq=tuple(model_cfg.get("selected_beta_vq") or ()),
@@ -322,25 +332,29 @@ class Trainer:
                 self.save(itr)
 
     def _beta_eval_grid(self):
-        """The beta corners the validation runs at."""
+        """The beta corners the validation runs at; one run without betas
+        for a model without beta conditioning."""
+        if not self.model.use_beta:
+            return [None]
         br, bv = self.policy.max_beta_rate, self.policy.max_beta_vq
         return [(0.0, 0.0), (0.0, bv), (br, 0.0), (br, bv)]
 
     @torch.no_grad()
     def validate(self, itr: int, max_samples: int = 24) -> Dict[str, float]:
         """bpp (of the hard-rounded codes), PSNR, MS-SSIM and VQ accuracy on
-        the eval images, one CSV row per beta corner. Returns the last
-        corner's averages."""
+        the eval images, one CSV row per beta corner (the beta columns empty
+        without betas). Returns the last corner's averages."""
         avg = {}
         with backend_flags(**_FLAGS):
-            for b1, b2 in self._beta_eval_grid():
+            for corner in self._beta_eval_grid():
                 rows = []
                 for i, batch in enumerate(self.eval_loader.eval_batches()):
                     if i >= max_samples:
                         break
                     real = self._to_device(batch["real_images"])
                     H, W = real.shape[2:]
-                    betas = [torch.full((1,), b, device=self.device) for b in (b1, b2)]
+                    betas = [] if corner is None else [
+                        torch.full((1,), b, device=self.device) for b in corner]
                     out = self.model(pad_image(real), *betas, is_train=False)
                     fake = out["fake_images"][:, :, :H, :W]
                     rows.append(dict(bpp=float(out["qbpp"]), psnr=calc_psnr(real, fake),
@@ -348,11 +362,14 @@ class Trainer:
                                      vq_acc=float(out["vq_accuracy"])))
                 avg = ({k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
                        if rows else {})
-                self.logger.info(f"[eval iter {itr}] beta=({b1},{b2}) "
+                tag = "" if corner is None else f" beta=({corner[0]},{corner[1]})"
+                self.logger.info(f"[eval iter {itr}]{tag} "
                                  + " ".join(f"{k}={v:.4f}" for k, v in avg.items()))
+                b1, b2 = corner or ("", "")
                 self.eval_csv.write({"iter": itr, "beta_rate": b1, "beta_vq": b2, **avg})
                 if self._wandb is not None:
-                    self._wandb.log({f"eval/b{b1:g}_{b2:g}/{k}": v for k, v in avg.items()},
+                    suffix = "" if corner is None else f"/b{b1:g}_{b2:g}"
+                    self._wandb.log({f"eval{suffix}/{k}": v for k, v in avg.items()},
                                     step=itr)
         return avg
 
@@ -374,8 +391,13 @@ def _not_ported(name: str):
     def build(opt, device="cuda"):
         raise NotImplementedError(
             f"trainer {name} is not ported to dc_vic_tpu_torch (ROADMAP.md queue 1, item 5: "
-            "the single-beta and OASIS stages)")
+            "the OASIS stage)")
     TRAINER_REGISTRY.register(build, name)
+
+
+@TRAINER_REGISTRY.register()
+def RateDistortionVqCodeTrainer(opt, device="cuda"):
+    return Trainer(opt, gan=False, device=device)
 
 
 @TRAINER_REGISTRY.register()
@@ -388,7 +410,6 @@ def DualBetaCondGanDistortionVqCodeTrainer(opt, device="cuda"):
     return Trainer(opt, gan=True, device=device)
 
 
-_not_ported("RateDistortionVqCodeTrainer")
 _not_ported("DualBetaCondOasisGanDistortionVqFusionTrainer")
 
 
