@@ -176,6 +176,27 @@
    beside its dependent chain. The kernels line carries the launches of
    these paths (launches_<model>_<format>, train_launches_stage1_1_step)
    and the one section's times (*_one_section_lanes512).
+16. The OASIS GAN stage and the codec profiler: (a) the flagship at full
+   width and depth, batch 6 of 256x256, f32, random weights from seed 0, the
+   encoder not scaled, trained by DualBetaCondOasisGanDistortionVqFusionTrainer
+   with the discriminator block of config/dc_vic_oasis.yaml (257 classes on
+   the 32 x 32 token grid) and OasisGANLoss (OASIS_LOSS): one step's
+   gradients, the generator's and the discriminator's, with K3 to K6 off and
+   on under DETERMINISTIC (GRAD_TOL); TRAIN_STEPS timed steps off, on, and on
+   with mc_sampling (the reals keyed on their own vq_encode); losses finite
+   and no step skipped, the frozen parameters bit-identical, the decoder
+   moved; a checkpoint whose discriminator a second trainer boots bit for
+   bit. (b) One step each of OasisDualBetaCondTamingNLayerDiscriminator at
+   n_layers 2 (its 64 x 64 logits resized nearest to the token grid) and of
+   DualBetaFtTamingNLayerDiscriminator in stage 1_3's vanilla GAN step; each
+   discriminator moves. (c) tools/profile_codec.py's profile over the
+   contract configuration (item 8's, every reconstruction kernel on):
+   PROFILE_ROUNDS rounds after a warm-up, launches held to that many of item
+   8's round trip, each stage's mean and images/s printed. (d) One warm
+   OASIS step with the kernels on under torch.profiler: device time, the
+   share of K1 to K6 and of their Functions' backwards, the top kernels.
+   The kernels line carries the OASIS step's launches and Function
+   backwards (train_launches_oasis_step, train_backwards_oasis_step).
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -2073,24 +2094,33 @@ def compare_training_gradients(tr, batch, switch, ops, flags=None):
         del model.vq_encode
         switch(model, True)
     trained = [n for n, m in tr.main_mask.items() if m] + [n for n, m in tr.aux_mask.items() if m]
+    return hold_gradients(grads, trained, "RD step")
+
+
+def hold_gradients(grads, trained, label):
+    """``grads[on]`` ({name: gradient} with the kernels off and on): every
+    name in ``trained`` has a finite gradient in both runs, no other name
+    has any, and each is within GRAD_TOL relative L2 (+1e-7) of the run
+    with the kernels off. Returns the worst relative error."""
+    import torch
     for on in (False, True):
         missing = [n for n in trained if n not in grads[on]]
         bad = [n for n in trained if n in grads[on] and not torch.isfinite(grads[on][n]).all()]
         if missing or bad:
-            raise AssertionError(f"kernels {'on' if on else 'off'}: trained parameters without "
-                                 f"a gradient {missing[:5]}, non-finite {bad[:5]}")
+            raise AssertionError(f"{label}, kernels {'on' if on else 'off'}: trained parameters "
+                                 f"without a gradient {missing[:5]}, non-finite {bad[:5]}")
     frozen = [n for n in grads[True] if n not in trained]
     if frozen:
-        raise AssertionError(f"frozen parameters got gradients: {frozen[:5]}")
+        raise AssertionError(f"{label}: frozen parameters got gradients: {frozen[:5]}")
     worst, worst_name = 0.0, None
     for name, want in grads[False].items():
         err, rel = _rel_l2(grads[True][name], want)
         if not err <= GRAD_TOL * float(torch.linalg.vector_norm(want.double())) + 1e-7:
-            raise AssertionError(f"RD step gradients, kernels on vs off: {name} relative L2 "
+            raise AssertionError(f"{label} gradients, kernels on vs off: {name} relative L2 "
                                  f"error {rel:.3e} over {GRAD_TOL}")
         if rel > worst:
             worst, worst_name = rel, name
-    print(f"RD step gradients, kernels on vs off: {len(trained)} trained tensors, every one "
+    print(f"{label} gradients, kernels on vs off: {len(trained)} trained tensors, every one "
           f"with a finite gradient, no frozen one with any; worst relative L2 error "
           f"{worst:.3e} ({worst_name}; tolerance {GRAD_TOL})")
     return worst
@@ -2808,6 +2838,301 @@ def check_one_section(rd, rans_host, dev):
              "chain_ms_one_section_lanes512": chain, "steps_one_section_lanes512": steps})
 
 
+
+# ------------------------------- the OASIS stage and the codec profiler (item 16)
+
+OASIS_TRAINER = "DualBetaCondOasisGanDistortionVqFusionTrainer"
+# the JAX package's own test value (tests/test_saver_oasis.py); no shipped config sets one
+OASIS_LOSS = {"type": "OasisGANLoss", "loss_weight": 0.01}
+# the two classes of item 16 (b), at the flagship's widths
+OASIS_N_LAYERS2 = {"type": "OasisDualBetaCondTamingNLayerDiscriminator", "ndf": 64,
+                   "n_embed": 256, "n_layers": 2, "cond_ch": 8, "L": 10, "norm_type": "none",
+                   "max_beta_1": 3.0, "max_beta_2": 3.5, "weight_init": True}
+FILM_DISC = {"type": "DualBetaFtTamingNLayerDiscriminator", "ndf": 64, "n_layers": 3,
+             "cond_ch": 64, "L": 10, "norm_type": "none", "max_beta_1": 3.0,
+             "max_beta_2": 3.5, "weight_init": True}
+# K1 to K6 by kernel name, and their Functions' backwards by autograd node
+OWN_KERNELS = ("vq_argmin_kernel", "flash_attn_f32_kernel", "gn_channel_sums_kernel",
+               "gn_apply_kernel", "conv3x3_same_kernel", "conv3x3_gn_swish_kernel",
+               "conv3x3_bf16_kernel")
+OWN_BACKWARDS = ("_FlashAttentionBackward", "_ChannelSumsBackward", "_ApplyAffineBackward",
+                 "_Conv3x3SameBackward", "_Conv3x3GnSwishBackward")
+PROFILE_ROUNDS = 3
+
+
+def oasis_opt(root, discriminator=None, load=None, exp="oasis"):
+    """Stage 1_3 (``training_opt``) as the OASIS stage: its trainer, the
+    OASIS loss and the discriminator block of config/dc_vic_oasis.yaml (the
+    dual-beta PatchGAN with keep_shape and 257 classes: 256 / 8 = 32 logits
+    a side, the token grid), or ``discriminator``."""
+    from dc_vic_tpu_torch.utils.config import load_config
+    opt = training_opt("1_3", root, load)
+    opt["trainer"]["type"] = OASIS_TRAINER
+    opt["loss"]["gan_loss"] = dict(OASIS_LOSS)
+    opt["discriminator"] = discriminator or load_config(
+        os.path.join(ROOT, "config", "dc_vic_oasis.yaml"))["discriminator"]
+    opt["exp"] = exp
+    return opt
+
+
+def film_opt(root):
+    """Stage 1_3 (``training_opt``) with the FiLM discriminator (FILM_DISC)."""
+    opt = training_opt("1_3", root)
+    opt["discriminator"] = dict(FILM_DISC)
+    opt["exp"] = "film"
+    return opt
+
+
+def compare_oasis_gradients(tr, batch, ops):
+    """Item 16 (a): one OASIS GAN step's gradients, the generator's trained
+    parameters' and the discriminator's, with K3 to K6 off and on under
+    DETERMINISTIC (K2 on in both, as in item 15), the same betas, noise and
+    (pinned) token maps. Returns the worst relative error."""
+    import torch
+    from dc_vic_tpu_torch.codec.ops import Noise
+    from dc_vic_tpu_torch.models import RECON_KERNELS, set_recon_kernels
+    from dc_vic_tpu_torch.train.steps import gan_d_loss, gan_g_losses
+    from dc_vic_tpu_torch.utils.backends import backend_flags
+    model, disc = tr.model, tr.state.disc
+    beta_rate, beta_vq = tr.policy.sample(tr.state.generator, batch.shape[0])
+    with torch.no_grad():
+        codes = model.vq_encode(batch)
+    model.vq_encode = lambda x: codes
+    grads = {}
+
+    def run():
+        with backend_flags(**DETERMINISTIC):
+            disc.requires_grad_(False)
+            try:
+                g_total, _, out = gan_g_losses(
+                    model, disc, tr.losses, batch, beta_rate, beta_vq, tr.policy,
+                    Noise(torch.Generator(batch.device).manual_seed(1)), tr.lpips_fn, oasis=True)
+                g_total.backward()
+            finally:
+                disc.requires_grad_(True)
+            tokens = out["gt_vq_indices"]
+            d_total = gan_d_loss(disc, tr.losses["gan_loss"], batch, out["fake_images"],
+                                 beta_rate, beta_vq, real_tokens=tokens, fake_tokens=tokens)
+            d_total.backward()
+        return g_total, d_total
+
+    try:
+        for on in (False, True):
+            set_recon_kernels(model, RECON_KERNELS if on else ())
+            for p in (*model.parameters(), *disc.parameters()):
+                p.grad = None
+            (g_total, d_total), launched, _ = recorded_step(model, ops, run)
+            grads[on] = {n: p.grad.clone() for n, p in model.named_parameters()
+                         if p.grad is not None}
+            grads[on].update({f"disc.{n}": p.grad.clone() for n, p in disc.named_parameters()
+                              if p.grad is not None})
+            print(f"OASIS GAN step gradients, kernels {'on' if on else 'off'}: G loss "
+                  f"{float(g_total.detach()):.6f}, D loss {float(d_total.detach()):.6f}; "
+                  f"launches {launched['forward']}; Function backwards {launched['backward']}")
+    finally:
+        del model.vq_encode
+        set_recon_kernels(model, RECON_KERNELS)
+    trained = [n for n, m in tr.main_mask.items() if m]
+    trained += [f"disc.{n}" for n, _ in disc.named_parameters()]
+    return hold_gradients(grads, trained, "OASIS GAN step")
+
+
+def own_share(prof):
+    """One profiled step: (device ms in all, in K1 to K6's own kernels, in
+    the kernels their Functions' backwards launch)."""
+    from dc_vic_tpu_torch.utils.profiling import kernel_times
+    times = kernel_times(prof)
+    total = sum(us for us, _ in times.values())
+    own = sum(us for name, (us, _) in times.items() if any(k in name for k in OWN_KERNELS))
+    bwd = 0.0
+    for evt in prof.events():
+        if evt.name.startswith("autograd::engine::evaluate_function: ") and \
+                evt.name.split(": ", 1)[1] in OWN_BACKWARDS:
+            us = getattr(evt, "device_time_total", None)
+            bwd += float(evt.cuda_time_total if us is None else us)
+    if total <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total / 1e3, own / 1e3, bwd / 1e3
+
+
+def warm_step_peak(tr, loader):
+    """Peak device memory (GiB) of one more step of the trainer as it is:
+    its cuDNN algorithms already chosen, so no search's workspace counts."""
+    import torch
+    batch = tr._to_device(next(loader)["real_images"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    terms = tr.step(batch)
+    torch.cuda.synchronize()
+    if float(terms["skipped"]):
+        raise AssertionError(f"a training step gave {terms}")
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def check_oasis(ops, smi, dev):
+    """Item 16 (a), (b) and (d) of the module docstring. Returns the OASIS
+    step's launches and Function backwards (kernels on, without
+    mc_sampling) and the figures PERF.md records."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.ops import attention
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    from dc_vic_tpu_torch.utils.profiling import device_trace, kernel_report, kernel_times
+    root = tempfile.mkdtemp(prefix="dcvic_oasis_")
+    switch = _KernelSwitch(attention)
+    loaders = []
+    warm = lambda secs: float(np.median(secs[1:]))
+    try:
+        _training_images(root)
+        t = time.perf_counter()
+        tr = build_trainer(oasis_opt(root))
+        if not (tr.gan and tr.oasis) or type(tr.state.disc).__name__ != \
+                "DualBetaCondTamingNLayerDiscriminator":
+            raise AssertionError(f"the OASIS trainer built {type(tr.state.disc).__name__}")
+        loaders.append(tr.train_loader.infinite())
+        loader = loaders[-1]
+        batch = tr._to_device(next(loader)["real_images"])
+        b = torch.ones(TRAIN_BATCH, device=dev)
+        with torch.no_grad():
+            shape = tuple(tr.state.disc(batch, b, b).shape)
+        if shape != (TRAIN_BATCH, 257, TRAIN_CROP // 8, TRAIN_CROP // 8):
+            raise AssertionError(f"the OASIS discriminator's logits are {shape}")
+        print(f"OASIS stage trainer (flagship, f32, random weights from seed 0, encoder not "
+              f"scaled; config/dc_vic_oasis.yaml's discriminator, {OASIS_LOSS}): built in "
+              f"{time.perf_counter() - t:.1f} s; the discriminator's logits {list(shape)}")
+        worst = compare_oasis_gradients(tr, batch, ops)
+        # on the host: a copy of every parameter on the card would count in
+        # the steps' peak memory
+        before = {n: p.detach().to("cpu", copy=True) for n, p in tr.model.named_parameters()}
+        off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        torch.cuda.reset_peak_memory_stats()
+        on, launched, _ = timed_steps(tr, loader, switch, ops, True)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        warm_peak = warm_step_peak(tr, loader)
+        tr.mc_sampling = True
+        torch.cuda.reset_peak_memory_stats()
+        mc, mc_launched, _ = timed_steps(tr, loader, switch, ops, True)
+        mc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        mc_warm_peak = warm_step_peak(tr, loader)
+        tr.mc_sampling = False
+        params = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+        moved = [n for n, m in tr.main_mask.items() if not m
+                 and not torch.equal(before[n], params[n])]
+        if moved:
+            raise AssertionError(f"the OASIS stage moved frozen parameters: {moved[:5]}")
+        if all(torch.equal(before[n], params[n]) for n in before if n.startswith("decoder.")):
+            raise AssertionError("the OASIS stage: the decoder did not move")
+
+        # (d) one warm step with the kernels on, under the profiler
+        batch = tr._to_device(next(loader)["real_images"])
+        torch.cuda.synchronize()
+        with device_trace(os.path.join(root, "trace")) as prof:
+            t = time.perf_counter()
+            terms = tr.step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        if float(terms["skipped"]):
+            raise AssertionError(f"the profiled step gave {terms}")
+        dev_ms, own_ms, bwd_ms = own_share(prof)
+        print(f"one warm OASIS GAN step (kernels on) under torch.profiler: wall {wall:.4f} s, "
+              f"device {dev_ms:.3f} ms (idle {1 - dev_ms / 1e3 / wall:.1%} of the profiled wall, "
+              f"{1 - dev_ms / 1e3 / warm(on):.1%} of the unprofiled warm step's "
+              f"{warm(on):.4f} s); K1 to K6 kernels {own_ms:.3f} ms ({own_ms / dev_ms:.1%}), their "
+              f"Functions' backwards {bwd_ms:.3f} ms ({bwd_ms / dev_ms:.1%}): together "
+              f"{(own_ms + bwd_ms) / dev_ms:.1%}")
+        for line in kernel_report(kernel_times(prof)):
+            print(line)
+        del prof
+
+        n = tr.state.step
+        tr.save(n)
+        d_sd = {k: v.clone() for k, v in tr.state.disc.state_dict().items()}
+        del tr, params, before
+        torch.cuda.empty_cache()
+        tr = build_trainer(oasis_opt(root, load=dict(exp="oasis", iter=n, load_optimizer=True,
+                                                     strict=True), exp="oasis_boot"))
+        booted = tr.state.disc.state_dict()
+        if set(booted) != set(d_sd) or any(not torch.equal(booted[k], v)
+                                           for k, v in d_sd.items()):
+            raise AssertionError("the OASIS boot: the discriminator is not the saved one")
+        print(f"OASIS checkpoint at {n} steps booted: the discriminator's {len(d_sd)} tensors "
+              f"bit for bit")
+        del tr, booted, d_sd
+        torch.cuda.empty_cache()
+
+        # (b) one step through each new class
+        for label, opt in (
+                ("OasisDualBetaCondTamingNLayerDiscriminator, n_layers 2 (64 -> 32 resize), "
+                 "OASIS step", oasis_opt(root, OASIS_N_LAYERS2, exp="oasis_n2")),
+                ("DualBetaFtTamingNLayerDiscriminator, stage 1_3's vanilla GAN step",
+                 film_opt(root))):
+            tr = build_trainer(opt)
+            d0 = {k: v.clone() for k, v in tr.state.disc.state_dict().items()}
+            loaders.append(tr.train_loader.infinite())
+            secs, got, _ = timed_steps(tr, loaders[-1], switch, ops, True, n=1)
+            if all(torch.equal(d0[k], v) for k, v in tr.state.disc.state_dict().items()):
+                raise AssertionError(f"{label}: the discriminator did not move")
+            print(f"{label}: one step {secs[0]:.4f} s (cold), launches {got['forward']}")
+            del tr, d0
+            torch.cuda.empty_cache()
+    finally:
+        for it in loaders:
+            it.close()
+        shutil.rmtree(root, ignore_errors=True)
+        switch(torch.nn.Module(), True)
+    print(f"OASIS GAN steps, batch {TRAIN_BATCH} of {TRAIN_CROP}x{TRAIN_CROP}, f32 (host clock, "
+          f"medians of {TRAIN_STEPS - 1} warm steps; {smi}): kernels off {warm(off):.4f} s, on "
+          f"{warm(on):.4f} s ({TRAIN_BATCH / warm(on):.2f} images/s), on with mc_sampling "
+          f"{warm(mc):.4f} s; peak device memory over the {TRAIN_STEPS} steps (the first one's "
+          f"cuDNN algorithm search included) {peak:.2f} GiB, {mc_peak:.2f} GiB with "
+          f"mc_sampling; over one warm step {warm_peak:.2f} GiB, {mc_warm_peak:.2f} GiB with "
+          f"mc_sampling; launches per step {launched['forward']}, Function backwards "
+          f"{launched['backward']}; with mc_sampling {mc_launched['forward']} / "
+          f"{mc_launched['backward']}; worst gradient error {worst:.3e}")
+    return dict(launched=launched, mc_launched=mc_launched, s=(warm(off), warm(on), warm(mc)),
+                peak_gib=(peak, mc_peak, warm_peak, mc_warm_peak), worst=worst,
+                trace_ms=(dev_ms, own_ms, bwd_ms))
+
+
+def profile_contract(deployment_sd, launches16, ops, smi):
+    """Item 16 (c): ``tools/profile_codec.py::profile`` over the contract
+    configuration with every reconstruction kernel on; its launches, a
+    warm-up and PROFILE_ROUNDS cycles, held to that many of the deployment
+    round trip's (``launches16``, item 8). Returns the report."""
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model
+    from dc_vic_tpu_torch.tools import profile_codec
+    from dc_vic_tpu_torch.tools.workload import (DEPLOYMENT, deployment_config,
+                                                 deployment_images)
+    from dc_vic_tpu_torch.utils.config import load_config
+    opt16 = deployment_config(load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml")))
+    spec = build_comp_model(opt16, recon_kernels=RECON_KERNELS)
+    spec.module.load_state_dict(deployment_sd, strict=True)
+    codec = Codec(spec, encode_backend="device", lanes=DEPLOYMENT["lanes"])
+    images = deployment_images()
+    reset_counters(*ops)
+    rep = profile_codec.profile(codec, images, PROFILE_ROUNDS, quality_ind=0)
+    torch.cuda.synchronize()
+    got = counters(*ops)
+    want = {k: (PROFILE_ROUNDS + 1) * n for k, n in launches16.items()}
+    if got != want:
+        raise AssertionError(f"profile_codec launched {got}, {PROFILE_ROUNDS + 1} round trips "
+                             f"of the deployment give {want}")
+    total = sum(v["mean_sec"] for v in rep.values())
+    print(f"profile_codec over the contract configuration (bf16, entropy_precision default, "
+          f"tpu format, device backend, lanes {DEPLOYMENT['lanes']}, batch {len(images)} "
+          f"768x512, every reconstruction kernel on; means of {PROFILE_ROUNDS} rounds after a "
+          f"warm-up; {smi}):")
+    for name, v in rep.items():
+        print(f"  {name}: {v['mean_sec'] * 1e3:.3f} ms")
+    print(f"  end-to-end: {total:.4f} s / batch -> {len(images) / total:.2f} images/s")
+    del codec, spec
+    torch.cuda.empty_cache()
+    return rep
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2996,7 +3321,6 @@ def main():
     torch.cuda.empty_cache()
 
     launches_eval, _ = check_evaluation(opt, deployment_sd, ops, smi, dev)
-    del deployment_sd
     torch.cuda.empty_cache()
 
     t15 = time.perf_counter()
@@ -3012,6 +3336,14 @@ def main():
           f"stream {6 * r2['ms_lanes512']:.4f} ms (six launches of {r2['ms_lanes512']:.4f} ms)")
     print(f"item 15 took {time.perf_counter() - t15:.1f} s")
 
+    t16 = time.perf_counter()
+    oasis = check_oasis(ops, smi, dev)
+    torch.cuda.empty_cache()
+    profile_contract(deployment_sd, launches16, ops, smi)
+    del deployment_sd
+    torch.cuda.empty_cache()
+    print(f"item 16 took {time.perf_counter() - t16:.1f} s")
+
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3024,6 +3356,8 @@ def main():
             k[f"launches_{path.replace('/', '_')}"] = table[k["name"]]
         k["train_launches_stage1_1_step"] = launches_11["forward"][k["name"]]
         k["train_backwards_stage1_1_step"] = launches_11["backward"].get(k["name"], 0)
+        k["train_launches_oasis_step"] = oasis["launched"]["forward"][k["name"]]
+        k["train_backwards_oasis_step"] = oasis["launched"]["backward"].get(k["name"], 0)
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

@@ -131,9 +131,11 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
         raise NotImplementedError(f"model type {model_cfg.get('type')!r} is not ported")
     use_charm, use_beta = MODEL_TYPES[model_cfg["type"]]
     if model_cfg.get("enc_vq_input", "onehot_indices") != "onehot_indices":
-        raise NotImplementedError("only enc_vq_input=onehot_indices is ported")
+        raise NotImplementedError("only enc_vq_input=onehot_indices is ported "
+                                  "(ROADMAP.md queue 1, item 2)")
     if model_cfg.get("enc_input_vq_recon", False) or opt.get("convert_img_range_to_01", False):
-        raise NotImplementedError("enc_input_vq_recon / [0,1] image range are not ported")
+        raise NotImplementedError("enc_input_vq_recon / [0,1] image range are not ported "
+                                  "(ROADMAP.md queue 1, item 2)")
 
     sub = opt["subnet"]
     enc, dec, vq = dict(sub["encoder"]), dict(sub["decoder"]), dict(sub["vq_model"])
@@ -164,7 +166,7 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
                  drop=("in_ch", "input_resolution", "n_embed", "embed_dim"))
     fusion = dict(sub.get("fusion_module") or {})
     if fusion.get("fuse_type", "sft") != "sft":
-        raise NotImplementedError("only sft fusion is ported")
+        raise NotImplementedError("only sft fusion is ported (ROADMAP.md queue 1, item 2)")
     sched = {k: {"dec_ch": v["dec_ch"], "cond_ch": v["cond_ch"],
                  "mid_ch": v.get("mid_ch", v["dec_ch"])}
              for k, v in dict(fusion.get("fuse_scedule_dict") or {}).items()}

@@ -79,22 +79,66 @@ def balle18_hyperprior_state_dict(flax_params) -> Dict[str, np.ndarray]:
     return out
 
 
+def _disc_leaf(path, leaf):
+    """One flax leaf of a discriminator -> (the port's parameter suffix, its
+    array): convs HWIO -> OIHW, dense kernels transposed, norm scales ->
+    weights, ActNorm's own ``scale`` and ``loc`` kept."""
+    leaf = np.asarray(leaf)
+    name = path[-1]
+    if name == "kernel":
+        leaf = np.transpose(leaf, (3, 2, 0, 1)) if leaf.ndim == 4 else leaf.T
+    key = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "loc": "loc", "mean": "running_mean", "var": "running_var"}[name]
+    if name == "scale" and len(path) >= 2 and path[-2].startswith("_Norm"):
+        key = "scale"                                   # ActNorm's own parameters
+    return key, np.ascontiguousarray(leaf)
+
+
+def _norm_base(base: str, inner) -> str:
+    """A ``_Norm``'s port name: a wrapped flax LayerNorm sits one level down."""
+    return base + (".norm" if len(inner) > 2 and inner[1].startswith("LayerNorm") else "")
+
+
+def _film_discriminator_state_dict(tree) -> Dict[str, np.ndarray]:
+    """``DualBetaFtTamingNLayerDiscriminator``: ``DualBetaCondMLP_0``
+    -> ``mlp``, ``Conv_i`` -> ``convs.i``, ``_Norm_i`` -> ``norms.i``,
+    ``BetaScaleShift_i`` (``Dense_0`` shared, ``Dense_1`` scale, ``Dense_2``
+    shift) -> ``films.i``."""
+    film = {"Dense_0": "shared.0", "Dense_1": "scale", "Dense_2": "shift"}
+    out = {}
+    for path, leaf in _flatten(tree):
+        kind, i = path[0].rsplit("_", 1)
+        if kind == "DualBetaCondMLP":
+            base = {"Dense_0": "mlp.0", "Dense_1": "mlp.2"}[path[1]]
+        elif kind == "BetaScaleShift":
+            base = f"films.{i}.{film[path[1]]}"
+        elif kind == "Conv":
+            base = f"convs.{i}"
+        else:
+            base = _norm_base(f"norms.{i}", path)
+        key, arr = _disc_leaf(path, leaf)
+        out[f"{base}.{key}"] = arr
+    return out
+
+
 def discriminator_state_dict(flax_params) -> Dict[str, np.ndarray]:
-    """The JAX package's PatchGAN discriminator parameters (the nested dict
-    of ``disc.init``, with or without its ``params`` level, leaves as numpy)
-    -> the port's discriminator state dict (``models/discriminators.py``):
-    convs HWIO -> OIHW, dense kernels transposed, norm scales -> weights.
-    Takes ``TamingNLayerDiscriminator`` (top-level convs) and
+    """The JAX package's discriminator parameters (the nested dict of
+    ``disc.init``, with or without its ``params`` level, leaves as numpy)
+    -> the port's discriminator state dict (``models/discriminators.py``).
+    Takes ``TamingNLayerDiscriminator`` (top-level convs),
     ``DualBetaCondTamingNLayerDiscriminator`` (``Dense_*``, ``trunk``, the
-    y_hat branch's ``Conv_0``)."""
+    y_hat branch's ``Conv_0``), ``OasisDualBetaCondTamingNLayerDiscriminator``
+    (the latter under ``body``) and ``DualBetaFtTamingNLayerDiscriminator``."""
     from .discriminators import trunk_conv_position
 
     tree = flax_params.get("params", flax_params)
+    if "body" in tree:
+        return {f"body.{k}": v for k, v in discriminator_state_dict(tree["body"]).items()}
+    if "DualBetaCondMLP_0" in tree:
+        return _film_discriminator_state_dict(tree)
     dual = "trunk" in tree
     out = {}
     for path, leaf in _flatten(tree):
-        leaf = np.asarray(leaf)
-        name = path[-1]
         if dual and path[0] != "trunk":
             base = {"Dense_0": "cond_mlp.0", "Dense_1": "cond_mlp.2",
                     "Conv_0": "y_hat_conv"}[path[0]]
@@ -104,13 +148,8 @@ def discriminator_state_dict(flax_params) -> Dict[str, np.ndarray]:
             pos = trunk_conv_position(int(i) + (1 if kind == "_Norm" else 0))
             base = ("trunk.main." if dual else "main.") + str(
                 pos + (1 if kind == "_Norm" else 0))
-            if kind == "_Norm" and len(inner) > 2:      # a wrapped flax norm module
-                base += ".norm" if inner[1].startswith("LayerNorm") else ""
-        if name == "kernel":
-            leaf = np.transpose(leaf, (3, 2, 0, 1)) if leaf.ndim == 4 else leaf.T
-        key = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "loc": "loc", "mean": "running_mean", "var": "running_var"}[name]
-        if name == "scale" and len(path) >= 2 and path[-2].startswith("_Norm"):
-            key = "scale"                               # ActNorm's own parameters
-        out[f"{base}.{key}"] = np.ascontiguousarray(leaf)
+            if kind == "_Norm":
+                base = _norm_base(base, inner)
+        key, arr = _disc_leaf(path, leaf)
+        out[f"{base}.{key}"] = arr
     return out

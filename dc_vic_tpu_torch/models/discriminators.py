@@ -1,15 +1,19 @@
-"""Discriminators of the GAN stages (port of the PatchGAN part of
+"""Discriminators of the GAN stages (port of
 dc_vic_tpu/models/discriminators.py).
 
 The PatchGAN (pix2pix NLayer) trunk with a selectable normalization, and the
 dual-beta conditioned variant the shipped stage configs use: Fourier features
 of (beta_rate, beta_vq) through a two-layer MLP give a conditioning vector,
 broadcast over H and W and concatenated to the image channels, with an
-optional y_hat branch. NCHW modules; ``models/convert.py::
-discriminator_state_dict`` maps the JAX package's parameters onto them.
+optional y_hat branch. Two more variants: the FiLM one, which scales and
+shifts every inner layer by that vector instead, and the OASIS one, the
+dual-beta trunk with a per-pixel (n_embed + 1)-class head on the VQ token
+grid. NCHW modules; ``models/convert.py::discriminator_state_dict`` maps the
+JAX package's parameters onto them.
 """
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Dict, Optional
 
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import fourier_encode_beta, num_groups32
+from ..nn.layers import BetaScaleShift, beta_cond, beta_mlp, fourier_encode_beta, num_groups32
 from ..utils.registry import DISCRIMINATOR_REGISTRY
 
 
@@ -168,16 +172,70 @@ class DualBetaCondTamingNLayerDiscriminator(nn.Module):
         return self.trunk(h)
 
 
-def _not_ported(name: str):
-    def build(**kw):
-        raise NotImplementedError(
-            f"discriminator {name} is not ported to dc_vic_tpu_torch (ROADMAP.md queue 1, "
-            "item 5: variants)")
-    DISCRIMINATOR_REGISTRY.register(build, name)
+@DISCRIMINATOR_REGISTRY.register()
+class DualBetaFtTamingNLayerDiscriminator(nn.Module):
+    """PatchGAN conditioned by FiLM: the dual-beta MLP's vector scales and
+    shifts the output of every conv but the last (``BetaScaleShift``),
+    instead of joining the input channels. Takes ``y_hat`` and ignores it."""
+
+    def __init__(self, ndf: int = 64, out_nc: int = 1, n_layers: int = 3,
+                 norm_type: str = "none", max_beta_1: float = 3.0, max_beta_2: float = 3.5,
+                 L: int = 10, cond_ch: int = 64, use_pi: bool = False,
+                 include_x: bool = True, weight_init: bool = True, in_ch: int = 3):
+        super().__init__()
+        self.weight_init = weight_init
+        self.beta_args = (L, max_beta_1, max_beta_2, use_pi, include_x)
+        self.mlp = beta_mlp(cond_ch, L, include_x)
+        use_bias = norm_type != "batchnorm"
+        widths = [ndf * min(2 ** n, 8) for n in range(n_layers + 1)]
+        self.convs = nn.ModuleList(
+            [nn.Conv2d(in_ch, ndf, 4, 2, 1)]
+            + [nn.Conv2d(widths[n - 1], widths[n], 4, 2, 1, bias=use_bias)
+               for n in range(1, n_layers)]
+            + [nn.Conv2d(widths[n_layers - 1], widths[n_layers], 4, 1, 1, bias=use_bias),
+               nn.Conv2d(widths[n_layers], out_nc, 4, 1, 1)])
+        # the norms follow convs 1 .. n_layers; the FiLMs convs 0 .. n_layers
+        self.norms = nn.ModuleList(_Norm(norm_type, w) for w in widths[1:])
+        self.films = nn.ModuleList(BetaScaleShift(w, cond_ch) for w in widths)
+
+    def forward(self, x, beta_1, beta_2, y_hat=None):
+        cond = beta_cond(self.mlp, beta_1, beta_2, *self.beta_args)
+        h = x
+        for i, film in enumerate(self.films):
+            h = self.convs[i](h)
+            if i:
+                h = self.norms[i - 1](h)
+            h = F.leaky_relu(film(h, cond), 0.2)
+        return self.convs[-1](h)
 
 
-_not_ported("DualBetaFtTamingNLayerDiscriminator")
-_not_ported("OasisDualBetaCondTamingNLayerDiscriminator")
+@DISCRIMINATOR_REGISTRY.register()
+class OasisDualBetaCondTamingNLayerDiscriminator(nn.Module):
+    """OASIS (MS-ILLM) per-pixel discriminator: the dual-beta PatchGAN with
+    ``keep_shape`` and n_embed + 1 classes (class 0 "fake", class t + 1 the
+    VQ token t), its logits resized nearest to the token grid (H and W over
+    ``token_stride``). Takes ``y_hat`` and ignores it."""
+
+    def __init__(self, ndf: int = 64, n_embed: int = 256, n_layers: int = 3,
+                 norm_type: str = "none", max_beta_1: float = 3.0, max_beta_2: float = 3.5,
+                 L: int = 10, cond_ch: int = 8, use_pi: bool = False, include_x: bool = True,
+                 token_stride: int = 8, weight_init: bool = True, in_ch: int = 3):
+        super().__init__()
+        self.token_stride = token_stride
+        self.body = DualBetaCondTamingNLayerDiscriminator(
+            ndf=ndf, out_nc=n_embed + 1, n_layers=n_layers, keep_shape=True,
+            norm_type=norm_type, max_beta_1=max_beta_1, max_beta_2=max_beta_2, L=L,
+            cond_ch=cond_ch, use_pi=use_pi, include_x=include_x, weight_init=weight_init,
+            in_ch=in_ch)
+
+    def forward(self, x, beta_1, beta_2, y_hat=None):
+        logits = self.body(x, beta_1, beta_2)
+        size = (x.shape[2] // self.token_stride, x.shape[3] // self.token_stride)
+        if tuple(logits.shape[2:]) == size:
+            return logits
+        # "nearest-exact" samples at pixel centres, as jax.image.resize's
+        # "nearest" does; "nearest" would pick other rows
+        return F.interpolate(logits, size=size, mode="nearest-exact")
 
 
 @torch.no_grad()
@@ -191,8 +249,8 @@ def init_discriminator(disc: nn.Module, generator: torch.Generator) -> None:
         std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
         nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
 
-    dcgan = all(getattr(m, "weight_init", True) for m in disc.modules()
-                if isinstance(m, TamingNLayerDiscriminator))
+    # each class keeps its own flag: the FiLM discriminator has no trunk
+    dcgan = all(m.weight_init for m in disc.modules() if hasattr(m, "weight_init"))
     for m in disc.modules():
         if isinstance(m, nn.Conv2d):
             if dcgan:
@@ -212,8 +270,12 @@ def build_discriminator(opt: Dict, device="cuda") -> nn.Module:
     """Config -> discriminator on ``device`` (weights to be initialised with
     ``init_discriminator`` or loaded)."""
     cfg = dict(opt)
-    disc_type = cfg.pop("type")
+    cls = DISCRIMINATOR_REGISTRY.get(cfg.pop("type"))
     for k in ("input_nc", "use_actnorm", "norm_kwargs"):
         cfg.pop(k, None)
+    # the JAX package infers y_hat_in_ch from its input; a config may carry it
+    # for a class without a y_hat branch, which takes no such argument here
+    if "y_hat_in_ch" not in inspect.signature(cls).parameters:
+        cfg.pop("y_hat_in_ch", None)
     with torch.device(device):
-        return DISCRIMINATOR_REGISTRY.get(disc_type)(**cfg)
+        return cls(**cfg)

@@ -133,7 +133,8 @@ class _ElicFeatDecoder(nn.Module):
     def _build_layers(self, fusion_layer_dict, in_ch, feat_layer_name, out_ch, main_ch,
                       block_mid_ch, num_blocks, pixel_shuffle, res_in_res):
         if pixel_shuffle:
-            raise NotImplementedError("pixel-shuffle ELIC decoders are not ported")
+            raise NotImplementedError("pixel-shuffle ELIC decoders are not ported "
+                                      "(ROADMAP.md queue 1, item 2)")
         self.fusion_layer_dict = dict(fusion_layer_dict)
         self.feat_layer_name = feat_layer_name
         self.num_layers = self._num_layers(self.fusion_layer_dict, feat_layer_name)
@@ -396,7 +397,8 @@ class DualBlockSwinVqEstimator(nn.Module):
                  proj_pos: str = "before_rstb"):
         super().__init__()
         if act_type not in ("silu", "swish"):
-            raise NotImplementedError(f"estimator act_type {act_type!r} is not ported")
+            raise NotImplementedError(f"estimator act_type {act_type!r} is not ported "
+                                      "(ROADMAP.md queue 1, item 2)")
         if proj_pos not in ("before_rstb", "after_rstb"):
             raise ValueError(proj_pos)
         self.use_upsample = use_upsample

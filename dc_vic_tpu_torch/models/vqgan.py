@@ -283,7 +283,8 @@ class VQModel(nn.Module):
                       resolution=dd.get("resolution", 256),
                       z_channels=dd.get("z_channels", 4))
         if dd.get("double_z", False):
-            raise NotImplementedError("double_z VQGAN encoders are not ported")
+            raise NotImplementedError("double_z VQGAN encoders are not ported "
+                                      "(ROADMAP.md queue 1, item 2)")
         self.encoder = VQEncoder(in_channels=dd.get("in_channels", 3), **common)
         self.decoder = VQDecoder(out_ch=dd.get("out_ch", 3), **common)
         self.quantize = VectorQuantizer(n_embed, embed_dim)

@@ -53,6 +53,7 @@ import torch
 from ..codec.driver import Codec
 from ..models import RECON_KERNELS, build_comp_model, init_weights
 from ..utils.config import load_config
+from ..utils.profiling import kernel_times
 from .workload import DEPLOYMENT, deployment_images, scale_encoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -93,19 +94,10 @@ def round_trip(codec: Codec, images: np.ndarray):
 def device_times(codec: Codec, images: np.ndarray):
     """{kernel name: (device microseconds, calls)} of one round trip, and
     the wall seconds it took under the profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = sum(round_trip(codec, images)[:2])
-    out = {}
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        out[evt.key] = (float(us), int(evt.count))
-    return out, wall
+    return kernel_times(prof), wall
 
 
 def report(label: str, times: dict, wall: float, emit) -> None:

@@ -4,6 +4,8 @@
   stage 1_2          the same with per-sample dual-beta weights   -> rd_step
   stage 1_3, stage 3 GAN fine-tune of the decoder, the VQ estimator and the
                      fusion blocks, the entropy path frozen       -> gan_step
+  OASIS stage        the same against a per-pixel token-class
+                     discriminator                                -> gan_step(oasis=True)
 
 Each step does the main (g) update, the aux (quantile) update where the
 stage has one, and the reference's skip of a step whose loss is not finite
@@ -145,26 +147,37 @@ def _disc(disc, img, beta_rate, beta_vq, y_hat=None):
     return disc(img, beta_rate, beta_vq, y_hat)
 
 
+def _adv(gan_loss, d_out, target, is_real: bool, is_disc: bool) -> torch.Tensor:
+    """The adversarial term: the OASIS loss keyed on a token map where
+    ``target`` is one, else the loss of the logits alone."""
+    if target is not None:
+        return gan_loss(d_out, target, is_disc=is_disc, is_real=is_real)
+    return gan_loss(d_out, is_real=is_real, is_disc=is_disc)
+
+
 def gan_g_losses(model, disc, losses: Dict, batch, beta_rate, beta_vq,
-                 policy: BetaPolicy, noise: Noise, lpips_fn=None):
+                 policy: BetaPolicy, noise: Noise, lpips_fn=None, oasis: bool = False):
     """The GAN step's generator forward (entropy path frozen) and its loss
-    with the adversarial term: (total, terms, model outputs)."""
+    with the adversarial term: (total, terms, model outputs). ``oasis``
+    keys that term on the batch's token map (``OasisGANLoss``)."""
     out = model(batch, beta_rate, beta_vq, is_train=True, noise=noise,
                 fix_entropy_models=True)
     total, terms = _g_losses(losses, out, batch, beta_rate, beta_vq, policy,
                              include_rate=False, lpips_fn=lpips_fn)
     d_out = _disc(disc, out["fake_images"], beta_rate, beta_vq, out["quantized_code"]["y"])
-    terms["adv"] = losses["gan_loss"](d_out, is_real=True, is_disc=False)
+    terms["adv"] = _adv(losses["gan_loss"], d_out, out["gt_vq_indices"] if oasis else None,
+                        is_real=True, is_disc=False)
     return total + terms["adv"], terms, out
 
 
 def gan_d_loss(disc, gan_loss, real, fake, beta_rate, beta_vq, real_y_hat=None,
-               fake_y_hat=None) -> torch.Tensor:
-    """The discriminator's loss on reals and (detached) fakes."""
-    l_real = gan_loss(_disc(disc, real, beta_rate, beta_vq, real_y_hat),
-                      is_real=True, is_disc=True)
-    l_fake = gan_loss(_disc(disc, fake.detach(), beta_rate, beta_vq, fake_y_hat),
-                      is_real=False, is_disc=True)
+               fake_y_hat=None, real_tokens=None, fake_tokens=None) -> torch.Tensor:
+    """The discriminator's loss on reals and (detached) fakes; the OASIS
+    loss keys them on ``real_tokens`` and ``fake_tokens``."""
+    l_real = _adv(gan_loss, _disc(disc, real, beta_rate, beta_vq, real_y_hat), real_tokens,
+                  is_real=True, is_disc=True)
+    l_fake = _adv(gan_loss, _disc(disc, fake.detach(), beta_rate, beta_vq, fake_y_hat),
+                  fake_tokens, is_real=False, is_disc=True)
     return 0.5 * (l_real + l_fake)
 
 
@@ -199,12 +212,15 @@ def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPo
 
 def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPolicy,
              mc_sampling: bool = False, y_hat_cond: bool = False,
-             lpips_fn=None) -> Dict[str, torch.Tensor]:
+             lpips_fn=None, oasis: bool = False) -> Dict[str, torch.Tensor]:
     """One GAN step (stages 1_3 and 3): the generator's update against the
     discriminator as it is, then the discriminator's on the reals and the
     generator's (detached) fakes; both are skipped unless both losses are
     finite. ``mc_sampling`` trains D on the batch's second half as reals
-    and G on its first; ``y_hat_cond`` gives D the y_hat of each."""
+    and G on its first; ``y_hat_cond`` gives D the y_hat of each;
+    ``oasis`` keys the adversarial terms on VQ token maps: the fakes on the
+    generator batch's, the reals on the same map, or with ``mc_sampling``
+    on their own."""
     model, disc = state.model, state.disc
     gan_loss = losses["gan_loss"]
     if mc_sampling:
@@ -218,16 +234,22 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
     disc.requires_grad_(False)
     try:
         g_total, terms, out = gan_g_losses(model, disc, losses, g_batch, beta_rate, beta_vq,
-                                           policy, Noise(state.generator), lpips_fn)
+                                           policy, Noise(state.generator), lpips_fn, oasis)
         g_total.backward()
     finally:
         disc.requires_grad_(True)
-    # the encoder branch is frozen in the GAN stages, so the reals' y_hat is
-    # the same before and after the generator's update
+    # the encoder branch and the VQGAN are frozen in the GAN stages, so the
+    # reals' y_hat and token map are the same before and after the
+    # generator's update
     real_y_hat = model.extract_y_hat(d_real_batch, beta_rate, beta_vq) if y_hat_cond else None
     fake_y_hat = out["quantized_code"]["y"].detach() if y_hat_cond else None
+    fake_tokens = real_tokens = out["gt_vq_indices"] if oasis else None
+    if oasis and mc_sampling:
+        with torch.no_grad():
+            real_tokens = model.vq_encode(d_real_batch)[1]
     d_total = gan_d_loss(disc, gan_loss, d_real_batch, out["fake_images"], beta_rate,
-                         beta_vq, real_y_hat, fake_y_hat)
+                         beta_vq, real_y_hat, fake_y_hat, real_tokens=real_tokens,
+                         fake_tokens=fake_tokens)
     d_total.backward()
     ok = _finite(g_total.detach()) & _finite(d_total.detach())
     state.g_opt.step(ok=ok)

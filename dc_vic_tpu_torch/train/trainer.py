@@ -4,6 +4,8 @@ curriculum on one card):
   RateDistortionVqCodeTrainer              stage 1_1 (rd_step, no betas)
   DualBetaCondRateDistortionVqCodeTrainer  stage 1_2 (rd_step)
   DualBetaCondGanDistortionVqCodeTrainer   stages 1_3 and 3 (gan_step)
+  DualBetaCondOasisGanDistortionVqFusionTrainer
+                                           the OASIS stage (gan_step, oasis)
 
 The beta policy follows the model: a model without beta conditioning (stage
 1_1's HyperpriorCharmVicModel) samples no betas, takes the unweighted rate
@@ -61,11 +63,13 @@ _FLAGS = dict(allow_tf32=False, deterministic=False, benchmark=True)
 
 
 class Trainer:
-    """One stage of the curriculum; ``gan`` selects the GAN step."""
+    """One stage of the curriculum; ``gan`` selects the GAN step, ``oasis``
+    its token-keyed adversarial loss."""
 
-    def __init__(self, opt, gan: bool = False, device="cuda"):
+    def __init__(self, opt, gan: bool = False, oasis: bool = False, device="cuda"):
         self.opt = opt
         self.gan = gan
+        self.oasis = oasis
         self.device = torch.device(device)
         self.logger = get_root_logger()
         self.paths = PathHandler(opt.get("ckpt_root", "./checkpoint"), opt.get("exp", "exp"))
@@ -207,7 +211,7 @@ class Trainer:
         with backend_flags(**_FLAGS):
             if self.gan:
                 return gan_step(self.state, batch, self.losses, self.policy,
-                                self.mc_sampling, self.y_hat_cond, self.lpips_fn)
+                                self.mc_sampling, self.y_hat_cond, self.lpips_fn, self.oasis)
             return rd_step(self.state, batch, self.losses, self.policy, self.lpips_fn)
 
     @staticmethod
@@ -387,14 +391,6 @@ class Trainer:
         return paths
 
 
-def _not_ported(name: str):
-    def build(opt, device="cuda"):
-        raise NotImplementedError(
-            f"trainer {name} is not ported to dc_vic_tpu_torch (ROADMAP.md queue 1, item 5: "
-            "the OASIS stage)")
-    TRAINER_REGISTRY.register(build, name)
-
-
 @TRAINER_REGISTRY.register()
 def RateDistortionVqCodeTrainer(opt, device="cuda"):
     return Trainer(opt, gan=False, device=device)
@@ -410,7 +406,9 @@ def DualBetaCondGanDistortionVqCodeTrainer(opt, device="cuda"):
     return Trainer(opt, gan=True, device=device)
 
 
-_not_ported("DualBetaCondOasisGanDistortionVqFusionTrainer")
+@TRAINER_REGISTRY.register()
+def DualBetaCondOasisGanDistortionVqFusionTrainer(opt, device="cuda"):
+    return Trainer(opt, gan=True, oasis=True, device=device)
 
 
 def build_trainer(opt, device="cuda") -> Trainer:

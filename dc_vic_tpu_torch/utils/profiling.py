@@ -1,0 +1,128 @@
+"""Tracing and per-stage timing (port of dc_vic_tpu/utils/profiling.py).
+
+``device_trace`` records a ``torch.profiler`` trace of the CPU and the card
+and writes it as a Chrome trace; ``kernel_times`` sums a profile's device
+time by kernel name and ``kernel_report`` lists it. ``StageTimer``
+accumulates host-clock seconds per named stage, each stage ending in a wait
+for the device work it names (``sync``), so that a stage's time is its own
+on a device that runs asynchronously.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict
+from typing import Dict, Iterator, List, Tuple
+
+import torch
+
+
+def _devices(tree, out: set) -> set:
+    """The CUDA devices of the tensors (and devices) in a nest of lists,
+    tuples and dicts."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            out.add(tree.device)
+    elif isinstance(tree, torch.device):
+        if tree.type == "cuda":
+            out.add(tree)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _devices(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _devices(v, out)
+    return out
+
+
+def sync(tree) -> None:
+    """Wait for all work queued on the CUDA devices of ``tree``'s tensors
+    (a tensor, a ``torch.device``, or lists, tuples and dicts of them); CPU
+    tensors need no wait."""
+    for dev in _devices(tree, set()):
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str) -> Iterator[torch.profiler.profile]:
+    """Profile the block's CPU work and, where a card is present, its
+    device work; on exit write the trace to ``log_dir/trace.json``
+    (chrome://tracing or Perfetto). Yields the profile, for
+    ``kernel_times``."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def kernel_times(prof) -> Dict[str, Tuple[float, int]]:
+    """{kernel name: (device microseconds, launches)} of a finished
+    profile, device events only."""
+    from torch.autograd import DeviceType
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        out[evt.key] = (float(us), int(evt.count))
+    return out
+
+
+def kernel_report(times: Dict[str, Tuple[float, int]], top: int = 20) -> List[str]:
+    """Lines of ``kernel_times``' result: the total device time and
+    launches, then the ``top`` kernels by device time with their share."""
+    total = sum(us for us, _ in times.values())
+    lines = [f"device time {total / 1e3:.3f} ms in {sum(n for _, n in times.values())} "
+             f"kernel launches"]
+    for name, (us, n) in sorted(times.items(), key=lambda kv: -kv[1][0])[:top]:
+        lines.append(f"{100 * us / max(total, 1e-9):6.2f}%  {us / 1e3:10.3f} ms  {n:6d}  "
+                     f"{name[:110]}")
+    return lines
+
+
+class StageTimer:
+    """Accumulates host-clock seconds per named stage across iterations."""
+
+    def __init__(self, enabled: bool = True):
+        self.enabled = enabled
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.counts: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync_tree=None) -> Iterator[None]:
+        """Time the block; with ``sync_tree`` the time ends when the device
+        work of its tensors (``sync``) has finished."""
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync_tree is not None:
+                sync(sync_tree)
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def report(self) -> Dict[str, Dict[str, float]]:
+        return {
+            k: {"total_sec": self.totals[k], "count": self.counts[k],
+                "mean_sec": self.totals[k] / max(1, self.counts[k])}
+            for k in sorted(self.totals)
+        }
+
+    def reset(self) -> None:
+        self.totals.clear()
+        self.counts.clear()
+
+    def log(self, logger) -> None:
+        for k, v in self.report().items():
+            logger.info(f"[stage] {k}: {v['mean_sec'] * 1000:.1f} ms/call "
+                        f"x{v['count']} ({v['total_sec']:.2f}s total)")

@@ -14,6 +14,8 @@ few conv biases whose gradient is zero in exact arithmetic
 (``train_helpers.zero_by_construction``) are held below 1e-3 of their
 weight's gradient in both packages instead.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,8 @@ from dc_vic_tpu.models import build_comp_model as jax_build
 from dc_vic_tpu.models.convert import export_state_dict
 from dc_vic_tpu.models.discriminators import (DualBetaCondTamingNLayerDiscriminator,
                                               TamingNLayerDiscriminator)
+from dc_vic_tpu.train.trainer import TRAINER_REGISTRY as JAX_TRAINERS
+from dc_vic_tpu.utils.registry import DISCRIMINATOR_REGISTRY as JAX_DISCRIMINATORS
 from dc_vic_tpu.train.losses import build_loss as jax_build_loss
 from dc_vic_tpu.train.steps import BetaPolicy as JaxPolicy
 from dc_vic_tpu.train.steps import _g_losses as jax_g_losses
@@ -51,6 +55,7 @@ LOSSES = {
 DISC = dict(ndf=8, n_layers=3, cond_ch=4, L=4, norm_type="none", max_beta_1=3.0,
             max_beta_2=3.5)
 POLICY = dict(use_beta=True, sample_batch_beta=True, weight_type="exp")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
@@ -152,12 +157,45 @@ def test_patchgan_trunk_matches_jax(norm_type):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_unported_discriminators_and_trainers_raise():
+def _trainer_opt(tmp, trainer_type):
+    """config/exp1_stage1_3.yaml at the tiny widths with ``trainer_type``,
+    on one .npy training image and one evaluation image."""
+    from dc_vic_tpu_torch.utils.config import Config, load_config
+    for sub in ("train_0", "kodak"):
+        os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+        np.save(os.path.join(tmp, sub, "img0.npy"), np.zeros((64, 64, 3), np.uint8))
+    opt = load_config(os.path.join(ROOT, "config", "exp1_stage1_3.yaml"), is_train=True)
+    opt["subnet"] = Config._wrap(tiny_config().to_plain()["subnet"])
+    opt["trainer"]["type"] = trainer_type
+    opt["ckpt_root"] = os.path.join(tmp, "ckpt")
+    opt["load_checkpoint"] = None
+    data = opt["dataset"]
+    data["batch_size"] = 1
+    data["train_dataset"].update(root_dir=tmp, subset_list=[0], image_size=64)
+    data["eval_dataset"]["root_dir"] = os.path.join(tmp, "kodak")
+    return opt
+
+
+@pytest.mark.parametrize("name", sorted(JAX_DISCRIMINATORS.keys()))
+def test_every_jax_discriminator_builds(name):
+    """Each discriminator the JAX package registers builds in the port from
+    a config with the keys the JAX package drops (``input_nc``, and
+    ``y_hat_in_ch`` where the class has no y_hat branch) and gives finite
+    logits."""
+    d = port_disc.build_discriminator({"type": name, "ndf": 8, "input_nc": 11,
+                                       "y_hat_in_ch": 24}, device="cpu")
+    port_disc.init_discriminator(d, torch.Generator().manual_seed(0))
+    x, b = torch.zeros(1, 3, 64, 64), torch.ones(1)
+    with torch.no_grad():
+        out = d(x) if name == "TamingNLayerDiscriminator" else d(x, b, b)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("name", sorted(JAX_TRAINERS.keys()))
+def test_every_jax_trainer_builds(name, tmp_path):
+    """Each trainer the JAX package registers builds in the port on the
+    CPU, with the step its name selects."""
     from dc_vic_tpu_torch.train.trainer import build_trainer
-    for name in ("DualBetaFtTamingNLayerDiscriminator",
-                 "OasisDualBetaCondTamingNLayerDiscriminator"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            port_disc.build_discriminator({"type": name}, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        build_trainer({"trainer": {"type": "DualBetaCondOasisGanDistortionVqFusionTrainer"}},
-                      device="cpu")
+    tr = build_trainer(_trainer_opt(str(tmp_path), name), device="cpu")
+    assert tr.gan == ("Gan" in name) and tr.oasis == ("Oasis" in name)
+    assert (tr.state.disc is not None) == tr.gan
