@@ -31,7 +31,13 @@
    and with tier-2 escapes: equal bytes, symbols, cursors and lane states,
    all lanes back at 2^16 after the last section, equal bits on a second
    run; a stream that breaks a header guarantee must fail the integrity
-   check. Integers: no tolerance.
+   check. The same at the edges of the kernels' partitions
+   (RANS_EDGE_CASES): batch 1 and 16, lane counts 32 to 4096 (R2's rounds),
+   dense escapes and escapes on the first and last lane of every warp.
+   Integers: no tolerance. Then both timed at batch 4 and 16, lane caps
+   128 and 512 (R1's four launches apart under torch.profiler, R2's time a
+   step against its single-warp step), and the pair K3 + K4 beside
+   F.group_norm and F.silu (item 2).
 6. Drives the flagship model in the tpu format, host and device encode
    backends (identical strings), lanes 128 and 512, default model and
    reconstruction kernels on: R1 launches twice per compress (y and z), R2
@@ -220,7 +226,9 @@ launches_bf16_batch16. R1 and R2 are bound by
 neither bytes nor operations but by their dependent chain: their entries
 carry chain_ms, the steps of the longest chain times the time of one step as
 measured with a single warp (batch 1, 32 lanes), where nothing but latency
-is left.
+is left, and chain_fixed_ms, the same steps times a fixed step latency
+(R1_STEP_FIXED_US, R2_STEP_FIXED_US) that does not move with the kernel
+under test; "timed" holds both at every batch and lane count timed.
 
 Any failure raises and the script exits non-zero. It needs CUDA and fails
 without it. The last line is a JSON object naming the device.
@@ -422,7 +430,6 @@ def check_gn(gn, dev, gen):
     1e-2 in bf16 (one step of the output type). Both twice: equal bits.
     Timed at [4, 128, 768, 512] f32, the largest plane of the path."""
     import torch
-    import torch.nn.functional as F
     k3 = k4 = None
     for shape, dtype_name in GN_SHAPES:
         dtype = getattr(torch, dtype_name)
@@ -481,20 +488,40 @@ def check_gn(gn, dev, gen):
                   "plain_ms": _time_ms(gn.apply_affine_plain, x, scale, bias, "swish"),
                   **b4, "library_ms": None}
             # no single PyTorch call computes K3's or K4's function; the pair
-            # (GroupNorm + swish) is F.group_norm then F.silu
+            # is F.group_norm, then F.silu for the swish variant
             gamma = torch.rand(shape[1], generator=gen, device=dev) + 0.5
             beta = torch.randn(shape[1], generator=gen, device=dev) * 0.1
-            pair = lambda: gn.group_norm(x, gamma, beta, 32, 1e-6, "swish")
-            lib = lambda: F.silu(F.group_norm(x, 32, gamma, beta, 1e-6))
-            torch.testing.assert_close(pair(), lib(), atol=2e-5, rtol=2e-5)
-            print(f"K3+K4 as GroupNorm+swish at {list(shape)}: {_time_ms(pair):.3f} ms; "
-                  f"F.silu(F.group_norm(.)) {_time_ms(lib):.3f} ms (2e-5 apart at most)")
+            pairs = group_norm_pairs(gn, x, gamma, beta, 2e-5)
+            k3.update(pairs)
+            k4.update(pairs)
         del x, sums, plain, want, ref_scale
     print(f"K3 at {list(GN_SHAPES[0][0])}: kernel {k3['ms']:.3f} ms, plain "
           f"{k3['plain_ms']:.3f} ms, bound {k3['bound_ms']:.3f} ms ({k3['bound_by']})")
     print(f"K4 at {list(GN_SHAPES[0][0])}: kernel {k4['ms']:.3f} ms, plain "
           f"{k4['plain_ms']:.3f} ms, bound {k4['bound_ms']:.3f} ms ({k4['bound_by']})")
     return k3, k4
+
+
+def group_norm_pairs(gn, x, gamma, beta, tol):
+    """K3 + K4 with the glue between them, as nn/layers.py::GroupNorm runs
+    them (32 groups, eps 1e-6, without and with swish), against the library
+    route on the same input: F.group_norm, then F.silu. Held within ``tol``
+    of each other; returns the four times."""
+    import torch
+    import torch.nn.functional as F
+    g, b = gamma.to(x.dtype), beta.to(x.dtype)
+    out = {}
+    for act, lib in ((None, lambda: F.group_norm(x, 32, g, b, 1e-6)),
+                     ("swish", lambda: F.silu(F.group_norm(x, 32, g, b, 1e-6)))):
+        pair = lambda: gn.group_norm(x, gamma, beta, 32, 1e-6, act)
+        torch.testing.assert_close(pair(), lib(), atol=tol, rtol=tol)
+        key = "" if act is None else "_swish"
+        out[f"pair{key}_ms"], out[f"pair{key}_library_ms"] = _time_ms(pair), _time_ms(lib)
+    print(f"K3+K4 with the GroupNorm glue at {list(x.shape)} {str(x.dtype)[6:]}: "
+          f"{out['pair_ms']:.3f} ms, with swish {out['pair_swish_ms']:.3f} ms; F.group_norm "
+          f"{out['pair_library_ms']:.3f} ms, F.silu(F.group_norm(.)) "
+          f"{out['pair_swish_library_ms']:.3f} ms ({tol:g} apart at most)")
+    return out
 
 
 CONV_SHAPES = [((4, 128, 128, 768, 512), "float32"), ((4, 256, 256, 384, 256), "float32"),
@@ -613,12 +640,28 @@ def launch_floor_ms(native):
 Y_PLANES = (4, 192, 48, 32)     # y of four 768x512 images: six sections of 32 channels
 Z_PLANES = (4, 192, 12, 8)      # z of the same: one section, CDF row = channel
 RANS_MIXES = ("no escapes", "tier-1 escapes", "tier-2 escapes")
+# mixes whose payloads pass 0xFFFF: int32 planes and tier-2 words
+RANS_WIDE = ("tier-2 escapes", "escape-heavy", "edge escapes")
+# (planes, sections, lane cap, mix) at the partition edges of R1 and R2:
+# batch 1 and 16; one warp of lanes, 256, and the rounds of R2 at 1024,
+# 2048 and 4096 lanes; escapes dense, or on the first and last lane of every
+# warp (and so of every 64-lane block of R1's state kernel)
+RANS_EDGE_CASES = [((1, 192, 48, 32), 6, 512, "edge escapes"),
+                   ((16, 192, 48, 32), 6, 512, "escape-heavy"),
+                   ((4, 192, 48, 32), 6, 32, "edge escapes"),
+                   ((4, 192, 48, 32), 6, 256, "escape-heavy"),
+                   ((4, 192, 48, 32), 6, 1024, "edge escapes"),
+                   ((2, 192, 48, 32), 1, 2048, "escape-heavy"),
+                   ((2, 192, 48, 32), 1, 4096, "edge escapes")]
 
 
-def _rans_planes(rng, table, shape, mix, factorised):
+def _rans_planes(rng, table, shape, mix, factorised, S=1, L=32):
     """Symbol and index planes on the host: each symbol drawn inside its
     row's range; then 2% of them up to +-20000 (one tier-1 word each), then
-    0.5% of them up to +-40000 (payloads past 0xFFFF: two tier-2 words)."""
+    0.5% of them up to +-40000 (payloads past 0xFFFF: two tier-2 words).
+    "escape-heavy": 30% and 3% instead. "edge escapes": every symbol on the
+    first or last lane of a 32-lane group (S sections, L lanes) escapes,
+    tier-1 on even steps and tier-2 on odd ones."""
     B, C, H, W = shape
     rows = len(table.offsets)
     if factorised:
@@ -630,13 +673,23 @@ def _rans_planes(rng, table, shape, mix, factorised):
     centre = maxv // 2
     value = np.clip(np.round(centre + rng.normal(0, 1, shape) * width), 0, maxv - 1)
     sym = (value + np.asarray(table.offsets)[idx]).astype(np.int32)
-    if mix != "no escapes":
+    if mix in ("tier-1 escapes", "tier-2 escapes"):
         hot = rng.random(shape) < 0.02
         sym = np.where(hot, rng.integers(-20000, 20000, shape), sym)
     if mix == "tier-2 escapes":
         hot = rng.random(shape) < 0.005
         sym = np.where(hot, rng.integers(-40000, 40000, shape), sym)
         sym[0, 0, 0, 1], sym[-1, -1, -1, -2] = 40000, -40000
+    if mix == "escape-heavy":
+        sym = np.where(rng.random(shape) < 0.3, rng.integers(-20000, 20000, shape), sym)
+        sym = np.where(rng.random(shape) < 0.03, rng.integers(-40000, 40000, shape), sym)
+    if mix == "edge escapes":
+        sc = C // S
+        p = np.arange(H * W)[None, :] * sc + (np.arange(C) % sc)[:, None]    # stream position
+        lane, step = p % L, p // L
+        edge = (lane % 32 == 0) | (lane % 32 == 31)
+        value = np.where(step % 2 == 0, 20000, 40000) * np.where(lane % 2 == 0, 1, -1)
+        sym = np.where(edge.reshape(1, C, H, W), value.reshape(1, C, H, W), sym)
     return sym.astype(np.int32), (None if factorised else idx.astype(np.uint8))
 
 
@@ -648,11 +701,11 @@ def _rans_case(rd, rans_host, dev, host_table, table, shape, S, lanes, mix, rng,
     import torch
     B, C, H, W = shape
     sc = C // S
-    sym_np, idx_np = _rans_planes(rng, host_table, shape, mix, factorised)
-    wide = mix == "tier-2 escapes"          # +-40000 does not fit the model's int16 planes
+    L = rd.section_lanes(sc * H * W, lanes)
+    sym_np, idx_np = _rans_planes(rng, host_table, shape, mix, factorised, S, L)
+    wide = mix in RANS_WIDE                 # +-40000 does not fit the model's int16 planes
     sym = torch.from_numpy(sym_np if wide else sym_np.astype(np.int16)).to(dev)
     idx = None if idx_np is None else torch.from_numpy(idx_np).to(dev)
-    L = rd.section_lanes(sc * H * W, lanes)
 
     packed, offsets, counts, esc, big = rd.encode_pack(sym, idx, S, lanes, table)
     again = rd.encode_pack(sym, idx, S, lanes, table)
@@ -750,9 +803,9 @@ def _rans_poison_cases(rd, Codec, dev, host_table, table):
 
 def check_rans(rd, rans_host, Codec, dev):
     """R1 and R2 against their plain versions and the host coder (see the
-    module docstring, item 5), then their times at the main path's y
-    shapes, lanes 128: R1 over the whole six-section stream, R2 over one
-    section. Returns the two kernel entries."""
+    module docstring, item 5), also at the edges of their partitions
+    (RANS_EDGE_CASES), then ``time_rans``. Returns the two kernel
+    entries."""
     import torch
     from dc_vic_tpu_torch.codec.bottleneck import EntropyBottleneck, build_bottleneck_cdf
     from dc_vic_tpu_torch.codec.gaussian import GaussianConditional, get_scale_table
@@ -778,58 +831,125 @@ def check_rans(rd, rans_host, Codec, dev):
                "tier-1 escapes", rng, "R1/R2 one wide section, lanes 4096, tier-1 escapes")
     _rans_poison_cases(rd, Codec, dev, y_host, y_table)
 
-    B, C, H, W = Y_PLANES
+    rng = np.random.default_rng(12)
+    for shape, S, lanes, mix in RANS_EDGE_CASES:
+        L = rd.section_lanes(shape[1] // S * shape[2] * shape[3], lanes)
+        _rans_case(rd, rans_host, dev, y_host, y_table, shape, S, lanes, mix, rng,
+                   f"R1/R2 at a partition edge: {list(shape)} in {S} section(s), lanes {L}, "
+                   f"{mix}")
+    return time_rans(rd, y_host, y_table, kept, dev)
+
+
+# Single-warp step latencies (batch 1, 32 lanes) of the earlier design of R1
+# and R2, one block per image, measured on an NVIDIA H100 80GB HBM3 at
+# 700 W: a fixed yardstick for the dependent chain, since a design that
+# shortens its step also shortens the chain measured with its own step.
+R1_STEP_FIXED_US = 0.50
+R2_STEP_FIXED_US = 1.03
+RANS_TIMED = ((4, 128), (4, 512), (16, 128), (16, 512))     # (batch, lane cap)
+R1_PHASES = ("rans_encode_symbols_kernel", "rans_encode_states_kernel",
+             "rans_encode_scan_kernel", "rans_encode_scatter_kernel")
+
+
+def time_rans(rd, y_host, y_table, kept, dev):
+    """R1 over the six-section y stream and R2 over its first section, at
+    the batches and lane caps of RANS_TIMED, beside their dependent chains:
+    the steps times the fixed single-warp step (R1_STEP_FIXED_US,
+    R2_STEP_FIXED_US) and times this build's own single-warp step. R1's four
+    launches are timed apart under torch.profiler; R2's time a step is held
+    against its single-warp step. The plain versions at batch 4, lanes 128.
+    Returns the two kernel entries (ms: batch 4, lanes 128)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dc_vic_tpu_torch.utils.profiling import kernel_times
+    _, C, H, W = Y_PLANES
     S, sc = 6, C // 6
-    zero = torch.zeros(B, dtype=torch.int32, device=dev)
-    timed = {}
-    for lanes in (128, 512):
-        sym, idx, words, base, counts = kept[lanes, "no escapes"]
-        L = rd.section_lanes(sc * H * W, lanes)
-        idx0 = idx[:, :sc].contiguous()
-        sections = [(rd.to_stream(sym[:, s * sc:(s + 1) * sc], L),
-                     rd.to_stream(idx[:, s * sc:(s + 1) * sc], L)) for s in range(S)]
-        timed[lanes] = dict(
-            L=L, steps=sc * H * W // L, words=int(counts.sum()),
-            r1=_time_ms(rd.encode_pack, sym, idx, S, lanes, y_table),
-            r2=_time_ms(rd.decode_section, words, base, zero, None, idx0, (B, sc, H, W),
-                        lanes, y_table),
-            r1_plain=_time_ms(lambda: rd.pack_streams_plain(
-                *rd.encode_stream_plain(sections, y_table)[:2]), reps=1),
-            r2_plain=_time_ms(rd.decode_section_plain, words, base, zero, None,
-                              sections[0][1], y_table, reps=1))
-    # one step's latency: a single warp (batch 1, 32 lanes) leaves nothing else
-    sym1, idx1 = kept[128, "no escapes"][0][:1].contiguous(), kept[128, "no escapes"][1][:1].contiguous()
-    p1, o1, c1, _, _ = rd.encode_pack(sym1, idx1, S, 32, y_table)
-    w1 = p1[:int(c1[0])].contiguous()
-    one_steps = sc * H * W // 32
+    n_sec = sc * H * W
+    sym1, idx1 = (t[:1].contiguous() for t in kept[128, "no escapes"][:2])
+    p1, _, c1, _, _ = rd.encode_pack(sym1, idx1, S, 32, y_table)
     z1 = torch.zeros(1, dtype=torch.int32, device=dev)
-    r1_step = _time_ms(rd.encode_pack, sym1, idx1, S, 32, y_table) / (S * one_steps)
-    r2_step = _time_ms(rd.decode_section, w1, z1, z1, None, idx1[:, :sc].contiguous(),
-                       (1, sc, H, W), 32, y_table) / one_steps
-    for lanes, t in timed.items():
-        print(f"R1 rans_encode_pack y {list(Y_PLANES)} lanes {lanes} ({S * t['steps']} steps): "
-              f"kernel {t['r1']:.4f} ms, plain {t['r1_plain']:.1f} ms; R2 rans_decode_section "
-              f"one section ({t['steps']} steps): kernel {t['r2']:.4f} ms, plain "
-              f"{t['r2_plain']:.1f} ms")
-    print(f"one step of the chain with a single warp: R1 {r1_step * 1e3:.3f} us, "
-          f"R2 {r2_step * 1e3:.3f} us")
-    t = timed[128]
-    n_sym = B * C * H * W
+    r1_step = _time_ms(rd.encode_pack, sym1, idx1, S, 32, y_table) / (S * n_sec // 32)
+    r2_step = _time_ms(rd.decode_section, p1[:int(c1[0])].contiguous(), z1, z1, None,
+                       idx1[:, :sc].contiguous(), (1, sc, H, W), 32, y_table) / (n_sec // 32)
+    print(f"one step of the chain with a single warp (batch 1, 32 lanes): R1 "
+          f"{r1_step * 1e3:.3f} us, R2 {r2_step * 1e3:.3f} us; the fixed yardstick R1 "
+          f"{R1_STEP_FIXED_US} us, R2 {R2_STEP_FIXED_US} us")
+    s16, i16 = _rans_planes(np.random.default_rng(16), y_host, (16, C, H, W), "no escapes",
+                            False)
+    planes = {4: kept[128, "no escapes"][:2],
+              16: (torch.from_numpy(s16.astype(np.int16)).to(dev), torch.from_numpy(i16).to(dev))}
+    timed = {}
+    for B, lanes in RANS_TIMED:
+        sym, idx = planes[B]
+        L = rd.section_lanes(n_sec, lanes)
+        steps = n_sec // L
+        packed, offsets, counts, _, _ = rd.encode_pack(sym, idx, S, lanes, y_table)
+        words = torch.cat([packed[int(o):int(o) + int(n)] for o, n in zip(offsets, counts)])
+        base = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+        zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        idx0 = idx[:, :sc].contiguous()
+
+        def enc():
+            return rd.encode_pack(sym, idx, S, lanes, y_table)
+
+        def dec():
+            return rd.decode_section(words, base, zero, None, idx0, (B, sc, H, W), lanes, y_table)
+        t = {"batch": B, "lanes": L, "steps": steps, "words": int(counts.sum()),
+             "r1": _time_ms(enc, reps=20), "r2": _time_ms(dec, reps=20)}
+        enc()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                enc()
+            torch.cuda.synchronize()
+        times = kernel_times(prof)
+        t["r1_phases"] = {ph: sum(us for k, (us, _) in times.items() if ph in k) / 1e4
+                          for ph in R1_PHASES}
+        if (B, lanes) == (4, 128):
+            sections = [(rd.to_stream(sym[:, s * sc:(s + 1) * sc], L),
+                         rd.to_stream(idx[:, s * sc:(s + 1) * sc], L)) for s in range(S)]
+            t["r1_plain"] = _time_ms(lambda: rd.pack_streams_plain(
+                *rd.encode_stream_plain(sections, y_table)[:2]), reps=1)
+            t["r2_plain"] = _time_ms(rd.decode_section_plain, words, base, zero, None,
+                                     sections[0][1], y_table, reps=1)
+        t["r1_chain_fixed"] = S * steps * R1_STEP_FIXED_US / 1e3
+        t["r1_chain"] = S * steps * r1_step
+        t["r2_chain_fixed"] = steps * R2_STEP_FIXED_US / 1e3
+        t["r2_chain"] = steps * r2_step
+        timed[B, lanes] = t
+        ph = ", ".join(f"{k[len('rans_encode_'):-len('_kernel')]} {v:.4f}"
+                       for k, v in t["r1_phases"].items())
+        print(f"R1 rans_encode_pack y [{B}, {C}, {H}, {W}] six sections, lanes {L} "
+              f"({S * steps} steps): kernel {t['r1']:.4f} ms (launches by device time: {ph} "
+              f"ms); chain {t['r1_chain_fixed']:.4f} ms at the fixed step "
+              f"({t['r1_chain_fixed'] / t['r1']:.0%} of the kernel), {t['r1_chain']:.4f} ms at "
+              f"its own ({t['r1_chain'] / t['r1']:.0%})")
+        print(f"R2 rans_decode_section one section [{B}, {sc}, {H}, {W}], lanes {L} ({steps} "
+              f"steps): kernel {t['r2']:.4f} ms, {t['r2'] / steps * 1e3:.3f} us a step against "
+              f"{r2_step * 1e3:.3f} us with a single warp; chain {t['r2_chain_fixed']:.4f} ms at "
+              f"the fixed step ({t['r2_chain_fixed'] / t['r2']:.0%} of the kernel), "
+              f"{t['r2_chain']:.4f} ms at its own ({t['r2_chain'] / t['r2']:.0%})")
+    t = timed[4, 128]
+    print(f"plain versions at batch 4, lanes 128: R1 {t['r1_plain']:.1f} ms, R2 "
+          f"{t['r2_plain']:.1f} ms")
+    n_sym = Y_PLANES[0] * C * H * W
+    rows = [{k: v for k, v in row.items() if k not in ("r1_plain", "r2_plain")}
+            for row in timed.values()]
     # bytes: each symbol (2) and index (1) read once, each word written (R1)
     # or read (R2) once, R2's symbols written; operations: about 12 integer
     # operations a symbol, held against the f32 rate outside the tensor cores
-    r1 = {"name": "rans_encode_pack", "route": "cuda",
-          "source": "dc_vic_tpu_torch/csrc/rans_device.cu",
-          "replaces": "dc_vic_tpu/ops/rans_device.py:222", "max_abs_err": 0.0,
+    common = {"route": "cuda", "source": "dc_vic_tpu_torch/csrc/rans_device.cu",
+              "max_abs_err": 0.0, "library_ms": None, "timed": rows}
+    r1 = {"name": "rans_encode_pack", "replaces": "dc_vic_tpu/ops/rans_device.py:222",
           "ms": t["r1"], "plain_ms": t["r1_plain"],
-          **bounds(3 * n_sym + 2 * t["words"], 12 * n_sym), "library_ms": None,
-          "chain_ms": S * t["steps"] * r1_step, "ms_lanes512": timed[512]["r1"]}
-    r2 = {"name": "rans_decode_section", "route": "cuda",
-          "source": "dc_vic_tpu_torch/csrc/rans_device.cu",
-          "replaces": "dc_vic_tpu/ops/rans_device.py:366", "max_abs_err": 0.0,
+          **bounds(3 * n_sym + 2 * t["words"], 12 * n_sym), "chain_ms": t["r1_chain"],
+          "chain_fixed_ms": t["r1_chain_fixed"], "step_us": r1_step * 1e3,
+          "ms_lanes512": timed[4, 512]["r1"], **common}
+    r2 = {"name": "rans_decode_section", "replaces": "dc_vic_tpu/ops/rans_device.py:366",
           "ms": t["r2"], "plain_ms": t["r2_plain"],
-          **bounds((3 * n_sym + 2 * t["words"]) // S, 12 * n_sym // S), "library_ms": None,
-          "chain_ms": t["steps"] * r2_step, "ms_lanes512": timed[512]["r2"]}
+          **bounds((3 * n_sym + 2 * t["words"]) // S, 12 * n_sym // S),
+          "chain_ms": t["r2_chain"], "chain_fixed_ms": t["r2_chain_fixed"],
+          "step_us": r2_step * 1e3, "ms_lanes512": timed[4, 512]["r2"], **common}
     return r1, r2
 
 
@@ -898,13 +1018,10 @@ def check_bf16_kernels(gn, conv3x3, dev, gen):
           "bound_ms": b4, "bound_by": "bytes", **common}
     gamma = torch.rand(C, generator=gen, device=dev) + 0.5
     beta = torch.randn(C, generator=gen, device=dev) * 0.1
-    pair = lambda: gn.group_norm(x, gamma, beta, 32, 1e-6, "swish")
-    lib = lambda: F.silu(F.group_norm(x, 32, gamma.to(bf), beta.to(bf), 1e-6))
-    torch.testing.assert_close(pair(), lib(), atol=5e-2, rtol=5e-2)
-    pair_ms, lib_ms = _time_ms(pair), _time_ms(lib)
-    k3["pair_ms"], k3["pair_library_ms"] = pair_ms, lib_ms
-    print(f"K3+K4 as GroupNorm+swish at {label}: {pair_ms:.3f} ms; F.silu(F.group_norm(.)) in "
-          f"bf16 {lib_ms:.3f} ms (0.05 apart at most: the library rounds to bf16 twice)")
+    # 0.05 apart at most: the library rounds to bf16 twice
+    pairs = group_norm_pairs(gn, x, gamma, beta, 5e-2)
+    k3.update(pairs)
+    k4.update(pairs)
 
     x = torch.randn(B, C, H, W, generator=gen, device=dev).to(bf)
     w = (torch.randn(Cout, C, 3, 3, generator=gen, device=dev) * 0.05).to(bf)

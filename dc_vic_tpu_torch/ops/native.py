@@ -131,10 +131,10 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.dcvic_launch_floor.argtypes = [i, i, p]
     lib.dcvic_rans_encode_pack.restype = i
     lib.dcvic_rans_encode_pack.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i,
-                                           p, p, p, i, p, p, p, p]
+                                           p, p, p, i, p, i, p, p, p, p]
     lib.dcvic_rans_decode_section.restype = i
-    lib.dcvic_rans_decode_section.argtypes = [p, ll, p, p, p, p, p, p, p, p, i, i,
-                                              i, i, i, i, i, i, p, p, p, p, p]
+    lib.dcvic_rans_decode_section.argtypes = [p, ll, p, p, p, p, p, p, p, p, p, p, i,
+                                              i, i, i, i, i, i, i, i, i, p, p, p, p, p]
 
 
 def kernels() -> ctypes.CDLL:

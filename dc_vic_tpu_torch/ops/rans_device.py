@@ -27,7 +27,8 @@ What is here:
 * ``encode_pack`` and ``decode_section``: the entry points the codec calls,
   on the model's NCHW tensors. A CPU tensor takes the plain versions; a CUDA
   tensor launches kernel R1 resp. R2 of ``csrc/rans_device.cu``; anything
-  else raises.
+  else raises. ``encode_scratch`` and ``decode_threads`` give the
+  kernels' scratch sizes and launch geometry.
 * ``coded_bits``: the exact cost of coding given symbols, for reporting.
 
 Words are uint16 and states uint32 in the stream; tensors hold them as the
@@ -104,7 +105,10 @@ class DeviceCdfTable:
     ``pair[row * cols + bin] = start | freq << 16`` (uint32 bits in int32;
     bins past a row's length hold freq 1); ``lut[row, cum] = bin`` (uint16
     bits in int16) for every cum in [0, 2^16); ``offsets[row]`` is the symbol
-    value of bin 0 and ``maxv[row]`` the escape bin."""
+    value of bin 0 and ``maxv[row]`` the escape bin. ``pair_packed`` holds
+    the valid bins of every row back to back, row r's from ``pair_base[r]``
+    (zero-padded to a multiple of four entries): kernel R2 copies it into
+    shared memory."""
 
     def __init__(self, table, device):
         cdfs = np.asarray(table.cdfs, np.int64)
@@ -128,6 +132,11 @@ class DeviceCdfTable:
         self.lut = torch.from_numpy(lut.view(np.int16)).to(dev)
         self.offsets = torch.from_numpy(offsets.astype(np.int32)).to(dev)
         self.maxv = torch.from_numpy((lengths - 2).astype(np.int32)).to(dev)
+        bins = lengths - 1
+        packed = pair[valid].astype(np.uint32)
+        packed = np.concatenate([packed, np.zeros(-len(packed) % 4, np.uint32)])
+        self.pair_packed = torch.from_numpy(packed.view(np.int32)).to(dev)
+        self.pair_base = torch.from_numpy((np.cumsum(bins) - bins).astype(np.int32)).to(dev)
 
 
 # ------------------------------------------------------------ stream order
@@ -345,6 +354,30 @@ def word_capacity(n_symbols: int, L: int) -> int:
     return 2 * L + WORST_WORDS_PER_SYM * n_symbols
 
 
+def encode_scratch(B: int, C: int, HW: int, n_sections: int, L: int) -> dict:
+    """Scratch of kernel R1 for B images of C channels of HW positions in
+    ``n_sections`` sections of L lanes. A lane group is the 32 lanes (all
+    L when L < 32) of one step that one warp handles; ``entries`` counts
+    them in stream order. ``rec`` holds each symbol's (start, freq), then
+    its renorm word; ``masks`` each group's renorm, escape and tier-2
+    ballots; ``prefix`` their exclusive prefix sums with the totals last."""
+    steps = n_sections * (C // n_sections * HW // L)
+    groups = max(1, L // 32)
+    entries = steps * groups
+    return {"steps": steps, "groups": groups, "entries": entries,
+            "rec": (B, C * HW), "masks": (B, 3, entries), "prefix": (B, 3, entries + 1)}
+
+
+PACKED_PAIRS_MAX = 44 * 1024   # pair-table entries kernel R2 holds in shared memory
+
+
+def decode_threads(L: int) -> int:
+    """Threads of kernel R2's block, one block per image and one lane per
+    thread: a step of up to 1024 lanes is one round (a whole warp below 32
+    lanes); beyond, rounds of 1024 lanes."""
+    return min(1024, max(32, L))
+
+
 def encode_pack(sym: torch.Tensor, idx: Optional[torch.Tensor], n_sections: int,
                 lanes: int, table: DeviceCdfTable):
     """Encode one stream per image and compact it (kernel R1 on a CUDA
@@ -391,6 +424,11 @@ def decode_section(words: torch.Tensor, img_base: torch.Tensor, cursor: torch.Te
     if out_dtype not in (torch.int16, torch.int32):
         raise TypeError("symbols come out as int16 or int32")
     L = section_lanes(sc * H * W, lanes)
+    for name, t in (("img_base", img_base), ("cursor", cursor)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,):
+            raise TypeError(f"{name} is int32 {(B,)}")
+    if state is not None and (state.dtype != torch.int32 or tuple(state.shape) != (B, L)):
+        raise TypeError(f"state is int32 {(B, L)}")
     dev = words.device
     if dev.type == "cuda":
         return _decode_section_cuda(words, img_base, cursor, state, idx, shape, L, table,
@@ -422,24 +460,23 @@ def _encode_pack_cuda(sym, idx, n_sections: int, sc: int, L: int, table: DeviceC
     idx = None if idx is None else idx.contiguous()
     if idx is None and C > table.rows:
         raise ValueError("a factorised stream needs one CDF row per channel")
-    steps = n_sections * (sc * H * W // L)
-    n_total = C * H * W
-    cap = word_capacity(n_total, L)
+    cap = word_capacity(C * H * W, L)
     packed = torch.empty((B, cap), dtype=torch.int16, device=dev)
     counts = torch.empty(B, dtype=torch.int32, device=dev)
     esc = torch.empty((B, n_sections), dtype=torch.int32, device=dev)
     big = torch.empty(B, dtype=torch.int32, device=dev)
-    rec = torch.empty((B, n_total), dtype=torch.int32, device=dev)      # scratch
-    prefix = torch.empty((B, 3, steps + 1), dtype=torch.int32, device=dev)  # scratch
+    scratch = encode_scratch(B, C, H * W, n_sections, L)
+    rec, masks, prefix = (torch.empty(scratch[k], dtype=torch.int32, device=dev)
+                          for k in ("rec", "masks", "prefix"))
     if B:
         lib = native.kernels()
         with torch.cuda.device(dev):
             err = lib.dcvic_rans_encode_pack(
-                sym.data_ptr(), int(sym.dtype == torch.int32), _ptr(idx), table.pair.data_ptr(), table.offsets.data_ptr(),
-                table.maxv.data_ptr(), table.rows, table.cols, B, C, H * W, n_sections, L,
-                rec.data_ptr(), prefix.data_ptr(), packed.data_ptr(), cap,
-                counts.data_ptr(), esc.data_ptr(), big.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+                sym.data_ptr(), int(sym.dtype == torch.int32), _ptr(idx), table.pair.data_ptr(),
+                table.offsets.data_ptr(), table.maxv.data_ptr(), table.rows, table.cols, B, C,
+                H * W, n_sections, L, rec.data_ptr(), masks.data_ptr(), prefix.data_ptr(),
+                scratch["entries"], packed.data_ptr(), cap, counts.data_ptr(), esc.data_ptr(),
+                big.data_ptr(), torch.cuda.current_stream().cuda_stream)
         native.check(err, "rans_encode_pack")
         launches["rans_encode_pack"] += 1
     offsets = torch.arange(B, device=dev, dtype=torch.int64) * cap
@@ -451,14 +488,12 @@ def _decode_section_cuda(words, img_base, cursor, state, idx, shape, L: int,
                          escfree: bool, out_dtype):
     B, sc, H, W = shape
     dev = words.device
-    _on(dev, img_base, cursor, state, idx, table.pair, table.lut)
-    if img_base.dtype != torch.int32 or cursor.dtype != torch.int32 \
-            or img_base.shape != (B,) or cursor.shape != (B,):
-        raise TypeError("img_base and cursor are int32 [B]")
-    if state is not None and (state.dtype != torch.int32 or state.shape != (B, L)):
-        raise TypeError(f"state is int32 {(B, L)}")
+    _on(dev, img_base, cursor, state, idx, table.pair, table.lut, table.pair_packed)
     if idx is None and sc > table.rows:
         raise ValueError("a factorised stream needs one CDF row per channel")
+    if table.pair_packed.numel() > PACKED_PAIRS_MAX:
+        raise ValueError(f"{table.pair_packed.numel()} CDF bins exceed the {PACKED_PAIRS_MAX} "
+                         "that kernel R2 holds in shared memory")
     n_sym = sc * H * W
     idx = None if idx is None else idx.contiguous()
     state = None if state is None else state.contiguous()
@@ -476,9 +511,11 @@ def _decode_section_cuda(words, img_base, cursor, state, idx, shape, L: int,
                 words.data_ptr(), words.numel(), img_base.data_ptr(),
                 cursor.data_ptr(), _ptr(state), _ptr(idx),
                 table.lut.data_ptr(), table.pair.data_ptr(), table.offsets.data_ptr(),
-                table.maxv.data_ptr(), table.rows, table.cols, B, sc, H * W, L, flags,
-                esc_cap(n_sym), esc_pos.data_ptr(), out.data_ptr(), cursor_out.data_ptr(),
-                state_out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                table.maxv.data_ptr(), table.pair_packed.data_ptr(), table.pair_base.data_ptr(),
+                table.pair_packed.numel(), table.rows, table.cols, B, sc, H * W, L,
+                decode_threads(L), flags, esc_cap(n_sym), esc_pos.data_ptr(),
+                out.data_ptr(), cursor_out.data_ptr(), state_out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         native.check(err, "rans_decode_section")
         launches["rans_decode_section"] += 1
     return out, cursor_out, state_out

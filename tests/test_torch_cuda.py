@@ -500,7 +500,10 @@ def _rans_case(dev, shape, S, lanes, factorised, big, seed):
     ((2, 12, 16, 32), 3, 128, False, True),
     ((1, 8, 4, 4), 2, 4, False, False),          # fewer lanes than a warp
     ((2, 64, 8, 8), 1, 512, True, False),        # CDF row = channel
-    ((1, 16, 64, 128), 1, 4096, False, True)])   # more lanes than a block
+    ((1, 16, 64, 128), 1, 4096, False, True),    # more lanes than a block
+    ((16, 8, 16, 32), 2, 32, False, True),       # batch 16, one warp of lanes
+    ((1, 32, 48, 32), 1, 1024, False, False),    # one full block of lanes
+    ((2, 16, 64, 128), 1, 2048, False, True)])   # two rounds of a block
 def test_rans_kernels_match_plain_and_host_coder(dev, shape, S, lanes, factorised, big):
     """R1's words, counts and escape counts equal the plain version's and
     the host coder's bytes; R2's symbols, cursors and lane states equal the

@@ -314,3 +314,75 @@ def test_entry_points_reject_bad_input(gaussian):
         rd.decode_section(words, zero, zero, None, idx.to(torch.int32), (1, 4, 4, 4), 128, table)
     with pytest.raises(ValueError):
         rd.decode_section(words, zero, zero, None, idx, (1, 4, 4, 4), 8192, table)
+    with pytest.raises(TypeError):                          # cursor of another type
+        rd.decode_section(words, zero, zero.long(), None, idx, (1, 4, 4, 4), 128, table)
+    with pytest.raises(TypeError):                          # one base for two images
+        rd.decode_section(words, zero, zero, None, None, (2, 4, 4, 4), 128, table)
+    L = rd.section_lanes(64, 128)
+    for state in (torch.zeros((1, L + 1), dtype=torch.int32),      # another lane count
+                  torch.zeros((1, L), dtype=torch.int64)):         # another type
+        with pytest.raises(TypeError):
+            rd.decode_section(words, zero, zero, state, idx, (1, 4, 4, 4), 128, table)
+
+
+@pytest.mark.parametrize("L", [1 << k for k in range(13)])
+def test_encode_scratch_enumerates_every_lane_once(L):
+    """R1's lane groups, in entry order, visit every (step, lane) of the
+    stream once and in stream order; the scratch holds a word per symbol,
+    three masks per group and their prefixes with the totals."""
+    for B, C, HW, S in ((1, 12, 4096, 3), (3, 192, 1536, 6), (2, 8, 512, 1)):
+        if (C // S * HW) % L:
+            continue
+        sc = C // S
+        got = rd.encode_scratch(B, C, HW, S, L)
+        steps = S * (sc * HW // L)
+        assert got["steps"] == steps and got["groups"] * min(L, 32) == L
+        assert got["entries"] == steps * got["groups"]
+        assert got["rec"] == (B, C * HW)
+        assert got["masks"] == (B, 3, got["entries"])
+        assert got["prefix"] == (B, 3, got["entries"] + 1)
+        seen = [(e // got["groups"]) * L + (e % got["groups"]) * 32 + lane
+                for e in range(got["entries"]) for lane in range(32)
+                if (e % got["groups"]) * 32 + lane < L]
+        assert seen == list(range(C * HW))
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "bottleneck"])
+def test_packed_pair_table_holds_every_bin_the_lut_gives(request, kind):
+    """R2's shared-memory copy of the pair table: row r's valid bins from
+    pair_base[r], equal to the full table's, zero-padded to whole 16-byte
+    copies; every bin the LUT returns for row r lies among them."""
+    _, table, _ = request.getfixturevalue(kind)
+    packed, base = table.pair_packed.numpy(), table.pair_base.numpy()
+    pair = table.pair.numpy().reshape(table.rows, table.cols)
+    bins = table.maxv.numpy() + 1
+    assert packed.size % 4 == 0 and packed.size - bins.sum() < 4
+    assert packed.size <= rd.PACKED_PAIRS_MAX
+    assert not packed[bins.sum():].any()
+    lut = table.lut.numpy().view(np.uint16)
+    for r in range(table.rows):
+        np.testing.assert_array_equal(packed[base[r]:base[r] + bins[r]], pair[r, :bins[r]])
+        assert lut[r].max() == bins[r] - 1
+
+
+@pytest.mark.parametrize("L", [1 << k for k in range(13)])
+def test_decode_threads_cover_the_step(L):
+    """R2 runs a block per image, one lane per thread: rounds of T threads
+    cover the step's L lanes exactly (a partial warp below 32 lanes), T a
+    whole number of warps within a block's 1024 threads."""
+    T = rd.decode_threads(L)
+    rounds = max(1, L // T)
+    assert T % 32 == 0 and 32 <= T <= 1024
+    if L < 32:
+        assert (T, rounds) == (32, 1)
+    else:
+        assert T * rounds == L
+        assert (rounds == 1) == (L <= 1024)
+
+
+def test_rans_stamps_instruments_the_current_source():
+    """tools/rans_stamps.py finds each of its anchors once in the package's
+    csrc/rans_device.cu, so the measuring build follows the kernels."""
+    from dc_vic_tpu_torch.tools import rans_stamps
+    src = rans_stamps.instrument(rans_stamps.SOURCE, "current")
+    assert src.count("= clk();") == 5 and "dcvic_read_stamps" in src
