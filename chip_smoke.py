@@ -33,8 +33,10 @@
    run; a stream that breaks a header guarantee must fail the integrity
    check. The same at the edges of the kernels' partitions
    (RANS_EDGE_CASES): batch 1 and 16, lane counts 32 to 4096 (R2's rounds),
-   dense escapes and escapes on the first and last lane of every warp.
-   Integers: no tolerance. Then both timed at batch 4 and 16, lane caps
+   dense escapes and escapes on the first and last lane of every warp; and
+   the z section on a factorised table too wide for R2's shared-memory copy
+   of the pair table (WIDE_Z_QUANTILE), which R2 then reads from global
+   memory. Integers: no tolerance. Then both timed at batch 4 and 16, lane caps
    128 and 512 (R1's four launches apart under torch.profiler, R2's time a
    step against its single-warp step), and the pair K3 + K4 beside
    F.group_norm and F.silu (item 2).
@@ -226,9 +228,10 @@ launches_bf16_batch16. R1 and R2 are bound by
 neither bytes nor operations but by their dependent chain: their entries
 carry chain_ms, the steps of the longest chain times the time of one step as
 measured with a single warp (batch 1, 32 lanes), where nothing but latency
-is left, and chain_fixed_ms, the same steps times a fixed step latency
-(R1_STEP_FIXED_US, R2_STEP_FIXED_US) that does not move with the kernel
-under test; "timed" holds both at every batch and lane count timed.
+is left; "timed" holds it at every batch and lane count timed. The printed
+lines also give the same steps times a fixed step latency (R1_STEP_FIXED_US,
+R2_STEP_FIXED_US) that does not move with the kernel under test; that
+yardstick is not measured here, so it stays out of the kernels line.
 
 Any failure raises and the script exits non-zero. It needs CUDA and fails
 without it. The last line is a JSON object naming the device.
@@ -801,6 +804,27 @@ def _rans_poison_cases(rd, Codec, dev, host_table, table):
           "t2free, and with more escapes than esc_cap each fail the integrity check")
 
 
+# Quantile half-width of the wide z table: 323 bins a channel, 61,824 over
+# 192 channels, past the 45,056 that R2 copies into shared memory (the seed
+# weights' z table has 23 bins a channel)
+WIDE_Z_QUANTILE = 160
+
+
+def _wide_z_table():
+    """The host table of a factorised bottleneck of Z_PLANES' channels with
+    seeded weights and quantiles WIDE_Z_QUANTILE either side of the median,
+    as a trained model with a wide z could have."""
+    import torch
+    from dc_vic_tpu_torch.codec.bottleneck import EntropyBottleneck, build_bottleneck_cdf
+    from dc_vic_tpu_torch.models import init_weights
+    eb = EntropyBottleneck(Z_PLANES[1])
+    init_weights(eb, torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        eb.quantiles[:, 0, 0] = eb.quantiles[:, 0, 1] - WIDE_Z_QUANTILE
+        eb.quantiles[:, 0, 2] = eb.quantiles[:, 0, 1] + WIDE_Z_QUANTILE
+    return build_bottleneck_cdf(eb)
+
+
 def check_rans(rd, rans_host, Codec, dev):
     """R1 and R2 against their plain versions and the host coder (see the
     module docstring, item 5), also at the edges of their partitions
@@ -822,9 +846,9 @@ def check_rans(rd, rans_host, Codec, dev):
             kept[lanes, mix] = _rans_case(
                 rd, rans_host, dev, y_host, y_table, Y_PLANES, 6, lanes, mix, rng,
                 f"R1/R2 y {list(Y_PLANES)} six sections, lanes {lanes}, {mix}")
-        _rans_case(rd, rans_host, dev, z_host, z_table, Z_PLANES, 1, lanes, "tier-1 escapes",
-                   rng, f"R1/R2 z {list(Z_PLANES)}, lanes {lanes}, tier-1 escapes",
-                   factorised=True)
+        kept[lanes, "z"] = _rans_case(
+            rd, rans_host, dev, z_host, z_table, Z_PLANES, 1, lanes, "tier-1 escapes", rng,
+            f"R1/R2 z {list(Z_PLANES)}, lanes {lanes}, tier-1 escapes", factorised=True)
     _rans_case(rd, rans_host, dev, y_host, y_table, (2, 12, 6, 8), 3, 4, "tier-1 escapes", rng,
                "R1/R2 a small stream, three sections, lanes 4, tier-1 escapes")
     _rans_case(rd, rans_host, dev, y_host, y_table, (1, 64, 96, 128), 1, 4096,
@@ -837,6 +861,24 @@ def check_rans(rd, rans_host, Codec, dev):
         _rans_case(rd, rans_host, dev, y_host, y_table, shape, S, lanes, mix, rng,
                    f"R1/R2 at a partition edge: {list(shape)} in {S} section(s), lanes {L}, "
                    f"{mix}")
+    wide_host = _wide_z_table()
+    wide_table = rd.DeviceCdfTable(wide_host, dev)
+    rng = np.random.default_rng(13)
+    for lanes in (128, 512):
+        wide = _rans_case(rd, rans_host, dev, wide_host, wide_table, Z_PLANES, 1, lanes,
+                          "tier-1 escapes", rng, f"R1/R2 z {list(Z_PLANES)} on a table of "
+                          f"{wide_table.pair_packed.numel()} bins (R2 reads it from global "
+                          f"memory), lanes {lanes}, tier-1 escapes", factorised=True)
+    # R2 on the z section at lanes 512, its pair table in shared memory (the
+    # seed weights' table) and in global memory (the wide one)
+    z_ms = []
+    for table, (_, _, words, base, _) in ((z_table, kept[512, "z"]), (wide_table, wide)):
+        zero = torch.zeros(Z_PLANES[0], dtype=torch.int32, device=dev)
+        z_ms.append(_time_ms(rd.decode_section, words, base, zero, None, None, Z_PLANES, 512,
+                             table))
+    print(f"R2 on the z section {list(Z_PLANES)}, lanes 512: {z_ms[0]:.4f} ms with the pair "
+          f"table in shared memory ({z_table.pair_packed.numel()} bins), {z_ms[1]:.4f} ms from "
+          f"global memory ({wide_table.pair_packed.numel()} bins)")
     return time_rans(rd, y_host, y_table, kept, dev)
 
 
@@ -912,22 +954,22 @@ def time_rans(rd, y_host, y_table, kept, dev):
                 *rd.encode_stream_plain(sections, y_table)[:2]), reps=1)
             t["r2_plain"] = _time_ms(rd.decode_section_plain, words, base, zero, None,
                                      sections[0][1], y_table, reps=1)
-        t["r1_chain_fixed"] = S * steps * R1_STEP_FIXED_US / 1e3
         t["r1_chain"] = S * steps * r1_step
-        t["r2_chain_fixed"] = steps * R2_STEP_FIXED_US / 1e3
         t["r2_chain"] = steps * r2_step
         timed[B, lanes] = t
+        r1_fixed = S * steps * R1_STEP_FIXED_US / 1e3     # printed only: not measured here
+        r2_fixed = steps * R2_STEP_FIXED_US / 1e3
         ph = ", ".join(f"{k[len('rans_encode_'):-len('_kernel')]} {v:.4f}"
                        for k, v in t["r1_phases"].items())
         print(f"R1 rans_encode_pack y [{B}, {C}, {H}, {W}] six sections, lanes {L} "
               f"({S * steps} steps): kernel {t['r1']:.4f} ms (launches by device time: {ph} "
-              f"ms); chain {t['r1_chain_fixed']:.4f} ms at the fixed step "
-              f"({t['r1_chain_fixed'] / t['r1']:.0%} of the kernel), {t['r1_chain']:.4f} ms at "
+              f"ms); chain {r1_fixed:.4f} ms at the fixed step "
+              f"({r1_fixed / t['r1']:.0%} of the kernel), {t['r1_chain']:.4f} ms at "
               f"its own ({t['r1_chain'] / t['r1']:.0%})")
         print(f"R2 rans_decode_section one section [{B}, {sc}, {H}, {W}], lanes {L} ({steps} "
               f"steps): kernel {t['r2']:.4f} ms, {t['r2'] / steps * 1e3:.3f} us a step against "
-              f"{r2_step * 1e3:.3f} us with a single warp; chain {t['r2_chain_fixed']:.4f} ms at "
-              f"the fixed step ({t['r2_chain_fixed'] / t['r2']:.0%} of the kernel), "
+              f"{r2_step * 1e3:.3f} us with a single warp; chain {r2_fixed:.4f} ms at "
+              f"the fixed step ({r2_fixed / t['r2']:.0%} of the kernel), "
               f"{t['r2_chain']:.4f} ms at its own ({t['r2_chain'] / t['r2']:.0%})")
     t = timed[4, 128]
     print(f"plain versions at batch 4, lanes 128: R1 {t['r1_plain']:.1f} ms, R2 "
@@ -943,13 +985,12 @@ def time_rans(rd, y_host, y_table, kept, dev):
     r1 = {"name": "rans_encode_pack", "replaces": "dc_vic_tpu/ops/rans_device.py:222",
           "ms": t["r1"], "plain_ms": t["r1_plain"],
           **bounds(3 * n_sym + 2 * t["words"], 12 * n_sym), "chain_ms": t["r1_chain"],
-          "chain_fixed_ms": t["r1_chain_fixed"], "step_us": r1_step * 1e3,
+          "step_us": r1_step * 1e3,
           "ms_lanes512": timed[4, 512]["r1"], **common}
     r2 = {"name": "rans_decode_section", "replaces": "dc_vic_tpu/ops/rans_device.py:366",
           "ms": t["r2"], "plain_ms": t["r2_plain"],
           **bounds((3 * n_sym + 2 * t["words"]) // S, 12 * n_sym // S),
-          "chain_ms": t["r2_chain"], "chain_fixed_ms": t["r2_chain_fixed"],
-          "step_us": r2_step * 1e3, "ms_lanes512": timed[4, 512]["r2"], **common}
+          "chain_ms": t["r2_chain"], "step_us": r2_step * 1e3, "ms_lanes512": timed[4, 512]["r2"], **common}
     return r1, r2
 
 

@@ -64,7 +64,9 @@
 // to L2: the pair table's valid bins (106 KB for the 64 Gaussian rows) are
 // copied into shared memory once (cp.async), and the next 2T words of the
 // stream wait in a shared ring whose freed slots are refilled a round
-// later, from loads issued as the round ends. Escapes are rare: their
+// later, from loads issued as the round ends. A table of more than
+// kMaxPacked bins (a factorised table with wide quantiles) stays in global
+// memory, read through L1: the same kernel, instantiated for that source. Escapes are rare: their
 // positions are appended to a list during the scan (ranked by the same
 // ballots) and resolved after it from the side channel, tier-2 ranks by the
 // same exchange over the list. A violated header guarantee adds kEscPoison
@@ -80,7 +82,8 @@ constexpr int kEscPoison = 1 << 26;
 constexpr int kMaxLanes = 4096;
 constexpr int kMaxThreads = 1024;     // R2's block: one lane per thread and round
 constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxPacked = 44 * 1024;   // pair entries R2 copies to shared memory (176 KB)
+constexpr int kMaxPacked = 44 * 1024;   // pair entries R2 copies to shared memory (176 KB);
+                                        // a larger table is read from global memory
 constexpr int kGroupWarps = 8;        // lane groups per block of E0 and E3
 constexpr int kStateThreads = 64;     // lanes per block of E1
 constexpr int kInFlight = 8;          // steps of E1's input loaded ahead
@@ -388,7 +391,8 @@ __device__ __forceinline__ void warp_exchange(uint32_t mine, uint32_t* slot, uin
 // R2. A block of T = min(L, 1024) threads (one warp below 32 lanes) per
 // image, one lane per thread and round; a step is L / T rounds. The pair
 // table's valid bins (`packed`, row r's from packed_base[r]) are copied into
-// dynamic shared memory first.
+// dynamic shared memory first (kSharedPairs), or read where they are.
+template <bool kSharedPairs>
 __global__ void __launch_bounds__(kMaxThreads)
 rans_decode_section_kernel(const uint16_t* __restrict__ words, long long n_words,
                            const int* __restrict__ img_base, const int* __restrict__ cursor_in,
@@ -420,7 +424,8 @@ rans_decode_section_kernel(const uint16_t* __restrict__ words, long long n_words
   esc_pos += img;
   long long cur = cursor_in[b];
 
-  for (int k = tid; 4 * k < packed_n; k += T) cp_async16(spair4 + k, packed + 4 * k);
+  if (kSharedPairs)
+    for (int k = tid; 4 * k < packed_n; k += T) cp_async16(spair4 + k, packed + 4 * k);
   const uint32_t* spair = reinterpret_cast<const uint32_t*>(spair4);
   // the lane states: the previous section's, or the stream's flush words
   for (int l = tid; l < L; l += T)
@@ -467,7 +472,7 @@ rans_decode_section_kernel(const uint16_t* __restrict__ words, long long n_words
 
     const uint32_t cum = x & 0xFFFFu;
     const int bin = __ldcg(lut + (static_cast<size_t>(rw) << 16) + cum);
-    const uint32_t pr = spair[pb + bin];
+    const uint32_t pr = kSharedPairs ? spair[pb + bin] : __ldg(packed + pb + bin);
     x = (pr >> 16) * (x >> 16) + cum - (pr & 0xFFFFu);
     const bool need = on && x < kRansL, esc = on && bin == mv;
     if (on) {
@@ -602,10 +607,9 @@ extern "C" int dcvic_rans_encode_pack(const void* sym, int sym_wide, const void*
 // R2. One section [B, sc, HW] of every image's stream. words: all streams
 // back to back; img_base, cursor_in [B]; state_in [B, L] or null for a
 // stream's first section; idx [B, sc, HW] uint8 or null (CDF row = channel);
-// lut [rows, 65536] uint16; packed [packed_n] uint32 (a multiple of 4, at
-// most kMaxPacked) and packed_base [rows]: the pair table's valid bins back
-// to back, which the kernel copies into shared memory.
-// threads: the block, min(L, 1024), at least 32.
+// lut [rows, 65536] uint16; packed [packed_n] uint32 (a multiple of 4) and
+// packed_base [rows]: the pair table's valid bins back to back, which the
+// kernel copies into shared memory when there are at most kMaxPacked.
 // Scratch esc_pos [B, sc * HW] int32. Out: symbols [B, sc, HW] int16 (flag 8)
 // or int32, cursor_out [B], state_out [B, L]. flags: 1 escape-free
 // guarantee, 2 resolve tier 2, 4 hold to esc_cap, 8 int16 output. Returns
@@ -617,22 +621,23 @@ extern "C" int dcvic_rans_decode_section(const void* words, long long n_words,
                                          const void* offsets, const void* maxv,
                                          const void* packed, const void* packed_base,
                                          int packed_n, int rows, int cols, int B, int sc,
-                                         int HW, int L, int threads,
-                                         int flags, int esc_cap, void* esc_pos, void* out,
+                                         int HW, int L, int flags, int esc_cap, void* esc_pos, void* out,
                                          void* cursor_out, void* state_out, void* stream) {
   if (B <= 0 || sc <= 0 || HW <= 0 || L <= 0 || L > kMaxLanes || (L & (L - 1)) ||
       (static_cast<long long>(sc) * HW) % L || static_cast<long long>(sc) * HW > (1ll << 30) ||
-      threads != (L < 32 ? 32 : (L > kMaxThreads ? kMaxThreads : L)) || packed_n <= 0 ||
-      packed_n % 4 || packed_n > kMaxPacked)
+      packed_n <= 0 || packed_n % 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const Tables t{static_cast<const uint32_t*>(pair), static_cast<const int*>(offsets),
                  static_cast<const int*>(maxv), rows, cols};
-  const size_t smem = static_cast<size_t>(packed_n) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(rans_decode_section_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const int threads = L < 32 ? 32 : (L > kMaxThreads ? kMaxThreads : L);
+  const bool shared_pairs = packed_n <= kMaxPacked;
+  const auto kernel =
+      shared_pairs ? rans_decode_section_kernel<true> : rans_decode_section_kernel<false>;
+  const size_t smem = shared_pairs ? static_cast<size_t>(packed_n) * sizeof(uint32_t) : 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  rans_decode_section_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(words), n_words, static_cast<const int*>(img_base),
       static_cast<const int*>(cursor_in), static_cast<const uint32_t*>(state_in),
       static_cast<const uint8_t*>(idx), static_cast<const uint16_t*>(lut), t,

@@ -134,7 +134,7 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
                                            p, p, p, i, p, i, p, p, p, p]
     lib.dcvic_rans_decode_section.restype = i
     lib.dcvic_rans_decode_section.argtypes = [p, ll, p, p, p, p, p, p, p, p, p, p, i,
-                                              i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+                                              i, i, i, i, i, i, i, i, p, p, p, p, p]
 
 
 def kernels() -> ctypes.CDLL:

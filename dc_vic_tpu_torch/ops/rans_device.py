@@ -27,8 +27,7 @@ What is here:
 * ``encode_pack`` and ``decode_section``: the entry points the codec calls,
   on the model's NCHW tensors. A CPU tensor takes the plain versions; a CUDA
   tensor launches kernel R1 resp. R2 of ``csrc/rans_device.cu``; anything
-  else raises. ``encode_scratch`` and ``decode_threads`` give the
-  kernels' scratch sizes and launch geometry.
+  else raises. ``encode_scratch`` gives kernel R1's scratch sizes.
 * ``coded_bits``: the exact cost of coding given symbols, for reporting.
 
 Words are uint16 and states uint32 in the stream; tensors hold them as the
@@ -108,7 +107,7 @@ class DeviceCdfTable:
     value of bin 0 and ``maxv[row]`` the escape bin. ``pair_packed`` holds
     the valid bins of every row back to back, row r's from ``pair_base[r]``
     (zero-padded to a multiple of four entries): kernel R2 copies it into
-    shared memory."""
+    shared memory, or reads it from global memory when it does not fit."""
 
     def __init__(self, table, device):
         cdfs = np.asarray(table.cdfs, np.int64)
@@ -368,16 +367,6 @@ def encode_scratch(B: int, C: int, HW: int, n_sections: int, L: int) -> dict:
             "rec": (B, C * HW), "masks": (B, 3, entries), "prefix": (B, 3, entries + 1)}
 
 
-PACKED_PAIRS_MAX = 44 * 1024   # pair-table entries kernel R2 holds in shared memory
-
-
-def decode_threads(L: int) -> int:
-    """Threads of kernel R2's block, one block per image and one lane per
-    thread: a step of up to 1024 lanes is one round (a whole warp below 32
-    lanes); beyond, rounds of 1024 lanes."""
-    return min(1024, max(32, L))
-
-
 def encode_pack(sym: torch.Tensor, idx: Optional[torch.Tensor], n_sections: int,
                 lanes: int, table: DeviceCdfTable):
     """Encode one stream per image and compact it (kernel R1 on a CUDA
@@ -491,9 +480,6 @@ def _decode_section_cuda(words, img_base, cursor, state, idx, shape, L: int,
     _on(dev, img_base, cursor, state, idx, table.pair, table.lut, table.pair_packed)
     if idx is None and sc > table.rows:
         raise ValueError("a factorised stream needs one CDF row per channel")
-    if table.pair_packed.numel() > PACKED_PAIRS_MAX:
-        raise ValueError(f"{table.pair_packed.numel()} CDF bins exceed the {PACKED_PAIRS_MAX} "
-                         "that kernel R2 holds in shared memory")
     n_sym = sc * H * W
     idx = None if idx is None else idx.contiguous()
     state = None if state is None else state.contiguous()
@@ -513,7 +499,7 @@ def _decode_section_cuda(words, img_base, cursor, state, idx, shape, L: int,
                 table.lut.data_ptr(), table.pair.data_ptr(), table.offsets.data_ptr(),
                 table.maxv.data_ptr(), table.pair_packed.data_ptr(), table.pair_base.data_ptr(),
                 table.pair_packed.numel(), table.rows, table.cols, B, sc, H * W, L,
-                decode_threads(L), flags, esc_cap(n_sym), esc_pos.data_ptr(),
+                flags, esc_cap(n_sym), esc_pos.data_ptr(),
                 out.data_ptr(), cursor_out.data_ptr(), state_out.data_ptr(),
                 torch.cuda.current_stream().cuda_stream)
         native.check(err, "rans_decode_section")

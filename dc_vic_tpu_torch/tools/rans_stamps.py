@@ -1,30 +1,23 @@
 """Where the coder kernels' time goes inside one launch, on the card.
 
-    python3 -m dc_vic_tpu_torch.tools.rans_stamps [--source FILE] [--design current|one-block]
+    python3 -m dc_vic_tpu_torch.tools.rans_stamps
 
-Nsight does not run on every machine. This writes an instrumented copy of a
-``rans_device.cu`` (by default the package's own) with ``%globaltimer`` and
-``clock64()`` stamps into a ``__device__`` array, builds it with nvcc into
-the port's build directory, runs R1 over the six-section y stream of 768x512
-images ([B, 192, 48, 32], seeded symbols without escapes) and R2 over its
-first section, at batch 4 and 16 and lane caps 128 and 512 (R2 also at one
-warp: batch 1, 32 lanes), and prints where the time goes:
-
-* ``current``: R2's step in four segments, in cycles averaged over the
-  warps (the LUT lookup; the pair lookup and the state update; the warps'
-  exchange; the word read); R1's four launches by device time
-  (torch.profiler).
-* ``one-block``: the earlier design with one block per image in both
-  kernels (give ``--source`` that file from git history): R1's four phases
-  by ``%globaltimer`` (recurrence, counts, scan, scatter) and R2's step in
-  four segments (the lookups; the ballots and the barrier; the serial loop
-  over the warps' counts; the word read and the state store).
+Nsight does not run on every machine. This writes an instrumented copy of
+the package's ``csrc/rans_device.cu`` with ``clock64()`` stamps into a
+``__device__`` array, builds it with nvcc into the port's build directory,
+runs R1 over the six-section y stream of 768x512 images ([B, 192, 48, 32],
+seeded symbols without escapes) and R2 over its first section, at batch 4
+and 16 and lane caps 128 and 512 (R2 also at one warp: batch 1, 32 lanes),
+and prints where the time goes: R2's step in four segments, in cycles
+averaged over the warps (the LUT lookup; the pair lookup and the state
+update; the warps' exchange; the word read), and R1's four launches by
+device time (torch.profiler). The anchors below follow R2's loop: an edit of
+those lines asks for the same edit here.
 
 The stamps cost a few percent of the step. Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
 import os
 import subprocess
@@ -44,11 +37,6 @@ SOURCE = os.path.join(native.CSRC, "rans_device.cu")
 
 PROLOGUE = """namespace {
 __device__ unsigned long long g_stamps[1 << 16];
-__device__ __forceinline__ unsigned long long gtime() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)::"memory");
-  return t;
-}
 __device__ __forceinline__ long long clk() {
   long long t;
   asm volatile("mov.u64 %0, %%clock64;" : "=l"(t)::"memory");
@@ -69,75 +57,45 @@ SEGMENT_END = """  if ((threadIdx.x & 31) == 0)
     for (int k = 0; k < 4; ++k) g_stamps[4096 + (b * 32 + (threadIdx.x >> 5)) * 4 + k] = seg[k];
 """
 
-# (anchor, replacement) pairs; each anchor occurs once in its design's source
-PATCHES = {
-    "current": [
-        ("  for (int it = 0; it < iters; ++it) {\n    if (rounds > 1) x = xs[r * T + tid];\n",
-         "  long long seg[4] = {0, 0, 0, 0};\n  for (int it = 0; it < iters; ++it) {\n"
-         "    long long c0 = clk();\n    if (rounds > 1) x = xs[r * T + tid];\n"),
-        ("    const int bin = __ldcg(lut + (static_cast<size_t>(rw) << 16) + cum);\n",
-         "    const int bin = __ldcg(lut + (static_cast<size_t>(rw) << 16) + cum);\n"
-         "    use(bin);\n    long long c1 = clk();\n"),
-        ("    x = (pr >> 16) * (x >> 16) + cum - (pr & 0xFFFFu);\n",
-         "    x = (pr >> 16) * (x >> 16) + cum - (pr & 0xFFFFu);\n"
-         "    use(x);\n    long long c2 = clk();\n"),
-        ("    warp_exchange(__popc(bn) | (__popc(be) << 16), warp_cnt[buf], &before, &all);\n",
-         "    warp_exchange(__popc(bn) | (__popc(be) << 16), warp_cnt[buf], &before, &all);\n"
-         "    use(all);\n    long long c3 = clk();\n"),
-        ("    cur += all & 0xFFFFu;\n    n_esc += all >> 16;\n    buf ^= 1;\n",
-         "    cur += all & 0xFFFFu;\n    n_esc += all >> 16;\n    buf ^= 1;\n    use(x);\n"
-         "    long long c4 = clk();\n    seg[0] += c1 - c0; seg[1] += c2 - c1; "
-         "seg[2] += c3 - c2; seg[3] += c4 - c3;\n"),
-        ("  if (rounds == 1 && on) xs[tid] = x;\n",
-         SEGMENT_END + "  if (rounds == 1 && on) xs[tid] = x;\n"),
-    ],
-    "one-block": [
-        ("  // phase 1: the state recurrence, one lane per thread\n",
-         "  __syncthreads();\n  if (tid == 0) g_stamps[b * 8 + 0] = gtime();\n"),
-        ("  __syncthreads();\n\n  // phase 2: per-step counts",
-         "  __syncthreads();\n  if (tid == 0) g_stamps[b * 8 + 1] = gtime();\n\n  // phase 2"),
-        ("  __syncthreads();\n\n  // phase 3: exclusive scan",
-         "  __syncthreads();\n  if (tid == 0) g_stamps[b * 8 + 2] = gtime();\n\n  // phase 3"),
-        ("  // phase 4: every word to its position\n",
-         "  __syncthreads();\n  if (tid == 0) g_stamps[b * 8 + 3] = gtime();\n"),
-        ("      gpos += 2 * __popc(bg);\n    }\n  }\n}",
-         "      gpos += 2 * __popc(bg);\n    }\n  }\n  __syncthreads();\n"
-         "  if (tid == 0) g_stamps[b * 8 + 4] = gtime();\n}"),
-        ("  for (int it = 0; it < iters; ++it) {\n    const int l = (it % rounds) * T + tid;",
-         "  long long seg[4] = {0, 0, 0, 0};\n  for (int it = 0; it < iters; ++it) {\n"
-         "    long long c0 = clk();\n    const int l = (it % rounds) * T + tid;"),
-        ("    const uint32_t bn = __ballot_sync(0xFFFFFFFFu, need);\n",
-         "    use(x);\n    long long c1 = clk();\n"
-         "    const uint32_t bn = __ballot_sync(0xFFFFFFFFu, need);\n"),
-        ("    __syncthreads();\n    uint32_t before = 0, all = 0;\n",
-         "    __syncthreads();\n    long long c2 = clk();\n    uint32_t before = 0, all = 0;\n"),
-        ("    if (need) {\n      const int rank",
-         "    use(all);\n    long long c3 = clk();\n    if (need) {\n      const int rank"),
-        ("    n_esc += all >> 16;\n    buf ^= 1;\n  }\n",
-         "    n_esc += all >> 16;\n    buf ^= 1;\n    use(x);\n    long long c4 = clk();\n"
-         "    seg[0] += c1 - c0; seg[1] += c2 - c1; seg[2] += c3 - c2; seg[3] += c4 - c3;\n"
-         "  }\n" + SEGMENT_END),
-    ],
-}
-SEGMENTS = {"current": ("LUT", "pair + state", "exchange", "word"),
-            "one-block": ("lookups", "ballots + barrier", "count loop", "word + store")}
+# (anchor, replacement) pairs; each anchor occurs once in the source
+PATCHES = [
+    ("  for (int it = 0; it < iters; ++it) {\n    if (rounds > 1) x = xs[r * T + tid];\n",
+     "  long long seg[4] = {0, 0, 0, 0};\n  for (int it = 0; it < iters; ++it) {\n"
+     "    long long c0 = clk();\n    if (rounds > 1) x = xs[r * T + tid];\n"),
+    ("    const int bin = __ldcg(lut + (static_cast<size_t>(rw) << 16) + cum);\n",
+     "    const int bin = __ldcg(lut + (static_cast<size_t>(rw) << 16) + cum);\n"
+     "    use(bin);\n    long long c1 = clk();\n"),
+    ("    x = (pr >> 16) * (x >> 16) + cum - (pr & 0xFFFFu);\n",
+     "    x = (pr >> 16) * (x >> 16) + cum - (pr & 0xFFFFu);\n"
+     "    use(x);\n    long long c2 = clk();\n"),
+    ("    warp_exchange(__popc(bn) | (__popc(be) << 16), warp_cnt[buf], &before, &all);\n",
+     "    warp_exchange(__popc(bn) | (__popc(be) << 16), warp_cnt[buf], &before, &all);\n"
+     "    use(all);\n    long long c3 = clk();\n"),
+    ("    cur += all & 0xFFFFu;\n    n_esc += all >> 16;\n    buf ^= 1;\n",
+     "    cur += all & 0xFFFFu;\n    n_esc += all >> 16;\n    buf ^= 1;\n    use(x);\n"
+     "    long long c4 = clk();\n    seg[0] += c1 - c0; seg[1] += c2 - c1; "
+     "seg[2] += c3 - c2; seg[3] += c4 - c3;\n"),
+    ("  if (rounds == 1 && on) xs[tid] = x;\n",
+     SEGMENT_END + "  if (rounds == 1 && on) xs[tid] = x;\n"),
+]
+SEGMENTS = ("LUT", "pair + state", "exchange", "word")
 
 
-def instrument(source: str, design: str) -> str:
+def instrument(source: str = SOURCE) -> str:
     src = open(source).read()
-    for old, new in [("namespace {\n", PROLOGUE)] + PATCHES[design]:
+    for old, new in [("namespace {\n", PROLOGUE)] + PATCHES:
         if src.count(old) != 1:
-            raise ValueError(f"{source} is not the {design} design: {old.strip()[:60]!r}")
+            raise ValueError(f"{source} has moved from the stamps' anchors: {old.strip()[:60]!r}")
         src = src.replace(old, new)
     return src + READER
 
 
-def build(source: str, design: str) -> ctypes.CDLL:
+def build() -> ctypes.CDLL:
     os.makedirs(native.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(native.BUILD_DIR, f"rans_stamps_{design}.cu")
-    lib = os.path.join(native.BUILD_DIR, f"librans_stamps_{design}.so")
+    cu = os.path.join(native.BUILD_DIR, "rans_stamps.cu")
+    lib = os.path.join(native.BUILD_DIR, "librans_stamps.so")
     with open(cu, "w") as f:
-        f.write(instrument(source, design))
+        f.write(instrument())
     subprocess.run([native._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                     "-O3", "-diag-suppress", "177,550", "-Xcompiler", "-fPIC", "-shared", "-o",
                     lib, cu], check=True)
@@ -188,17 +146,17 @@ def r2_cases(sym, idx, dtable):
     return out
 
 
-def report_r2(lib, design, B, L, ms):
+def report_r2(lib, B, L, ms):
     steps = Y[1] // SECTIONS * Y[2] * Y[3] // L
     warps = max(1, min(L, 1024) // 32)
     seg = stamps(lib, R2_SLOT + B * 32 * 4)[R2_SLOT:].reshape(B, 32, 4)[:, :warps]
     mean = seg.astype(np.float64).mean(axis=(0, 1)) / steps
-    parts = ", ".join(f"{name} {v:.0f}" for name, v in zip(SEGMENTS[design], mean))
+    parts = ", ".join(f"{name} {v:.0f}" for name, v in zip(SEGMENTS, mean))
     print(f"R2 batch {B}, lanes {L} ({steps} steps): {ms:.4f} ms, {ms / steps * 1e3:.3f} us a "
           f"step; cycles a step: {parts} (sum {mean.sum():.0f})")
 
 
-def run_current(lib, sym, idx, dtable):
+def run(lib, sym, idx, dtable):
     from torch.profiler import ProfilerActivity, profile
     from ..utils.profiling import kernel_times
     real = native.kernels()
@@ -212,7 +170,7 @@ def run_current(lib, sym, idx, dtable):
             zero = torch.zeros(B, dtype=torch.int32, device=sym.device)
             ms = time_ms(lambda: rd.decode_section(words, base, zero, None, idx0,
                                                    (B, Y[1] // SECTIONS, Y[2], Y[3]), L, dtable))
-            report_r2(lib, "current", B, L, ms)
+            report_r2(lib, B, L, ms)
     finally:
         native._libs["libdcvic_kernels.so"] = real
     for B, lanes in TIMED:
@@ -229,55 +187,7 @@ def run_current(lib, sym, idx, dtable):
               f"(ms): {parts}")
 
 
-def run_one_block(lib, sym, idx, dtable):
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.dcvic_rans_encode_pack.restype = lib.dcvic_rans_decode_section.restype = i
-    lib.dcvic_rans_encode_pack.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, i,
-                                           p, p, p, i, p, p, p, p]
-    lib.dcvic_rans_decode_section.argtypes = [p, ll, p, p, p, p, p, p, p, p, i, i,
-                                              i, i, i, i, i, i, p, p, p, p, p]
-    dev, stream = sym.device, torch.cuda.current_stream().cuda_stream
-    _, C, H, W = Y
-    t = (dtable.pair.data_ptr(), dtable.offsets.data_ptr(), dtable.maxv.data_ptr(),
-         dtable.rows, dtable.cols)
-    for B, lanes in TIMED:
-        L = rd.section_lanes(C // SECTIONS * H * W, lanes)
-        cap = rd.word_capacity(C * H * W, L)
-        steps = C * H * W // L
-        bufs = [torch.empty(shape, dtype=torch.int32, device=dev) for shape in
-                ((B, C * H * W), (B, 3, steps + 1), (B, cap), (B,), (B, SECTIONS), (B,))]
-        ptrs = [x.data_ptr() for x in bufs]
-
-        def enc():
-            native.check(lib.dcvic_rans_encode_pack(
-                sym[:B].data_ptr(), 0, idx[:B].data_ptr(), *t, B, C, H * W, SECTIONS, L, ptrs[0],
-                ptrs[1], ptrs[2], cap, *ptrs[3:], stream), "rans_encode_pack")
-        ms = time_ms(enc)
-        s = stamps(lib, 8 * B).reshape(B, 8)[:, :5]
-        ph = np.diff(s, axis=1).mean(axis=0) / 1e6
-        print(f"R1 batch {B}, lanes {L} ({steps} steps): {ms:.4f} ms; phases (ms, mean over "
-              f"blocks): recurrence {ph[0]:.4f}, counts {ph[1]:.4f}, scan {ph[2]:.4f}, "
-              f"scatter {ph[3]:.4f}")
-    for Bc, L, words, base, idx0 in r2_cases(sym, idx, dtable):
-        sc = C // SECTIONS
-        zero = torch.zeros(Bc, dtype=torch.int32, device=dev)
-        outs = [torch.empty(shape, dtype=torch.int32, device=dev)
-                for shape in ((Bc, sc * H * W), (Bc, sc * H * W), (Bc,), (Bc, L))]
-
-        def dec():
-            native.check(lib.dcvic_rans_decode_section(
-                words.data_ptr(), words.numel(), base.data_ptr(), zero.data_ptr(), None,
-                idx0.data_ptr(), dtable.lut.data_ptr(), *t, Bc, sc, H * W, L, 2,
-                rd.esc_cap(sc * H * W), *[x.data_ptr() for x in outs], stream),
-                "rans_decode_section")
-        report_r2(lib, "one-block", Bc, L, time_ms(dec))
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--source", default=SOURCE)
-    ap.add_argument("--design", choices=sorted(PATCHES), default="current")
-    args = ap.parse_args(argv)
+def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("rans_stamps: CUDA is not available")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -286,8 +196,7 @@ def main(argv=None) -> int:
     table = GaussianConditional().build_cdf_table(get_scale_table())
     dtable = rd.DeviceCdfTable(table, dev)
     sym, idx = planes(table, dev)
-    lib = build(args.source, args.design)
-    (run_current if args.design == "current" else run_one_block)(lib, sym, idx, dtable)
+    run(build(), sym, idx, dtable)
     return 0
 
 

@@ -544,6 +544,52 @@ def test_rans_kernels_match_plain_and_host_coder(dev, shape, S, lanes, factorise
     assert torch.equal(cur, counts) and bool((state == rd.RANS_L).all())
 
 
+@pytest.mark.parametrize("lanes", [128, 512])
+def test_rans_kernels_read_a_wide_table_in_place(dev, lanes):
+    """A factorised table of 192 x 323 bins, more than R2 copies into shared
+    memory: R1's words equal the plain version's and the host coder's, R2's
+    symbols, cursor and states the plain version's."""
+    import numpy as np
+    from dc_vic_tpu_torch.codec.bottleneck import EntropyBottleneck, build_bottleneck_cdf
+    from dc_vic_tpu_torch.models import init_weights
+    from dc_vic_tpu_torch.ops import rans_device as rd
+    from dc_vic_tpu_torch.ops.rans_host import tpu_encode_sections
+    eb = EntropyBottleneck(192)
+    init_weights(eb, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        eb.quantiles[:, 0, 0] = eb.quantiles[:, 0, 1] - 160
+        eb.quantiles[:, 0, 2] = eb.quantiles[:, 0, 1] + 160
+    host = build_bottleneck_cdf(eb)
+    table = rd.DeviceCdfTable(host, dev)
+    assert table.pair_packed.numel() > 44 * 1024
+    B, C, H, W = 2, 192, 12, 8
+    rng = np.random.default_rng(lanes)
+    maxv = table.maxv.cpu().numpy()[None, :, None, None]
+    sym = rng.integers(0, maxv, (B, C, H, W)) + table.offsets.cpu().numpy()[None, :, None, None]
+    sym = np.where(rng.random(sym.shape) < 0.03, rng.integers(-20000, 20000, sym.shape), sym)
+    sym = torch.from_numpy(sym.astype(np.int16)).to(dev)
+    packed, offsets, counts, _, _ = rd.encode_pack(sym, None, 1, lanes, table)
+    L = rd.section_lanes(C * H * W, lanes)
+    rows = rd.channel_rows(B, C, H, W, dev)
+    sections = [(rd.to_stream(sym, L), rd.to_stream(rows, L))]
+    p_packed, p_counts = rd.pack_streams_plain(*rd.encode_stream_plain(sections, table)[:2])
+    assert torch.equal(counts, p_counts)
+    words = torch.cat([packed[int(o):int(o) + int(n)] for o, n in zip(offsets, counts)])
+    assert torch.equal(words, p_packed[:words.numel()])
+    base = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    for b in range(B):
+        data = tpu_encode_sections([(sections[0][0][b].cpu().numpy(),
+                                     sections[0][1][b].cpu().numpy())], host)
+        o, n = int(base[b]), int(counts[b])
+        assert words[o:o + n].cpu().numpy().tobytes() == data
+    zero = torch.zeros(B, dtype=torch.int32, device=dev)
+    got, cur, state = rd.decode_section(words, base, zero, None, None, (B, C, H, W), lanes,
+                                        table, out_dtype=torch.int32)
+    want, p_cur, p_state = rd.decode_section_plain(words, base, zero, None, sections[0][1], table)
+    assert torch.equal(got, rd.from_stream(want, C, H, W)) and torch.equal(got, sym.int())
+    assert torch.equal(cur, p_cur) and torch.equal(state, p_state)
+
+
 def test_rans_decode_kernel_survives_a_truncated_stream(dev):
     """Reads past the buffer give zero words: no fault, and a cursor that
     the integrity check refuses."""

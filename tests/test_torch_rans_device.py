@@ -28,13 +28,18 @@ def _gaussian_tables():
     return host, JaxCdfTable(host.cdfs, host.cdf_lengths, host.offsets)
 
 
-def _bottleneck_tables(channels=8):
+def _bottleneck_tables(channels=8, half_width=None):
     """A z-style table: one row per channel, from a factorised bottleneck
-    with seeded weights."""
+    with seeded weights; ``half_width`` sets the quantiles that far either
+    side of the median (a wide z, as training can leave it)."""
     from dc_vic_tpu_torch.codec.bottleneck import EntropyBottleneck, build_bottleneck_cdf
     from dc_vic_tpu_torch.models import init_weights
     eb = EntropyBottleneck(channels)
     init_weights(eb, torch.Generator().manual_seed(3))
+    if half_width is not None:
+        with torch.no_grad():
+            eb.quantiles[:, 0, 0] = eb.quantiles[:, 0, 1] - half_width
+            eb.quantiles[:, 0, 2] = eb.quantiles[:, 0, 1] + half_width
     host = build_bottleneck_cdf(eb)
     return host, JaxCdfTable(host.cdfs, host.cdf_lengths, host.offsets)
 
@@ -49,6 +54,14 @@ def gaussian():
 def bottleneck():
     host, jax_host = _bottleneck_tables()
     return host, rd.DeviceCdfTable(host, "cpu"), jrd.DeviceCdfTable(jax_host)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """192 channels of 323 bins: more pair entries than kernel R2 copies
+    into shared memory (45,056), so on the card it reads them in place."""
+    host, _ = _bottleneck_tables(192, 160)
+    return host, rd.DeviceCdfTable(host, "cpu"), None
 
 
 def _symbols(rng, kind, shape, rows, mix):
@@ -347,17 +360,18 @@ def test_encode_scratch_enumerates_every_lane_once(L):
         assert seen == list(range(C * HW))
 
 
-@pytest.mark.parametrize("kind", ["gaussian", "bottleneck"])
+@pytest.mark.parametrize("kind", ["gaussian", "bottleneck", "wide"])
 def test_packed_pair_table_holds_every_bin_the_lut_gives(request, kind):
-    """R2's shared-memory copy of the pair table: row r's valid bins from
-    pair_base[r], equal to the full table's, zero-padded to whole 16-byte
-    copies; every bin the LUT returns for row r lies among them."""
+    """R2's packed pair table (copied into shared memory, or read in place
+    when it is wide): row r's valid bins from pair_base[r], equal to the
+    full table's, zero-padded to whole 16-byte copies; every bin the LUT
+    returns for row r lies among them."""
     _, table, _ = request.getfixturevalue(kind)
     packed, base = table.pair_packed.numpy(), table.pair_base.numpy()
     pair = table.pair.numpy().reshape(table.rows, table.cols)
     bins = table.maxv.numpy() + 1
     assert packed.size % 4 == 0 and packed.size - bins.sum() < 4
-    assert packed.size <= rd.PACKED_PAIRS_MAX
+    assert (packed.size > 44 * 1024) == (kind == "wide")
     assert not packed[bins.sum():].any()
     lut = table.lut.numpy().view(np.uint16)
     for r in range(table.rows):
@@ -365,24 +379,38 @@ def test_packed_pair_table_holds_every_bin_the_lut_gives(request, kind):
         assert lut[r].max() == bins[r] - 1
 
 
-@pytest.mark.parametrize("L", [1 << k for k in range(13)])
-def test_decode_threads_cover_the_step(L):
-    """R2 runs a block per image, one lane per thread: rounds of T threads
-    cover the step's L lanes exactly (a partial warp below 32 lanes), T a
-    whole number of warps within a block's 1024 threads."""
-    T = rd.decode_threads(L)
-    rounds = max(1, L // T)
-    assert T % 32 == 0 and 32 <= T <= 1024
-    if L < 32:
-        assert (T, rounds) == (32, 1)
-    else:
-        assert T * rounds == L
-        assert (rounds == 1) == (L <= 1024)
+@pytest.mark.parametrize("cap", [4, 128, 512])
+def test_wide_table_round_trips_and_matches_the_host_coder(wide, cap):
+    """A factorised stream on a table wider than R2's shared-memory copy:
+    encode_pack writes the host coder's bytes (escapes included) and
+    decode_section returns the planes, the cursor at the stream's end."""
+    host, table, _ = wide
+    rng = np.random.default_rng(cap)
+    B, C, H, W = 2, 192, 2, 4
+    maxv = table.maxv.numpy()[None, :, None, None]
+    sym = rng.integers(0, maxv, (B, C, H, W)) + table.offsets.numpy()[None, :, None, None]
+    sym[0, 5, 1, 2], sym[1, C - 1, 0, 0] = 20000, -20000
+    sym = torch.from_numpy(sym.astype(np.int16))
+    packed, offsets, counts, esc, big = rd.encode_pack(sym, None, 1, cap, table)
+    L = rd.section_lanes(C * H * W, cap)
+    rows = rd.channel_rows(B, C, H, W, "cpu")
+    for b in range(B):
+        sec = [(rd.to_stream(sym[b:b + 1], L)[0].numpy(),
+                rd.to_stream(rows[b:b + 1], L)[0].numpy())]
+        o, n = int(offsets[b]), int(counts[b])
+        assert packed[o:o + n].numpy().tobytes() == tpu_encode_sections(sec, host)
+    assert int(esc.sum()) == 2 and int(big.sum()) == 0
+    words = torch.cat([packed[int(o):int(o) + int(n)] for o, n in zip(offsets, counts)])
+    base = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    got, cur, state = rd.decode_section(words, base, torch.zeros(B, dtype=torch.int32), None,
+                                        None, (B, C, H, W), cap, table)
+    assert torch.equal(got, sym) and torch.equal(cur, counts)
+    assert bool((state == rd.RANS_L).all())
 
 
 def test_rans_stamps_instruments_the_current_source():
     """tools/rans_stamps.py finds each of its anchors once in the package's
     csrc/rans_device.cu, so the measuring build follows the kernels."""
     from dc_vic_tpu_torch.tools import rans_stamps
-    src = rans_stamps.instrument(rans_stamps.SOURCE, "current")
+    src = rans_stamps.instrument()
     assert src.count("= clk();") == 5 and "dcvic_read_stamps" in src
