@@ -7,7 +7,14 @@
    main path's shapes and times both: K1 vq_argmin, K2 flash attention, K3
    gn_channel_sums, K4 gn_apply, K5 conv3x3_same, K6 conv3x3_gn_swish. The
    conv kernels are also compared on the one-pixel border alone, and K2 to
-   K6 are run twice on the same input and must give the same bits.
+   K6 are run twice on the same input and must give the same bits. K1 is
+   held at the four latents it quantizes (training's batch 6 of 256x256,
+   batch 4 of 768x512, the tiled 2048x1365 canvas, the contract's batch 16)
+   through its NCHW entry and its flat entry, at codebooks of 1000 and 11,622
+   entries, on exact ties in other lanes' slices and at ragged shapes, and
+   timed at each of those latents by device time (graph replay of 100 calls,
+   and the kernel's own duration under torch.profiler) and by the host's
+   microseconds a call.
 3. Drives the codec of the flagship model (config/dc_vic_patchgan.yaml,
    full width, random weights from a seed) on its default path: a batch of
    four 768x512 images through Codec.compress -> bitstreams ->
@@ -218,9 +225,13 @@ products: three times the operations over the 495 TFLOP/s dense TF32 rate
 (bound_ms); the f32 figure is kept beside it (bound_ffma_ms). A kernel faster
 than its bound fails the run: the bound or the timing would be wrong. Where
 one PyTorch call computes the same function, that call's time is printed too.
-K1 is one launch of a microsecond's arithmetic, so its entry also carries the
-launch-to-finish time of an empty kernel (launch_floor_ms) and the larger of
-that and the operation bound (bound_with_launch_ms). The bf16 entries
+K1 is one launch of a few microseconds, which a loop of Python calls cannot
+time: its entry is timed at the contract's M by graph replay (ms, plain_ms)
+and by the profiler (profiled_ms), with the host's microseconds a call
+(host_us_per_call), the same at each of the four latents in per_m (with
+each one's bound), the launch-to-finish time of an empty kernel by both
+methods (launch_floor_ms, launch_floor_profiled_ms) and the larger of that
+and the operation bound (bound_with_launch_ms). The bf16 entries
 (names ending in _bf16) are bound by bytes or by their operations over the
 bf16 rate; their launches are those of the deployment configuration's round
 trip with the reconstruction kernels on, which the other entries carry as
@@ -296,48 +307,109 @@ def _border(t):
                       t[..., :, 0].flatten(), t[..., :, -1].flatten()])
 
 
-def check_vq(vq, dev, gen):
-    """K1 against its plain version: random rows at the main-path M (batch
-    4, where it is timed), a ragged M, exact-tie rows, and the M of the
-    deployment configuration's batch of 16."""
+def _vq_held(vq, got, z, book, label):
+    """(rows that differ, max distance gap) of K1's indices ``got`` for rows
+    z [M, 4] against the plain version; rows that differ must be near ties
+    (top-two gap < 1e-6*max(1,|d|))."""
     import torch
-    worst = 0.0
-    near_ties = 0
+    want = vq.vq_argmin_plain(z, book)
+    dist = (book * book).sum(-1)[None] - 2.0 * (z @ book.t())
+    d_got = dist.gather(1, got.long()[:, None])[:, 0]
+    d_want = dist.gather(1, want.long()[:, None])[:, 0]
+    gap = (d_got - d_want).abs()
+    bad = got != want
+    tol = 1e-6 * torch.clamp(d_want.abs(), min=1.0)
+    if bool((bad & (gap >= tol)).any()):
+        raise AssertionError(f"vq_argmin disagrees beyond near-ties: {label}")
+    return int(bad.sum()), float(gap.max())
+
+
+def check_vq(vq, dev, gen):
+    """K1 against its plain version: random latents at the port's four M
+    (VQ_SHAPES: training, batch 4, the tiled 2048x1365 canvas, the
+    contract's batch 16) through the NCHW entry the quantizer calls and
+    through the flat entry, which must agree; a ragged M; codebooks of 1000
+    and 11,622 entries (the most shared memory takes; not a multiple of the
+    kernel's four lanes); exact duplicates in other lanes' slices and in one
+    slice, whose rows must go to the lower index; the NCHW entry at B > 1
+    with H W no multiple of a block's rows, contiguous and channels-last.
+    Then timed at each M by device time (graph replay of 100 calls; the
+    kernel's own duration under torch.profiler) and by the host's
+    microseconds a call, beside its bound. Returns the kernel entry, timed
+    at the contract's M."""
+    import torch
+    from dc_vic_tpu_torch.tools.vq_time import VQ_SHAPES
+    from dc_vic_tpu_torch.utils.profiling import graph_ms, host_us_per_call, profiled_ms
+    worst, near_ties = 0.0, 0
     cb = torch.randn(256, 4, generator=gen, device=dev) * 0.05
+
+    def held(got, z, book, label):
+        nonlocal worst, near_ties
+        n, gap = _vq_held(vq, got, z, book, label)
+        near_ties += n
+        worst = max(worst, gap)
+
+    latents = {}
+    for label, B, h, w in VQ_SHAPES:
+        z = torch.randn(B, 4, h, w, generator=gen, device=dev) * 0.05
+        flat = z.permute(0, 2, 3, 1).reshape(-1, 4).contiguous()
+        got = vq.vq_argmin_nchw(z, cb)
+        if not torch.equal(got.reshape(-1), vq.vq_argmin(flat, cb)):
+            raise AssertionError(f"vq_argmin: the NCHW and flat entries differ, {label}")
+        held(got.reshape(-1), flat, cb, label)
+        latents[label] = z
+    z = torch.randn(1037, 4, generator=gen, device=dev) * 0.05
+    held(vq.vq_argmin(z, cb), z, cb, "M = 1037")
+    for N in (1000, 11622):
+        book = torch.randn(N, 4, generator=gen, device=dev) * 0.05
+        z = torch.randn(3001, 4, generator=gen, device=dev) * 0.05
+        held(vq.vq_argmin(z, book), z, book, f"N = {N}")
     dup = cb.clone()
-    dup[100], dup[255] = dup[7], dup[0]
-    cases = [(torch.randn(4 * 96 * 64, 4, generator=gen, device=dev) * 0.05, cb),
-             (torch.randn(1037, 4, generator=gen, device=dev) * 0.05, cb),
-             (dup.repeat_interleave(8, 0), dup),
-             (torch.randn(16 * 96 * 64, 4, generator=gen, device=dev) * 0.05, cb)]
-    for z, book in cases:
-        got = vq.vq_argmin(z, book)
-        want = vq.vq_argmin_plain(z, book)
-        dist = (book * book).sum(-1)[None] - 2.0 * (z @ book.t())
-        d_got = dist.gather(1, got.long()[:, None])[:, 0]
-        d_want = dist.gather(1, want.long()[:, None])[:, 0]
-        gap = (d_got - d_want).abs()
-        bad = got != want
-        tol = 1e-6 * torch.clamp(d_want.abs(), min=1.0)
-        if bool((bad & (gap >= tol)).any()):
-            raise AssertionError(f"vq_argmin disagrees beyond near-ties at M={z.shape[0]}")
-        near_ties += int(bad.sum())
-        worst = max(worst, float(gap.max()))
-    got = vq.vq_argmin(cases[2][0], dup)
-    if int(got[100 * 8]) != 7 or int(got[255 * 8]) != 0:
+    pairs = ((100, 7), (255, 0), (13, 6), (12, 4))    # other lanes' slices, then one slice
+    for hi, lo in pairs:
+        dup[hi] = dup[lo]
+    z = dup.repeat_interleave(8, 0)
+    got = vq.vq_argmin(z, dup)
+    held(got, z, dup, "exact ties")
+    if any(bool((got[hi * 8:hi * 8 + 8] != lo).any()) for hi, lo in pairs):
         raise AssertionError("vq_argmin tie rows must resolve to the lower index")
+    for shape in ((3, 37, 29), (2, 1, 45)):
+        z = torch.randn(shape[0], 4, *shape[1:], generator=gen, device=dev) * 0.05
+        for zz in (z, z.contiguous(memory_format=torch.channels_last)):
+            flat = zz.permute(0, 2, 3, 1).reshape(-1, 4).contiguous()
+            if not torch.equal(vq.vq_argmin_nchw(zz, cb).reshape(-1), vq.vq_argmin(flat, cb)):
+                raise AssertionError(f"vq_argmin: NCHW entry differs from flat at {shape}")
     print(f"K1 vq_argmin: indices equal to plain except {near_ties} near-tie rows "
-          f"(top-two gap < 1e-6*max(1,|d|)); max distance gap {worst:.3e}")
-    z = cases[0][0]
-    M, D = z.shape
-    N = cb.shape[0]
-    # per row and codeword: D multiply-adds for the cross term, 2 more flops
+          f"(top-two gap < 1e-6*max(1,|d|)); max distance gap {worst:.3e}; NCHW entry equal "
+          f"to the flat entry; ties to the lower index across lane slices")
+
+    per_m = []
+    for label, B, h, w in VQ_SHAPES:
+        z = latents[label]
+        M = B * h * w
+        flat = z.permute(0, 2, 3, 1).reshape(-1, 4).contiguous()
+        # per row and codeword: 4 multiply-adds for the cross term, 2 more flops
+        row = {"shape": label, "M": M, "device_ms": graph_ms(vq.vq_argmin_nchw, z, cb),
+               "profiled_ms": profiled_ms(vq.vq_argmin_nchw, z, cb, kernel="vq_argmin"),
+               "host_us_per_call": host_us_per_call(vq.vq_argmin_nchw, z, cb),
+               "flat_device_ms": graph_ms(vq.vq_argmin, flat, cb),
+               "plain_ms": graph_ms(vq.vq_argmin_plain, flat, cb),
+               **bounds(_nbytes(z, cb) + M * 4, M * cb.shape[0] * 10)}
+        per_m.append(row)
+        print(f"K1 at M={M} ({label}): device {row['device_ms'] * 1e3:.3f} us by graph "
+              f"replay, {row['profiled_ms'] * 1e3:.3f} us by the profiler (flat entry "
+              f"{row['flat_device_ms'] * 1e3:.3f} us), host {row['host_us_per_call']:.2f} us a "
+              f"call, plain {row['plain_ms'] * 1e3:.3f} us; bound {row['bound_ms'] * 1e3:.3f} "
+              f"us ({row['bound_by']}), {row['bound_ms'] / row['profiled_ms']:.1%} of it")
+    top = per_m[-1]
     return {"name": "vq_argmin", "route": "cuda",
             "source": "dc_vic_tpu_torch/csrc/vq_argmin.cu",
             "replaces": "dc_vic_tpu/ops/vq.py:21", "max_abs_err": worst,
-            "ms": _time_ms(vq.vq_argmin, z, cb),
-            "plain_ms": _time_ms(vq.vq_argmin_plain, z, cb),
-            **bounds(_nbytes(z, cb) + M * 4, M * N * (2 * D + 2)), "library_ms": None}
+            "shape": [VQ_SHAPES[-1][1], 4, *VQ_SHAPES[-1][2:]],
+            "ms": top["device_ms"], "profiled_ms": top["profiled_ms"],
+            "host_us_per_call": top["host_us_per_call"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "bound_ffma_ms": top["bound_ffma_ms"], "library_ms": None, "per_m": per_m}
 
 
 ATTENTION_CASES = [((4, 6144, 512), 1.0), ((2, 6144, 512), 1.0), ((1, 1000, 512), 1.0),
@@ -629,15 +701,16 @@ def time_conv_shapes(conv3x3, shapes, dev, gen):
 
 
 def launch_floor_ms(native):
-    """Launch-to-finish time of an empty kernel, by the same CUDA-event
-    method as every other time here."""
+    """(graph replay ms, profiled ms) of an empty kernel's launch to finish,
+    by the same two methods as K1's device time."""
     import torch
+    from dc_vic_tpu_torch.utils.profiling import graph_ms, profiled_ms
     lib = native.kernels()
-    stream = torch.cuda.current_stream().cuda_stream
 
     def launch():
+        stream = torch.cuda.current_stream().cuda_stream
         native.check(lib.dcvic_launch_floor(1, 32, stream), "launch_floor")
-    return _time_ms(launch, reps=200)
+    return graph_ms(launch), profiled_ms(launch, kernel="launch_floor_kernel")
 
 
 Y_PLANES = (4, 192, 48, 32)     # y of four 768x512 images: six sections of 32 channels
@@ -834,6 +907,7 @@ def check_rans(rd, rans_host, Codec, dev):
     from dc_vic_tpu_torch.codec.bottleneck import EntropyBottleneck, build_bottleneck_cdf
     from dc_vic_tpu_torch.codec.gaussian import GaussianConditional, get_scale_table
     from dc_vic_tpu_torch.models import init_weights
+    from dc_vic_tpu_torch.utils.profiling import graph_ms
     y_host = GaussianConditional().build_cdf_table(get_scale_table())
     eb = EntropyBottleneck(Z_PLANES[1])
     init_weights(eb, torch.Generator().manual_seed(1))
@@ -870,15 +944,17 @@ def check_rans(rd, rans_host, Codec, dev):
                           f"{wide_table.pair_packed.numel()} bins (R2 reads it from global "
                           f"memory), lanes {lanes}, tier-1 escapes", factorised=True)
     # R2 on the z section at lanes 512, its pair table in shared memory (the
-    # seed weights' table) and in global memory (the wide one)
+    # seed weights' table) and in global memory (the wide one); 36 steps, too
+    # short for a Python loop of launches to time, so also by graph replay
     z_ms = []
     for table, (_, _, words, base, _) in ((z_table, kept[512, "z"]), (wide_table, wide)):
         zero = torch.zeros(Z_PLANES[0], dtype=torch.int32, device=dev)
-        z_ms.append(_time_ms(rd.decode_section, words, base, zero, None, None, Z_PLANES, 512,
-                             table))
-    print(f"R2 on the z section {list(Z_PLANES)}, lanes 512: {z_ms[0]:.4f} ms with the pair "
-          f"table in shared memory ({z_table.pair_packed.numel()} bins), {z_ms[1]:.4f} ms from "
-          f"global memory ({wide_table.pair_packed.numel()} bins)")
+        args = (words, base, zero, None, None, Z_PLANES, 512, table)
+        z_ms.append((_time_ms(rd.decode_section, *args), graph_ms(rd.decode_section, *args)))
+    print(f"R2 on the z section {list(Z_PLANES)}, lanes 512: {z_ms[0][0]:.4f} ms with the pair "
+          f"table in shared memory ({z_table.pair_packed.numel()} bins), {z_ms[1][0]:.4f} ms from "
+          f"global memory ({wide_table.pair_packed.numel()} bins); device time by graph replay "
+          f"{z_ms[0][1]:.4f} ms and {z_ms[1][1]:.4f} ms")
     return time_rans(rd, y_host, y_table, kept, dev)
 
 
@@ -1884,13 +1960,16 @@ def check_predicates(attention, vq, dev, gen):
     z, cb = torch.randn(1000, 8, generator=gen, device=dev), torch.randn(256, 8, generator=gen,
                                                                         device=dev)
     cases.append(("vq D=8", vq.vq_argmin(z, cb), vq.vq_argmin_plain(z, cb)))
+    z = z[:990].reshape(2, 33, 15, 8).permute(0, 3, 1, 2)
+    cases.append(("vq NCHW D=8", vq.vq_argmin_nchw(z, cb), vq.vq_argmin_nchw_plain(z, cb)))
     for name, got, want in cases:
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: not the plain version")
     if (attention.launches, vq.launches) != before:
         raise AssertionError("a shape outside the kernels' rules launched a kernel")
     print("K1/K2 outside their rules on the card: attention with C = 64 and with bf16 "
-          "operands, VQ with D = 8 take the plain versions (equal bits, no launch)")
+          "operands, VQ with D = 8 (flat and NCHW) take the plain versions (equal bits, no "
+          "launch)")
 
 
 def check_tiled(opt, sd, ops, smi, dev, gen):
@@ -3326,13 +3405,15 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     k1 = check_vq(vq, dev, gen)
-    k1["launch_floor_ms"] = launch_floor_ms(native)
+    k1["launch_floor_ms"], k1["launch_floor_profiled_ms"] = launch_floor_ms(native)
     k1["bound_with_launch_ms"] = max(k1["bound_ms"], k1["launch_floor_ms"])
     k2 = check_attention(attention, dev, gen)
-    print(f"K1 at M=24576: kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
-          f"bound {k1['bound_ms']:.5f} ms ({k1['bound_by']}); an empty kernel takes "
-          f"{k1['launch_floor_ms']:.4f} ms from launch to finish, so the larger of the two "
-          f"is {k1['bound_with_launch_ms']:.4f} ms")
+    print(f"K1 at M={k1['per_m'][-1]['M']}: kernel {k1['ms'] * 1e3:.3f} us device time (graph "
+          f"replay; {k1['profiled_ms'] * 1e3:.3f} us by the profiler), plain "
+          f"{k1['plain_ms'] * 1e3:.3f} us, bound {k1['bound_ms'] * 1e3:.3f} us "
+          f"({k1['bound_by']}); an empty kernel takes {k1['launch_floor_ms'] * 1e3:.3f} us "
+          f"(graph; {k1['launch_floor_profiled_ms'] * 1e3:.3f} us profiler) from launch to "
+          f"finish, so the larger of the two is {k1['bound_with_launch_ms'] * 1e3:.3f} us")
     print(f"K2 at [4,6144,512]: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, "
           f"bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}, 3xTF32; "
           f"{k2['bound_ffma_ms']:.3f} ms at the f32 rate), "

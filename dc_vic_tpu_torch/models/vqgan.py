@@ -22,7 +22,7 @@ from torch import nn
 from ..nn.layers import GroupNorm, PointwiseLinear, conv, num_groups32
 from ..ops import conv3x3 as conv3x3_ops
 from ..ops.attention import flash_attention
-from ..ops.vq import vq_argmin
+from ..ops.vq import vq_argmin_nchw
 
 
 def gn_fold(x: torch.Tensor, norm: GroupNorm):
@@ -261,9 +261,7 @@ class VectorQuantizer(nn.Module):
 
     def forward(self, z: torch.Tensor):
         """z [B, D, H, W] -> (z_q [B, D, H, W], indices [B, H, W] int32)."""
-        B, D, H, W = z.shape
-        flat = z.permute(0, 2, 3, 1).reshape(-1, D)
-        idx = vq_argmin(flat, self.embedding.weight).reshape(B, H, W)
+        idx = vq_argmin_nchw(z, self.embedding.weight)     # K1 reads z in place
         # the straight-through form z + (z_q - z) of the JAX quantizer, kept
         # for its f32 rounding
         return z + (self.lookup(idx) - z), idx

@@ -109,7 +109,7 @@ def _load(name: str, build: Callable[[], str],
 def _bind_kernels(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.dcvic_vq_argmin.restype = i
-    lib.dcvic_vq_argmin.argtypes = [p, p, p, i, i, i, p]
+    lib.dcvic_vq_argmin.argtypes = [p, p, p, i, i, i, ll, ll, ll, i, p]
     lib.dcvic_flash_attn_f32.restype = i
     lib.dcvic_flash_attn_f32.argtypes = [p, p, p, p, i, i, i, p]
     lib.dcvic_gn_channel_sums.restype = i

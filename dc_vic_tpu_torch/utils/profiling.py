@@ -2,7 +2,10 @@
 
 ``device_trace`` records a ``torch.profiler`` trace of the CPU and the card
 and writes it as a Chrome trace; ``kernel_times`` sums a profile's device
-time by kernel name and ``kernel_report`` lists it. ``StageTimer``
+time by kernel name and ``kernel_report`` lists it. ``graph_ms``,
+``profiled_ms`` and ``host_us_per_call`` time a call that launches one
+small kernel: by the replay of a captured CUDA graph, by the profiler's
+kernel durations, and by the host's clock over the enqueue. ``StageTimer``
 accumulates host-clock seconds per named stage, each stage ending in a wait
 for the device work it names (``sync``), so that a stage's time is its own
 on a device that runs asynchronously.
@@ -85,6 +88,69 @@ def kernel_report(times: Dict[str, Tuple[float, int]], top: int = 20) -> List[st
         lines.append(f"{100 * us / max(total, 1e-9):6.2f}%  {us / 1e3:10.3f} ms  {n:6d}  "
                      f"{name[:110]}")
     return lines
+
+
+def graph_ms(fn, *args, launches: int = 100, replays: int = 5) -> float:
+    """Device milliseconds a call of ``fn(*args)``: ``launches`` calls
+    captured in one CUDA graph, the graph replayed ``replays`` times between
+    CUDA events, the median replay over ``launches``. The host does not run
+    between the launches, so a kernel of a few microseconds is timed by the
+    card and not by how fast Python enqueues it; what is left beside the
+    kernel is the card's own gap from one graph node to the next."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)                          # warm-up off the capture: builds, caches
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: an entry that sets a kernel's shared-memory limit on every
+    # call (cudaFuncSetAttribute) may do so while the stream is captured
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn(*args)
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def profiled_ms(fn, *args, kernel: str, launches: int = 100) -> float:
+    """Device milliseconds a launch of the kernels whose names contain
+    ``kernel``, from ``torch.profiler`` over ``launches`` calls of
+    ``fn(*args)`` (``kernel_times``: start to end of each kernel on the
+    card). Raises if the profile holds no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn(*args)
+        torch.cuda.synchronize()
+    hits = [(us, n) for name, (us, n) in kernel_times(prof).items() if kernel in name]
+    if not hits or sum(n for _, n in hits) == 0:
+        raise RuntimeError(f"the profile holds no kernel named like {kernel!r}")
+    return sum(us for us, _ in hits) / sum(n for _, n in hits) / 1e3
+
+
+def host_us_per_call(fn, *args, calls: int = 1000) -> float:
+    """Host microseconds a call of ``fn(*args)`` takes to return: the host
+    clock over ``calls`` calls, then one wait for the card (outside the
+    clock). For a call that only enqueues, this is the enqueue rate."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 class StageTimer:

@@ -2,8 +2,11 @@
 card. Imports neither JAX nor the JAX package, so it runs where JAX is not
 installed: ``python -m pytest --noconftest -p no:cacheprovider
 tests/test_torch_cuda.py -m cuda``. Without a GPU every test skips."""
+import numpy as np
 import pytest
 import torch
+
+import vq_model
 
 pytestmark = pytest.mark.cuda
 
@@ -15,23 +18,77 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("M", [4 * 96 * 64, 1037])
+def _vq_held(got, z, cb):
+    """K1's indices equal its numpy model's (tests/vq_model.py: the same
+    FFMAs, lane slices and butterfly) bit for bit, and the plain version's
+    but for near ties (the exact distances of the two picks within 1e-6
+    max(1, |d|))."""
+    from dc_vic_tpu_torch.ops import vq
+    z_np, cb_np = z.cpu().numpy(), cb.cpu().numpy()
+    np.testing.assert_array_equal(got.cpu().numpy(), vq_model.kernel_argmin(z_np, cb_np))
+    want = vq.vq_argmin_plain(z, cb).cpu().numpy()
+    z64, cb64 = z_np.astype(np.float64), cb_np.astype(np.float64)
+    rows = np.arange(len(z_np))
+    g, w = got.cpu().numpy(), want
+    d_got = (cb64[g] ** 2).sum(1) - 2 * (z64 * cb64[g]).sum(1)
+    d_want = (cb64[w] ** 2).sum(1) - 2 * (z64 * cb64[w]).sum(1)
+    assert not ((g != w) & (np.abs(d_got - d_want) >= 1e-6 * np.maximum(1, np.abs(d_want)))
+                ).any(), rows[g != w][:10]
+
+
+# the port's VQ rows: training, batch 4, the tiled 2048x1365 canvas, the
+# contract's batch 16; and a ragged M
+@pytest.mark.parametrize("M", [6144, 4 * 96 * 64, 45056, 16 * 96 * 64, 1037])
 def test_vq_argmin_kernel_matches_plain(dev, M):
     from dc_vic_tpu_torch.ops import vq
     g = torch.Generator(device=dev).manual_seed(M)
     z = torch.randn(M, 4, generator=g, device=dev)
     cb = torch.randn(256, 4, generator=g, device=dev)
-    torch.testing.assert_close(vq.vq_argmin(z, cb), vq.vq_argmin_plain(z, cb),
-                               atol=0, rtol=0)
+    _vq_held(vq.vq_argmin(z, cb), z, cb)
+
+
+@pytest.mark.parametrize("N", [1000, 11622, 1037, 3])
+def test_vq_argmin_kernel_other_codebook_sizes(dev, N):
+    """Codebooks of 1000 entries, of 11,622 (the most shared memory takes)
+    and of sizes no multiple of the lanes."""
+    from dc_vic_tpu_torch.ops import vq
+    g = torch.Generator(device=dev).manual_seed(N)
+    z = torch.randn(3001, 4, generator=g, device=dev)
+    cb = torch.randn(N, 4, generator=g, device=dev)
+    _vq_held(vq.vq_argmin(z, cb), z, cb)
 
 
 def test_vq_argmin_kernel_ties_take_lower_index(dev):
+    """Exact duplicates in other lanes' slices (n mod 4 differs) and in the
+    same slice: every row on one of them goes to the lower index."""
     from dc_vic_tpu_torch.ops import vq
     g = torch.Generator(device=dev).manual_seed(1)
     cb = torch.randn(256, 4, generator=g, device=dev)
-    cb[100], cb[255] = cb[7], cb[0]
+    cb[100], cb[255], cb[13], cb[12] = cb[7], cb[0], cb[6], cb[4]
     got = vq.vq_argmin(cb.repeat_interleave(8, 0), cb)
-    assert int(got[100 * 8]) == 7 and int(got[255 * 8]) == 0
+    for dup, first in ((100, 7), (255, 0), (13, 6), (12, 4)):
+        assert (got[dup * 8:dup * 8 + 8] == first).all()
+    _vq_held(got, cb.repeat_interleave(8, 0), cb)
+
+
+@pytest.mark.parametrize("shape", [(16, 96, 64), (3, 37, 29), (2, 1, 45)])
+@pytest.mark.parametrize("layout", ["contiguous", "channels_last"])
+def test_vq_argmin_nchw_entry_equals_flat_entry(dev, shape, layout):
+    """The NCHW entry reads the latent in place and gives the flat entry's
+    indices, at B > 1 with H W no multiple of a block's rows."""
+    from dc_vic_tpu_torch.ops import vq
+    B, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(H * W)
+    z = torch.randn(B, 4, H, W, generator=g, device=dev)
+    if layout == "channels_last":
+        z = z.contiguous(memory_format=torch.channels_last)
+    cb = torch.randn(256, 4, generator=g, device=dev)
+    before = vq.launches
+    got = vq.vq_argmin_nchw(z, cb)
+    assert vq.launches == before + 1
+    flat = z.permute(0, 2, 3, 1).reshape(-1, 4).contiguous()
+    assert torch.equal(got, vq.vq_argmin(flat, cb).reshape(B, H, W))
+    _vq_held(got.reshape(-1), flat, cb)
 
 
 @pytest.mark.parametrize("shape,scale", [((2, 6144, 512), 1.0),
