@@ -212,6 +212,30 @@
    share of K1 to K6 and of their Functions' backwards, the top kernels.
    The kernels line carries the OASIS step's launches and Function
    backwards (train_launches_oasis_step, train_backwards_oasis_step).
+17. The training soak (dc_vic_tpu_torch/tools/soak.py): K2 at the soak's
+   shapes, [6, 1024, 128] (a training step at batch 6 of 256x256) and
+   [1, 1024, 128] (an eval image), against its plain version at item 2's
+   tolerance; then the curriculum's four stages through the soak's own
+   run_curriculum on docs/artifacts/soak_gan_config.yaml (the soak's
+   widths, its synthetic data from seed 0, every reconstruction kernel on)
+   at SOAK_ITERS iterations a stage, an eval every SOAK_EVAL_STEP, every
+   counter set to 0 just before and read just after. Each stage's trainer
+   is built again from its options for one step under the shape rules; the
+   soak's own launches and Function backwards of every step must equal
+   theirs (K1 once; K2 five times, its attention blocks all before the
+   first SFT tap, so no K2 backward; K3 and K4 twice with their backwards,
+   on the two [6, 128, 64, 64] GroupNorms, the VQGAN decoder's
+   up.2.block.0.norm1 and the block_1_4 SFT tap's norm1; K5 and K6 off,
+   4,096 positions under their 12,288), and K3/K4 are held against their
+   plain versions at those GroupNorm shapes (f32, as item 12's tiles). No
+   step skipped, every logged loss and d_loss finite, the hand-offs as
+   their knobs say (s2 carries SOAK_S2_CARRIED tensors with the beta FiLM
+   at its initialisation, s3 and s4 load strictly, s4 with the optimizer
+   states and the discriminator), checkpoints and CSV rows written. The
+   gates are printed, not held: at this length they show the mechanics;
+   the quality is the full runs' (PERF.md). The kernels line carries a
+   soak step's launches and Function backwards (train_launches_soak_step,
+   train_backwards_soak_step).
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -1568,19 +1592,6 @@ def verify(codec, images, res, out, enc_s, dec_s, label, betas=None):
     return y_hat
 
 
-def counters(vq, attention, gn, conv3x3, rans_device):
-    return {"vq_argmin": vq.launches, "flash_attention": attention.launches,
-            **gn.launches, **conv3x3.launches, **rans_device.launches}
-
-
-def reset_counters(vq, attention, gn, conv3x3, rans_device):
-    vq.launches = 0
-    attention.launches = 0
-    for table in (gn.launches, conv3x3.launches, rans_device.launches):
-        for name in table:
-            table[name] = 0
-
-
 def expected_launch_recorder(module):
     """Forward hooks that apply the shape rules to the shapes the modules
     are really called with: the launches the rules give for this run,
@@ -1632,23 +1643,24 @@ def expected_launch_recorder(module):
     return want, shapes, handles
 
 
-def counted_round_trip(codec, images, label, ops, betas=None, sync_free=False):
+def counted_round_trip(codec, images, label, betas=None, sync_free=False):
     """The main path (at quality 0, or at ``betas``) with every launch
     counter set to 0 just before it and read just after, held against what
     the shape rules give for the modules that ran in between; then the
     checks of what came out. ``sync_free``: the tpu decode chain runs under
     ``sync_free_decode``. Returns (y_hat, launches, the conv kernels' launch
     shapes)."""
+    from dc_vic_tpu_torch.ops import counts
     want, shapes, handles = expected_launch_recorder(codec.module)
     # the coder kernels: y and z pack per compress on the device backend, z
     # and one section per ChARM slice (one without ChARM) per decompress
     tpu = codec.stream_format == "tpu"
     want["rans_encode_pack"] = 2 if tpu and codec.encode_backend == "device" else 0
     want["rans_decode_section"] = 1 + codec.y_sections if tpu else 0
-    reset_counters(*ops)
+    counts.reset()
     with sync_free_decode(codec) if sync_free else contextlib.nullcontext():
         res, out, enc_s, dec_s = drive(codec, images, betas)
-    launches = counters(*ops)
+    launches = counts.launches()
     for h in handles:
         h.remove()
     print(f"{label}: launches {launches}")
@@ -1773,7 +1785,7 @@ def tile_chunks(codec, H, W):
     return n_enc, n_dec, -(-n_enc // c), -(-n_dec // c)
 
 
-def tiled_round_trip(codec, images, ops, label):
+def tiled_round_trip(codec, images, label):
     """The main path on an image over 1024 px, counted as counted_round_trip
     counts (counters set to 0 just before, read just after, held against
     the shape rules for the modules that ran), with the tpu format's decode
@@ -1782,18 +1794,19 @@ def tiled_round_trip(codec, images, ops, label):
     encoder's y_hat (the consumed words were checked by the fetch). Returns
     (results, decoded images, launches, launch shapes, y_hat on the card)."""
     import torch
+    from dc_vic_tpu_torch.ops import counts
     want, shapes, handles = expected_launch_recorder(codec.module)
     tpu = codec.stream_format == "tpu"
     want["rans_encode_pack"] = 2 if tpu and codec.encode_backend == "device" else 0
     want["rans_decode_section"] = 1 + codec.y_sections if tpu else 0
-    reset_counters(*ops)
+    counts.reset()
     try:
         with sync_free_decode(codec):
             res, out, _, _ = drive(codec, images)
     finally:
         for h in handles:
             h.remove()
-    launches = counters(*ops)
+    launches = counts.launches()
     if launches != want:
         raise AssertionError(f"{label}: kernel launches {launches}, the shape rules give {want}")
     B, H, W = images.shape[:3]
@@ -1972,7 +1985,7 @@ def check_predicates(attention, vq, dev, gen):
           "launch)")
 
 
-def check_tiled(opt, sd, ops, smi, dev, gen):
+def check_tiled(opt, sd, smi, dev, gen):
     """Item 12 of the module docstring. ``sd``: the f32 weights of the
     workload. Returns the launches of the tiled round trip with the
     reconstruction kernels on."""
@@ -2001,7 +2014,7 @@ def check_tiled(opt, sd, ops, smi, dev, gen):
         label = (f"tiled {H}x{W}, f32, {fmt} format"
                  + (", device backend, lanes 512" if fmt == "tpu" else
                     f", params_backend {codec.params_backend}"))
-        res, out, got, _, y_hat = tiled_round_trip(codec, image, ops, label)
+        res, out, got, _, y_hat = tiled_round_trip(codec, image, label)
         if (got["vq_argmin"], got["flash_attention"]) != (1, want_k2):
             raise AssertionError(f"{label}: K1 {got['vq_argmin']}, K2 {got['flash_attention']}")
         times[fmt] = timed_round_trip(codec, image)
@@ -2024,7 +2037,7 @@ def check_tiled(opt, sd, ops, smi, dev, gen):
     spec_k.module.load_state_dict(sd, strict=True)
     tpu_k = Codec(spec_k, encode_backend="device", lanes=512)
     label = f"tiled {H}x{W}, f32, tpu format, reconstruction kernels on"
-    _, out_k, launches_k, shapes_k, _ = tiled_round_trip(tpu_k, image, ops, label)
+    _, out_k, launches_k, shapes_k, _ = tiled_round_trip(tpu_k, image, label)
     if any(launches_k[k] < 1 for k in (*gn.launches, *conv3x3.launches)) or (
             launches_k["vq_argmin"], launches_k["flash_attention"]) != (1, want_k2):
         raise AssertionError(f"{label}: launches {launches_k}")
@@ -2079,7 +2092,7 @@ def report_ptxas(log):
             facts.append(line.split(":", 1)[1].strip())
 
 
-def check_deployment(deployment_sd, ops):
+def check_deployment(deployment_sd):
     """Items 8 to 10 of the module docstring. ``deployment_sd``: the f32
     weights of the workload (seed 0, encoder scaled). Returns the launch
     counts of the bf16 round trip with the reconstruction kernels on, and
@@ -2108,7 +2121,7 @@ def check_deployment(deployment_sd, ops):
             spec_c = build_comp_model(o, recon_kernels=names)
             spec_c.module.load_state_dict(deployment_sd, strict=True)
             codec_c = Codec(spec_c, encode_backend="device", lanes=lanes)
-            y_hat, got, shapes = counted_round_trip(codec_c, images16, label, ops)
+            y_hat, got, shapes = counted_round_trip(codec_c, images16, label)
             if (got["vq_argmin"], got["flash_attention"], got["rans_encode_pack"],
                     got["rans_decode_section"]) != (1, 7, 2, 7):
                 raise AssertionError(f"{label}: launches {got}")
@@ -2249,49 +2262,37 @@ def backward_recorder(module):
                   if isinstance(m, kinds)]
 
 
-def backwards(attention, gn, conv3x3):
-    return {"flash_attention": attention.backwards, **gn.backwards, **conv3x3.backwards}
-
-
-def reset_backwards(attention, gn, conv3x3):
-    attention.backwards = 0
-    for table in (gn.backwards, conv3x3.backwards):
-        for name in table:
-            table[name] = 0
-
-
 def _rel_l2(got, want):
     import torch
     err = float(torch.linalg.vector_norm((got - want).double()))
     return err, err / max(float(torch.linalg.vector_norm(want.double())), 1e-30)
 
 
-def recorded_step(module, ops, run):
+def recorded_step(module, run):
     """``run()`` with every launch counter and Function backward counter
     set to 0 just before it and read just after, held against what the
     shape rules give for the modules that ran. Returns (run's result,
     {"forward": launches, "backward": backwards}, the conv and GroupNorm
     kernels' launch shapes)."""
     import torch
-    from dc_vic_tpu_torch.ops import attention, conv3x3, gn
+    from dc_vic_tpu_torch.ops import counts
     want, shapes, handles = expected_launch_recorder(module)
     want_bwd, more = backward_recorder(module)
     want.update(rans_encode_pack=0, rans_decode_section=0)
-    reset_counters(*ops)
-    reset_backwards(attention, gn, conv3x3)
+    counts.reset()
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
         for h in handles + more:
             h.remove()
-    got = dict(forward=counters(*ops), backward=backwards(attention, gn, conv3x3))
+    got = dict(forward=counts.launches(), backward=counts.backwards())
     if got != dict(forward=want, backward=want_bwd):
         raise AssertionError(f"launches {got}, the shape rules give {want} / {want_bwd}")
     return result, got, shapes
 
 
-def compare_training_gradients(tr, batch, switch, ops, flags=None):
+def compare_training_gradients(tr, batch, switch, flags=None):
     """Item 13.1: one RD step's gradients with every kernel off and on, the
     same betas, noise and VQ targets, under the trainer's backend flags or
     ``flags``. Returns the worst relative error."""
@@ -2321,7 +2322,7 @@ def compare_training_gradients(tr, batch, switch, ops, flags=None):
             switch(model, on)
             for p in model.parameters():
                 p.grad = None
-            total, launched, _ = recorded_step(model, ops, run)
+            total, launched, _ = recorded_step(model, run)
             grads[on] = {n: p.grad.clone() for n, p in model.named_parameters()
                          if p.grad is not None}
             print(f"RD step gradients, kernels {'on' if on else 'off'}: loss "
@@ -2363,7 +2364,7 @@ def hold_gradients(grads, trained, label):
     return worst
 
 
-def timed_steps(tr, loader, switch, ops, on, n=TRAIN_STEPS):
+def timed_steps(tr, loader, switch, on, n=TRAIN_STEPS):
     """n steps of the trainer's stage with the kernels off or on: (host
     seconds of each step, ending in a synchronize; the last step's launches
     and Function backwards, held against the shape rules; its launch
@@ -2379,7 +2380,7 @@ def timed_steps(tr, loader, switch, ops, on, n=TRAIN_STEPS):
             terms = tr.step(batch)
             torch.cuda.synchronize()
         else:
-            terms, launched, shapes = recorded_step(tr.model, ops, lambda: tr.step(batch))
+            terms, launched, shapes = recorded_step(tr.model, lambda: tr.step(batch))
         secs.append(time.perf_counter() - t)
         if not all(np.isfinite(float(v)) for v in terms.values()) or float(terms["skipped"]):
             raise AssertionError(f"a training step gave {terms}")
@@ -2448,7 +2449,7 @@ def time_backward_kernels(shapes, dev, gen):
     return rows
 
 
-def check_training(ops, smi, dev, gen):
+def check_training(smi, dev, gen):
     """Item 13 of the module docstring. Returns {kernel name: the training
     keys of its entry in the kernels line}."""
     import shutil
@@ -2475,12 +2476,12 @@ def check_training(ops, smi, dev, gen):
         loaders.append(tr.train_loader.infinite())
         loader = loaders[-1]
         worst = compare_training_gradients(tr, tr._to_device(next(loader)["real_images"]),
-                                           switch, ops)
+                                           switch)
         enc0 = {n: p.detach().clone() for n, p in tr.model.named_parameters()
                 if n.startswith("encoder.")}
-        rd_off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        rd_off, _, _ = timed_steps(tr, loader, switch, False)
         torch.cuda.reset_peak_memory_stats()
-        rd_on, rd_launched, shapes = timed_steps(tr, loader, switch, ops, True)
+        rd_on, rd_launched, shapes = timed_steps(tr, loader, switch, True)
         rd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         if all(torch.equal(enc0[n], p) for n, p in tr.model.named_parameters() if n in enc0):
             raise AssertionError("stage 1_2: the encoder did not move")
@@ -2496,9 +2497,9 @@ def check_training(ops, smi, dev, gen):
         loader = loaders[-1]
         before = {n: p.detach().clone() for n, p in tr.model.named_parameters()
                   if n.startswith(("encoder.", "decoder."))}
-        gan_off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        gan_off, _, _ = timed_steps(tr, loader, switch, False)
         torch.cuda.reset_peak_memory_stats()
-        gan_on, gan_launched, _ = timed_steps(tr, loader, switch, ops, True)
+        gan_on, gan_launched, _ = timed_steps(tr, loader, switch, True)
         gan_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         params = dict(tr.model.named_parameters())
         if not all(torch.equal(before[n], params[n]) for n in before if n.startswith("encoder.")):
@@ -2522,7 +2523,7 @@ def check_training(ops, smi, dev, gen):
         if any(not torch.equal(v, tr.state.disc.state_dict()[k]) for k, v in d_sd.items()):
             raise AssertionError("stage 3 boot: the discriminator is not 1_3's")
         loaders.append(tr.train_loader.infinite())
-        s3, _, _ = timed_steps(tr, loaders[-1], switch, ops, True, n=2)
+        s3, _, _ = timed_steps(tr, loaders[-1], switch, True, n=2)
         moved = [n for n, p in tr.model.named_parameters()
                  if n in frozen0 and not torch.equal(frozen0[n], p)]
         if moved:
@@ -2589,22 +2590,23 @@ POOL3_RTOL, POOL3_ATOL = 1e-3, 1e-5    # Inception pool3 features, card against 
 RD_STEPS = 4              # RD steps with LPIPS; the first is not warm
 
 
-def counted_run(module, ops, run, rans=(0, 0)):
+def counted_run(module, run, rans=(0, 0)):
     """``run()`` with every launch counter set to 0 just before it and read
     just after, held against the shape rules for the modules that ran, with
     ``rans`` = (R1, R2) launches expected. Returns (run's result,
     launches)."""
     import torch
+    from dc_vic_tpu_torch.ops import counts
     want, _, handles = expected_launch_recorder(module)
     want.update(rans_encode_pack=rans[0], rans_decode_section=rans[1])
-    reset_counters(*ops)
+    counts.reset()
     try:
         result = run()
         torch.cuda.synchronize()
     finally:
         for h in handles:
             h.remove()
-    got = counters(*ops)
+    got = counts.launches()
     if got != want:
         raise AssertionError(f"launches {got}, the shape rules give {want}")
     return result, got
@@ -2672,7 +2674,7 @@ def check_metric_nets(paths, reals, fakes, smi, dev):
     return card, dict(times, **{f"worst_{k}": v for k, v in worst.items()})
 
 
-def check_evaluation(opt, sd, ops, smi, dev):
+def check_evaluation(opt, sd, smi, dev):
     """Item 14 of the module docstring. Returns {kernel name: its launches
     in this phase}, and the phase's figures."""
     import shutil
@@ -2707,7 +2709,7 @@ def check_evaluation(opt, sd, ops, smi, dev):
         chunks = -(-EVAL_IMAGES // EVAL_BATCH)
         t = time.perf_counter()
         (rows, decoded), launches["compress_50"] = counted_run(
-            module, ops, lambda: cli.compress_arrays(
+            module, lambda: cli.compress_arrays(
                 codec, named, 0, os.path.join(root, "out"), batch_size=EVAL_BATCH,
                 selfcheck=True, decompress=True),
             rans=(2 * chunks, 2 * chunks * (1 + codec.y_sections)))
@@ -2760,7 +2762,7 @@ def check_evaluation(opt, sd, ops, smi, dev):
                "forward": binary_rate_search.make_avg_bpp(module, imgs[sub], CALIB_BATCH)}
         rem = CALIB_IMAGES % CALIB_BATCH
         for label, fn in avg.items():
-            _, launches[f"probe_{label}"] = counted_run(module, ops, lambda: fn(1.5, 2.0))
+            _, launches[f"probe_{label}"] = counted_run(module, lambda: fn(1.5, 2.0))
         curve = {bv: [(br, round(avg["token maps"](br, bv), 5))
                       for br in (0.0, 0.75, 1.5, 2.25, spec.max_beta_rate)] for bv in BETA_VQS}
         print(f"estimated bpp of {CALIB_IMAGES} crops by beta_rate, for beta_vq {BETA_VQS}: "
@@ -2855,7 +2857,7 @@ DETERMINISTIC = dict(allow_tf32=False, deterministic=True, benchmark=False)
 VARIANT_BETAS = (0.0, 0.0)       # the betas a model that selects no beta pairs is given
 
 
-def check_stage1_1(ops, smi, dev):
+def check_stage1_1(smi, dev):
     """Item 15 (a): stage 1_1 of the curriculum at full width, then its
     hand-off to stage 1_2. The encoder keeps seed 0's weights unscaled:
     scaled by 0.55, as the codec items have it, stage 1_1's y rounds to 0
@@ -2905,12 +2907,12 @@ def check_stage1_1(ops, smi, dev):
               f"{nonzero:.2%} of the first batch's y_hat is not 0")
         worst = compare_training_gradients(
             tr, batch, lambda module, on: set_recon_kernels(module, RECON_KERNELS if on else ()),
-            ops, DETERMINISTIC)
+            DETERMINISTIC)
         before = {n: p.detach().clone() for n, p in tr.model.named_parameters()
                   if n.startswith(("encoder.", "decoder."))}
-        off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        off, _, _ = timed_steps(tr, loader, switch, False)
         torch.cuda.reset_peak_memory_stats()
-        on, launched, _ = timed_steps(tr, loader, switch, ops, True)
+        on, launched, _ = timed_steps(tr, loader, switch, True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         params = dict(tr.model.named_parameters())
         for part in ("encoder.", "decoder."):
@@ -2942,7 +2944,7 @@ def check_stage1_1(ops, smi, dev):
             raise AssertionError(f"stage 1_2 boot: {bad[:5]} not as carried or initialised")
         del init, fresh, saved
         loaders.append(tr.train_loader.infinite())
-        s12, _, _ = timed_steps(tr, loaders[-1], switch, ops, True, n=1)
+        s12, _, _ = timed_steps(tr, loaders[-1], switch, True, n=1)
         print(f"stage 1_2 booted from stage 1_1's checkpoint at {n11} steps (strict false): "
               f"{len(booted) - len(film)} tensors carried bit-exactly, {len(film)} beta-FiLM "
               f"tensors at their initialisation; one 1_2 step {s12[0]:.4f} s")
@@ -2976,7 +2978,7 @@ def variant_opts():
     return {"HyperpriorCharmVicModel": stage11, "HyperpriorDualCondVicModel": dual}
 
 
-def check_variants(ops, flagship, smi, dev):
+def check_variants(flagship, smi, dev):
     """Item 15 (b): both models' codecs at full width, batch 4 768x512,
     every reconstruction kernel on, in the compressai format (the ChARM
     model's chain on the card, the other's on the host CPU) and the tpu
@@ -3006,7 +3008,7 @@ def check_variants(ops, flagship, smi, dev):
                   "tpu": Codec(spec, encode_backend="device", lanes=512)}
         for fmt, codec in codecs.items():
             label = f"{name}, {fmt} format, kernels on, batch 4 768x512"
-            _, got, _ = counted_round_trip(codec, images, label, ops, betas,
+            _, got, _ = counted_round_trip(codec, images, label, betas,
                                            sync_free=fmt == "tpu")
             want = dict(flagship[fmt])
             if fmt == "tpu":
@@ -3120,7 +3122,7 @@ def film_opt(root):
     return opt
 
 
-def compare_oasis_gradients(tr, batch, ops):
+def compare_oasis_gradients(tr, batch):
     """Item 16 (a): one OASIS GAN step's gradients, the generator's trained
     parameters' and the discriminator's, with K3 to K6 off and on under
     DETERMINISTIC (K2 on in both, as in item 15), the same betas, noise and
@@ -3158,7 +3160,7 @@ def compare_oasis_gradients(tr, batch, ops):
             set_recon_kernels(model, RECON_KERNELS if on else ())
             for p in (*model.parameters(), *disc.parameters()):
                 p.grad = None
-            (g_total, d_total), launched, _ = recorded_step(model, ops, run)
+            (g_total, d_total), launched, _ = recorded_step(model, run)
             grads[on] = {n: p.grad.clone() for n, p in model.named_parameters()
                          if p.grad is not None}
             grads[on].update({f"disc.{n}": p.grad.clone() for n, p in disc.named_parameters()
@@ -3206,7 +3208,7 @@ def warm_step_peak(tr, loader):
     return torch.cuda.max_memory_allocated() / 2 ** 30
 
 
-def check_oasis(ops, smi, dev):
+def check_oasis(smi, dev):
     """Item 16 (a), (b) and (d) of the module docstring. Returns the OASIS
     step's launches and Function backwards (kernels on, without
     mc_sampling) and the figures PERF.md records."""
@@ -3238,18 +3240,18 @@ def check_oasis(ops, smi, dev):
         print(f"OASIS stage trainer (flagship, f32, random weights from seed 0, encoder not "
               f"scaled; config/dc_vic_oasis.yaml's discriminator, {OASIS_LOSS}): built in "
               f"{time.perf_counter() - t:.1f} s; the discriminator's logits {list(shape)}")
-        worst = compare_oasis_gradients(tr, batch, ops)
+        worst = compare_oasis_gradients(tr, batch)
         # on the host: a copy of every parameter on the card would count in
         # the steps' peak memory
         before = {n: p.detach().to("cpu", copy=True) for n, p in tr.model.named_parameters()}
-        off, _, _ = timed_steps(tr, loader, switch, ops, False)
+        off, _, _ = timed_steps(tr, loader, switch, False)
         torch.cuda.reset_peak_memory_stats()
-        on, launched, _ = timed_steps(tr, loader, switch, ops, True)
+        on, launched, _ = timed_steps(tr, loader, switch, True)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         warm_peak = warm_step_peak(tr, loader)
         tr.mc_sampling = True
         torch.cuda.reset_peak_memory_stats()
-        mc, mc_launched, _ = timed_steps(tr, loader, switch, ops, True)
+        mc, mc_launched, _ = timed_steps(tr, loader, switch, True)
         mc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         mc_warm_peak = warm_step_peak(tr, loader)
         tr.mc_sampling = False
@@ -3307,7 +3309,7 @@ def check_oasis(ops, smi, dev):
             tr = build_trainer(opt)
             d0 = {k: v.clone() for k, v in tr.state.disc.state_dict().items()}
             loaders.append(tr.train_loader.infinite())
-            secs, got, _ = timed_steps(tr, loaders[-1], switch, ops, True, n=1)
+            secs, got, _ = timed_steps(tr, loaders[-1], switch, True, n=1)
             if all(torch.equal(d0[k], v) for k, v in tr.state.disc.state_dict().items()):
                 raise AssertionError(f"{label}: the discriminator did not move")
             print(f"{label}: one step {secs[0]:.4f} s (cold), launches {got['forward']}")
@@ -3332,7 +3334,7 @@ def check_oasis(ops, smi, dev):
                 trace_ms=(dev_ms, own_ms, bwd_ms))
 
 
-def profile_contract(deployment_sd, launches16, ops, smi):
+def profile_contract(deployment_sd, launches16, smi):
     """Item 16 (c): ``tools/profile_codec.py::profile`` over the contract
     configuration with every reconstruction kernel on; its launches, a
     warm-up and PROFILE_ROUNDS cycles, held to that many of the deployment
@@ -3340,6 +3342,7 @@ def profile_contract(deployment_sd, launches16, ops, smi):
     import torch
     from dc_vic_tpu_torch.codec.driver import Codec
     from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model
+    from dc_vic_tpu_torch.ops import counts
     from dc_vic_tpu_torch.tools import profile_codec
     from dc_vic_tpu_torch.tools.workload import (DEPLOYMENT, deployment_config,
                                                  deployment_images)
@@ -3349,10 +3352,10 @@ def profile_contract(deployment_sd, launches16, ops, smi):
     spec.module.load_state_dict(deployment_sd, strict=True)
     codec = Codec(spec, encode_backend="device", lanes=DEPLOYMENT["lanes"])
     images = deployment_images()
-    reset_counters(*ops)
+    counts.reset()
     rep = profile_codec.profile(codec, images, PROFILE_ROUNDS, quality_ind=0)
     torch.cuda.synchronize()
-    got = counters(*ops)
+    got = counts.launches()
     want = {k: (PROFILE_ROUNDS + 1) * n for k, n in launches16.items()}
     if got != want:
         raise AssertionError(f"profile_codec launched {got}, {PROFILE_ROUNDS + 1} round trips "
@@ -3368,6 +3371,144 @@ def profile_contract(deployment_sd, launches16, ops, smi):
     del codec, spec
     torch.cuda.empty_cache()
     return rep
+
+
+# ------------------------------------------------ the training soak (item 17)
+
+SOAK_ITERS, SOAK_EVAL_STEP = 20, 10    # a stage: the mechanics; the quality needs the full runs
+SOAK_S2_CARRIED = 746                  # s1 tensors s2 carries (tests/test_torch_soak.py)
+SOAK_ATTENTION = ((6, 1024, 128), (1, 1024, 128))   # K2 in a soak step and in its eval
+
+
+def check_soak_attention(attention, dev, gen):
+    """K2 at the soak's shapes against its plain version, item 2's
+    tolerance, twice for equal bits."""
+    import torch
+    for B, N, C in SOAK_ATTENTION:
+        q = torch.randn(B, N, C, generator=gen, device=dev) * C ** -0.5
+        k, v = (torch.randn(B, N, C, generator=gen, device=dev) for _ in range(2))
+        got = attention.flash_attention(q, k, v)
+        want = attention.attention_plain(q, k, v)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        if not torch.equal(got, attention.flash_attention(q, k, v)):
+            raise AssertionError(f"flash_attention is not repeatable at {(B, N, C)}")
+        print(f"K2 at the soak's [{B},{N},{C}]: max abs err "
+              f"{float((got - want).abs().max()):.3e} to plain, repeatable; kernel "
+              f"{_time_ms(attention.flash_attention, q, k, v):.4f} ms, plain "
+              f"{_time_ms(attention.attention_plain, q, k, v):.4f} ms")
+
+
+def check_soak(smi, dev, gen):
+    """Item 17: the curriculum soak's four stages (tools/soak.py
+    run_curriculum on docs/artifacts/soak_gan_config.yaml, every
+    reconstruction kernel on, its synthetic data from seed 0) at SOAK_ITERS
+    iterations a stage and an eval every SOAK_EVAL_STEP, with every counter
+    set to 0 just before and read just after: each kernel a step launches
+    must have launched. Each stage's trainer is then built again from its
+    options for one more step under recorded_step, which gives the shape
+    rules' launches and Function backwards a step; the soak's own count of
+    every step must equal them. K3 and K4 are held against their plain
+    versions at the GroupNorm shapes those steps launched them with (f32,
+    check_path_shapes). No step skipped, every logged loss and d_loss
+    finite; each boot took what its knobs say (s2 carries SOAK_S2_CARRIED
+    tensors, the beta FiLM at its initialisation; s3 and s4 strictly, s4
+    with the optimizer states and the discriminator); checkpoints and CSV
+    rows written. The gates are printed, not held: 20 iterations show the
+    mechanics, the quality needs the full runs. Returns the launches and
+    backwards of a step ({kernel: n}, or {kernel: {stage: n}} where the
+    stages differ)."""
+    import argparse
+    import copy
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.ops import attention, conv3x3, counts, gn
+    from dc_vic_tpu_torch.tools import soak
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    t_phase = time.perf_counter()
+    check_soak_attention(attention, dev, gen)
+    root = tempfile.mkdtemp(prefix="dcvic_soak_")
+    rules, shapes = {}, {"gn": {}, "conv3x3_same": {}, "conv3x3_gn_swish": {}}
+    try:
+        train_root, eval_root = soak.make_synthetic_dataset(os.path.join(root, "datasets"))
+        args = argparse.Namespace(iters=SOAK_ITERS, eval_step=SOAK_EVAL_STEP, work=root,
+                                  keep_work=True, config=None, no_artifacts=True, out=None,
+                                  trace_dir=None, device=dev.type)
+        counts.reset()
+        verdict, runs = soak.run_curriculum(args, train_root, eval_root)
+        torch.cuda.synchronize()
+        total = soak.kernel_counts()
+        for s, run in runs.items():
+            exp, gan, stats = f"cur_{s}", s in ("s3", "s4"), run.stats
+            model_dir = os.path.dirname(run.checkpoint("comp_model", SOAK_ITERS))
+            want = ["comp_model", "training_state"] + (["discriminator"] if gan else [])
+            if sorted(os.listdir(model_dir)) != sorted(f"{k}_iter{SOAK_ITERS}.ckpt"
+                                                       for k in want):
+                raise AssertionError(f"{exp}: checkpoints {os.listdir(model_dir)}")
+            n_eval = SOAK_ITERS // SOAK_EVAL_STEP * (1 if s == "s1" else 4)
+            if len(run.loss_rows) != 4 or len(run.eval_rows) != n_eval:
+                raise AssertionError(f"{exp}: {len(run.loss_rows)} loss and "
+                                     f"{len(run.eval_rows)} eval rows")
+            terms = [float(r[k]) for r in run.loss_rows for k in ("total", "bpp", "distortion")
+                     + (("d_loss",) if gan else ())]
+            if stats["nan_skips"] or not np.isfinite(terms).all() or stats["steps"] != SOAK_ITERS:
+                raise AssertionError(f"{exp}: {stats['steps']} steps, {stats['nan_skips']} "
+                                     f"skips, losses {run.loss_rows[-1]}")
+            tr = build_trainer(copy.deepcopy(run.opt), device=dev.type)
+            data = tr.train_loader.infinite()
+            try:
+                batch = tr._to_device(next(data)["real_images"])
+                _, rules[s], step_shapes = recorded_step(tr.model, lambda: tr.step(batch))
+            finally:
+                data.close()
+            del tr, batch
+            for kind, seen in step_shapes.items():
+                for shape, n in seen.items():
+                    shapes[kind][shape] = max(n, shapes[kind].get(shape, 0))
+            want = {**rules[s]["forward"],
+                    **{f"{k}_backward": n for k, n in rules[s]["backward"].items()}}
+            if stats["launches_per_step"] != want:
+                raise AssertionError(f"{exp}: the soak counted {stats['launches_per_step']} "
+                                     f"a step, the shape rules give {want}")
+            if not (want["vq_argmin"] >= 1 and want["flash_attention"] >= 1):
+                raise AssertionError(f"{exp}: K1/K2 a step {want}")
+            idle = [k for k, n in want.items() if n and not total[k]]
+            if idle:
+                raise AssertionError(f"{exp}: {idle} launch a step but not in the soak's run "
+                                     f"({total})")
+        s2, s3, s4 = (runs[s].stats["handoff"] for s in ("s2", "s3", "s4"))
+        if (s2["strict"] or s2["carried"] != SOAK_S2_CARRIED or s2["optimizer"]
+                or not all(k.startswith(FILM_KEYS) for k in s2["kept_init"])):
+            raise AssertionError(f"s2's boot: {s2['carried']} carried, strict {s2['strict']}")
+        for name, boot, extras in (("s3", s3, False), ("s4", s4, True)):
+            if not (boot["strict"] and boot["carried"] == boot["total"]
+                    and boot["optimizer"] == extras and boot["discriminator"] == extras):
+                raise AssertionError(f"{name}'s boot: {boot}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    check_path_shapes(gn, conv3x3, shapes, dev, gen, "float32")
+
+    out = {}
+    for part in ("forward", "backward"):
+        names = sorted({k for launched in rules.values() for k in launched[part]})
+        out[part] = {}
+        for k in names:
+            per = {s: launched[part].get(k, 0) for s, launched in rules.items()}
+            out[part][k] = per["s1"] if len(set(per.values())) == 1 else per
+    for s, run in runs.items():
+        stats = run.stats
+        boot = dict(stats["handoff"] or {})
+        boot.pop("kept_init", None)
+        print(f"item 17, cur_{s} ({SOAK_ITERS} steps, {smi}): median warm "
+              f"{stats['median_warm_s_per_it']:.4f} s/it, peak {stats['peak_gib']:.2f} GiB, "
+              f"NaN skips {stats['nan_skips']}, boot {boot or None}")
+    print(f"item 17 soak stages (printed, not held at {SOAK_ITERS} iterations): "
+          f"{json.dumps(verdict['stages'])}")
+    print(f"item 17 soak gates (printed, not held): {json.dumps(verdict['gates'])}")
+    print(f"item 17: launches a soak step {out['forward']}, Function backwards "
+          f"{out['backward']}; the run's {total}; phase {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main():
@@ -3427,7 +3568,6 @@ def main():
               f"at lanes 512), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), dependent chain {r['chain_ms']:.4f} ms")
     torch.cuda.empty_cache()
-    ops = (vq, attention, gn, conv3x3, rans_device)
     recon_names = (*gn.launches, *conv3x3.launches)
 
     t = time.perf_counter()
@@ -3441,7 +3581,7 @@ def main():
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (4, 768, 512, 3), dtype=np.uint8)
     y_hat, default_launches, _ = counted_round_trip(
-        codec, images, "compressai format, default path, batch 4 768x512", ops)
+        codec, images, "compressai format, default path, batch 4 768x512")
     if any(default_launches[k] for k in recon_names):
         raise AssertionError("the default path launched a reconstruction kernel")
     if default_launches["vq_argmin"] != 1 or default_launches["flash_attention"] < 1:
@@ -3457,7 +3597,7 @@ def main():
     strings = {}
     for (backend, lanes), c in tpu.items():
         label = f"tpu format, {backend} backend, lanes {lanes}, batch 4 768x512"
-        _, got, _ = counted_round_trip(c, images, label, ops)
+        _, got, _ = counted_round_trip(c, images, label)
         for k in ("vq_argmin", "flash_attention", *recon_names):
             if got[k] != default_launches[k]:
                 raise AssertionError(f"{label}: {k} launched {got[k]} times, "
@@ -3522,11 +3662,11 @@ def main():
     spec_k.module.load_state_dict(spec.module.state_dict(), strict=True)
     codec_k = Codec(spec_k, stream_format="compressai", params_backend="accel")
     _, launches_c, conv_shapes = counted_round_trip(
-        codec_k, images, "compressai format, reconstruction kernels on, batch 4 768x512", ops)
+        codec_k, images, "compressai format, reconstruction kernels on, batch 4 768x512")
     codec_kt = Codec(spec_k, encode_backend="device")
     _, launches, _ = counted_round_trip(
         codec_kt, images, "tpu format, device backend, reconstruction kernels on, "
-        "batch 4 768x512", ops)
+        "batch 4 768x512")
     missing = [k for k, n in launches.items() if n < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -3549,23 +3689,23 @@ def main():
     bf16_kernels = check_bf16_kernels(gn, conv3x3, dev, gen)
     torch.cuda.empty_cache()
 
-    launches16, shapes16 = check_deployment(deployment_sd, ops)
+    launches16, shapes16 = check_deployment(deployment_sd)
     path_rows = check_path_shapes(gn, conv3x3, shapes16, dev, gen)
     torch.cuda.empty_cache()
 
-    launches_tiled, _ = check_tiled(opt, deployment_sd, ops, smi, dev, gen)
+    launches_tiled, _ = check_tiled(opt, deployment_sd, smi, dev, gen)
     torch.cuda.empty_cache()
 
-    training = check_training(ops, smi, dev, gen)
+    training = check_training(smi, dev, gen)
     torch.cuda.empty_cache()
 
-    launches_eval, _ = check_evaluation(opt, deployment_sd, ops, smi, dev)
+    launches_eval, _ = check_evaluation(opt, deployment_sd, smi, dev)
     torch.cuda.empty_cache()
 
     t15 = time.perf_counter()
-    launches_11 = check_stage1_1(ops, smi, dev)
+    launches_11 = check_stage1_1(smi, dev)
     torch.cuda.empty_cache()
-    launches_var = check_variants(ops, {"compressai": launches_c, "tpu": launches}, smi, dev)
+    launches_var = check_variants({"compressai": launches_c, "tpu": launches}, smi, dev)
     torch.cuda.empty_cache()
     r1_one, r2_one = check_one_section(rans_device, rans_host, dev)
     r1.update(r1_one)
@@ -3576,12 +3716,15 @@ def main():
     print(f"item 15 took {time.perf_counter() - t15:.1f} s")
 
     t16 = time.perf_counter()
-    oasis = check_oasis(ops, smi, dev)
+    oasis = check_oasis(smi, dev)
     torch.cuda.empty_cache()
-    profile_contract(deployment_sd, launches16, ops, smi)
+    profile_contract(deployment_sd, launches16, smi)
     del deployment_sd
     torch.cuda.empty_cache()
     print(f"item 16 took {time.perf_counter() - t16:.1f} s")
+
+    soak_steps = check_soak(smi, dev, gen)
+    torch.cuda.empty_cache()
 
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
@@ -3597,6 +3740,8 @@ def main():
         k["train_backwards_stage1_1_step"] = launches_11["backward"].get(k["name"], 0)
         k["train_launches_oasis_step"] = oasis["launched"]["forward"][k["name"]]
         k["train_backwards_oasis_step"] = oasis["launched"]["backward"].get(k["name"], 0)
+        k["train_launches_soak_step"] = soak_steps["forward"].get(k["name"], 0)
+        k["train_backwards_soak_step"] = soak_steps["backward"].get(k["name"], 0)
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

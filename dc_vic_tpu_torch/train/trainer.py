@@ -16,7 +16,8 @@ every ``eval_step``, save every ``save_step``; the skip of a non-finite step
 happens on the device. A stage boots from the previous stage's checkpoint
 through ``load_checkpoint`` (``exp``/``iter`` or ``path``, ``strict``,
 ``load_optimizer``, ``load_scheduler``, ``load_discriminator``,
-``new_g_lr``/``new_d_lr``). With ``strict: false`` the keys present in both
+``new_g_lr``/``new_d_lr``); ``Trainer.restored`` records what the boot
+took. With ``strict: false`` the keys present in both
 models with equal shapes are carried and the others keep their
 initialisation: stage 1_2 booting from stage 1_1 carries the ELIC layers,
 the projection, the hyperprior, the context model, the estimator and the
@@ -34,7 +35,7 @@ from __future__ import annotations
 import importlib
 import importlib.util
 import os
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -172,6 +173,7 @@ class Trainer:
         self.state = TrainState(model=self.model, g_opt=g_opt, generator=gen,
                                 aux_opt=aux_opt, disc=disc, d_opt=d_opt)
 
+        self.restored = None
         if opt.get("load_checkpoint"):
             self._load_checkpoint(load_cfg)
         elif opt.get("start_iter", 0) > 0:
@@ -215,18 +217,20 @@ class Trainer:
             return rd_step(self.state, batch, self.losses, self.policy, self.lpips_fn)
 
     @staticmethod
+    def _carried_keys(target: Dict, raw: Dict) -> List[str]:
+        """The keys of ``target`` that ``raw`` holds with the same shape."""
+        return [k for k, v in target.items()
+                if k in raw and tuple(raw[k].shape) == tuple(v.shape)]
+
+    @staticmethod
     def _partial_restore(target: Dict, raw: Dict, logger, label: str) -> Dict:
         """``load_state_dict(strict=False)`` with shape checks: the keys
-        present in both with equal shapes come from ``raw``, the others keep
-        the target's values; missing and unexpected keys are logged."""
-        merged, loaded = {}, 0
-        for k, v in target.items():
-            r = raw.get(k)
-            if r is not None and tuple(r.shape) == tuple(v.shape):
-                merged[k] = r
-                loaded += 1
-            else:
-                merged[k] = v
+        present in both with equal shapes (``_carried_keys``) come from
+        ``raw``, the others keep the target's values; missing and unexpected
+        keys are logged."""
+        carried = set(Trainer._carried_keys(target, raw))
+        merged = {k: raw[k] if k in carried else v for k, v in target.items()}
+        loaded = len(carried)
         missing = [k for k in target if k not in raw]
         unexpected = [k for k in raw if k not in target]
         if missing:
@@ -255,12 +259,21 @@ class Trainer:
             self.logger.warning(f"load_checkpoint path missing: {model_path}")
             return
         raw = Saver.load(model_path)
-        if cfg.get("strict", True):
+        strict = cfg.get("strict", True)
+        target = self.model.state_dict()
+        if strict:
             self.model.load_state_dict(raw, strict=True)
         else:
-            self.model.load_state_dict(
-                self._partial_restore(self.model.state_dict(), raw, self.logger, "comp_model"))
+            self.model.load_state_dict(self._partial_restore(target, raw, self.logger,
+                                                             "comp_model"))
         self.logger.info(f"loaded comp_model weights from {model_path}")
+        # what the boot took: the keys carried from the checkpoint (all of
+        # them when strict), whether the optimizer states and the
+        # discriminator came with them
+        carried = list(target) if strict else self._carried_keys(target, raw)
+        self.restored = {"path": model_path, "strict": bool(strict), "total": len(target),
+                         "carried": sorted(carried), "optimizer": False,
+                         "discriminator": False}
 
         ts = None
         if load_optimizer and optim_path and os.path.exists(optim_path):
@@ -268,6 +281,7 @@ class Trainer:
             g = ts["g_opt"] if load_scheduler else reset_schedule_counts(ts["g_opt"])
             self.state.g_opt.load_state_dict(g)
             self.state.aux_opt.load_state_dict(ts["aux_opt"])
+            self.restored["optimizer"] = True
             self.logger.info(f"loaded optimizer state from {optim_path}"
                              + ("" if load_scheduler else " (scheduler reset)"))
         elif load_optimizer:
@@ -278,6 +292,7 @@ class Trainer:
         if self.gan and cfg.get("load_discriminator", True):
             if disc_path and os.path.exists(disc_path):
                 self.state.disc.load_state_dict(Saver.load(disc_path))
+                self.restored["discriminator"] = True
                 self.logger.info(f"loaded discriminator from {disc_path}")
                 if ts is not None and "d_opt" in ts:
                     d = ts["d_opt"] if load_scheduler else reset_schedule_counts(ts["d_opt"])
