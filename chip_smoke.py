@@ -236,6 +236,32 @@
    the quality is the full runs' (PERF.md). The kernels line carries a
    soak step's launches and Function backwards (train_launches_soak_step,
    train_backwards_soak_step).
+18. The last modules and model options (tools/workload.py's variants at
+   full width, random weights from seed 0, the codecs' encoders scaled by
+   0.55): (a) variant A (config/dc_vic_patchgan.yaml with long_indices into
+   ElicDualBetaFtVqEmbCatEncoder, the VQGAN recon beside the image, the
+   image in [0, 1], pixel-shuffle decoder, light SFT fusion, gelu
+   estimator), batch 4 of 768x512 in the tpu format (device backend, lanes
+   512), f32 with entropy_precision high and bf16 with default, the
+   reconstruction kernels off and all on: each round trip bit-exact with
+   its launches held to the shape rules (the recon runs the VQGAN decoder,
+   and with it K2 and K6, on the encode side too; every kernel launches in
+   the f32 kernels-on run), the kernels-on pixels held against the
+   kernels-off ones (f32: RECON_TOL; bf16: BF16_NOISE_RATIO against the f32
+   model's), warm encode and decode seconds, bpp and peak memory printed;
+   (b) variant B (config/exp1_stage1_1.yaml with norm_indices into
+   ElicVqScEncoder, double_z, leaky-ReLU estimator), f32, tpu and
+   compressai formats, kernels off and on, bit-exact, launches held; (c)
+   one RD step of variant A on stage 1_2's config, batch 6 of 256x256,
+   kernels on: finite, not skipped, launches and Function backwards held to
+   the rules and printed; (d) the standalone transforms at full width
+   (ElicEncoder -> ElicDecoder with transposed-conv and pixel-shuffle
+   upsampling, Balle'18, Cheng'20, Test): one batch-4 768x512 forward each
+   on the card, its first image held against the same module on the host
+   CPU (f32, TF32 off) within STANDALONE_TOL (relative, and absolute over
+   the output's largest magnitude; decoders before their tanh). The
+   kernels line carries each variant's launches per round trip
+   (launches_variant_a_f32_tpu_on, ...).
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -1679,8 +1705,11 @@ def recon_parts(module, y_hat, b1, b2, indices=None):
     own = logits.argmax(1)
     idx = own if indices is None else indices
     latent = module.vq_model.post_quant_conv(module.vq_model.quantize.lookup(idx))
-    image = module.vq_model.decoder(latent, module.fusion_module.fusion_modules, cond, 1.0)
-    return logits, own, image.float()
+    image = module.vq_model.decoder(latent, module.fusion_module.fusion_modules, cond,
+                                    1.0).float()
+    if module.convert_img_range_to_01:
+        image = image * 2.0 - 1.0
+    return logits, own, image
 
 
 RECON_TOL = 1e-3   # [-1, 1] scale; about a tenth of one uint8 step (2 / 255)
@@ -3511,6 +3540,174 @@ def check_soak(smi, dev, gen):
     return out
 
 
+# ------------------------------------------- the last modules and options (item 18)
+
+STANDALONE = (("ElicEncoder", "ElicDecoder", {}),
+              ("ElicEncoder", "ElicDecoder", {"pixel_shuffle": True}),
+              ("Balle18Encoder", "Balle18Decoder", {}),
+              ("Cheng20Encoder", "Cheng20Decoder", {}),
+              ("TestEncoder", "TestDecoder", {}))
+# card against host CPU: relative, and absolute over the output's largest
+# magnitude (random weights grow Cheng'20's decoder output to about 1e5,
+# where f32 rounding alone moves values near zero)
+STANDALONE_TOL = 1e-3
+
+
+def _alt_round_trip(codec, images, label, smi, betas=None):
+    """counted_round_trip (sync-free decode in the tpu format), then one
+    warm round trip timed with the peak device memory over it. Returns
+    (y_hat, launches)."""
+    import torch
+    y_hat, launches, _ = counted_round_trip(codec, images, label, betas,
+                                            sync_free=codec.stream_format == "tpu")
+    torch.cuda.reset_peak_memory_stats()
+    res, _, enc, dec = drive(codec, images, betas)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{label}: warm encode {enc:.4f} s, decode {dec:.4f} s, "
+          f"{float(np.mean([r['bpp'] for r in res])):.4f} bpp, peak device memory "
+          f"{peak:.2f} GiB ({smi})")
+    return y_hat, launches
+
+
+def check_alt_variants(smi, dev):
+    """Item 18 (a) and (b). Returns {variant_mode_format_kernels: launches}."""
+    import torch
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model, init_weights
+    from dc_vic_tpu_torch.tools.workload import (deployment_config, scale_encoder,
+                                                 smooth_images, variant_a, variant_b)
+    from dc_vic_tpu_torch.utils.config import load_config
+    images = smooth_images(4, 768, 512)
+    launches = {}
+
+    def built(opt, on, sd):
+        spec = build_comp_model(opt, recon_kernels=RECON_KERNELS if on else ())
+        if sd is None:
+            init_weights(spec.module, torch.Generator(device=dev).manual_seed(0))
+            sd = scale_encoder(spec.module.state_dict())
+        spec.module.load_state_dict(sd)
+        return spec, sd
+
+    opt_a = variant_a(load_config(os.path.join(ROOT, "config", "dc_vic_patchgan.yaml")))
+    sd, f32_off = None, None
+    for mode, opt in (("f32", opt_a), ("bf16", deployment_config(opt_a))):
+        codecs, y_hats = {}, {}
+        for on in (False, True):
+            spec, sd = built(opt, on, sd)
+            if mode == "f32" and not on:
+                print(f"variant A ({type(spec.module.encoder).__name__}, "
+                      f"{type(spec.module.fusion_module.fusion_modules['block_1_8']).__name__}"
+                      f"): {sum(p.numel() for p in spec.module.parameters())} parameters")
+            codec = codecs[on] = Codec(spec, encode_backend="device", lanes=512)
+            key = f"variant_a_{mode}_tpu_{'on' if on else 'off'}"
+            y_hats[on], launches[key] = _alt_round_trip(
+                codec, images, f"variant A, {mode}, tpu format, device backend, lanes 512, "
+                f"kernels {'on' if on else 'off'}, batch 4 768x512", smi)
+        if mode == "f32":
+            missing = [k for k, n in launches["variant_a_f32_tpu_on"].items() if n < 1]
+            if missing:
+                raise AssertionError(f"variant A, kernels on: never launched {missing}")
+            compare_recon(codecs[False], codecs[True], y_hats[False])
+            f32_off = codecs[False]
+        else:
+            bf16_against_f32(f32_off, codecs[False], codecs[True], y_hats[False])
+        del codecs
+    del f32_off
+    torch.cuda.empty_cache()
+
+    opt_b = variant_b(load_config(os.path.join(ROOT, "config", "exp1_stage1_1.yaml")))
+    sd = None
+    for on in (False, True):
+        spec, sd = built(opt_b, on, sd)
+        if not on:
+            print(f"variant B ({type(spec.module.encoder).__name__}, double_z VQGAN): "
+                  f"{sum(p.numel() for p in spec.module.parameters())} parameters; no beta "
+                  f"pairs selected, driven at betas {VARIANT_BETAS}")
+        for fmt in ("tpu", "compressai"):
+            codec = (Codec(spec, encode_backend="device", lanes=512) if fmt == "tpu" else
+                     Codec(spec, stream_format="compressai", params_backend="accel"))
+            key = f"variant_b_f32_{fmt}_{'on' if on else 'off'}"
+            _, launches[key] = _alt_round_trip(
+                codec, images, f"variant B, f32, {fmt} format, kernels "
+                f"{'on' if on else 'off'}, batch 4 768x512", smi, VARIANT_BETAS)
+        del spec
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_alt_training(smi, dev):
+    """Item 18 (c): one RD step of variant A on stage 1_2's config, batch 6
+    of 256x256, every kernel on (two steps, the first not warm). Returns
+    the last step's launches and Function backwards."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.ops import attention
+    from dc_vic_tpu_torch.tools.workload import variant_a
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    root = tempfile.mkdtemp(prefix="dcvic_variant_a_")
+    loader = None
+    try:
+        _training_images(root)
+        tr = build_trainer(variant_a(training_opt("1_2", root)))
+        loader = tr.train_loader.infinite()
+        secs, launched, _ = timed_steps(tr, loader, _KernelSwitch(attention), True, n=2)
+        print(f"variant A RD step (stage 1_2, batch {TRAIN_BATCH} of {TRAIN_CROP}x{TRAIN_CROP}, "
+              f"f32, kernels on; {smi}): finite, not skipped; {secs[-1]:.4f} s warm; launches "
+              f"{launched['forward']}, Function backwards {launched['backward']}")
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        if loader is not None:
+            loader.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return launched
+
+
+def check_standalone(smi, dev):
+    """Item 18 (d): the standalone transforms, one batch-4 768x512 forward
+    each on the card, the first image's against the host CPU's."""
+    import copy
+    import torch
+    from dc_vic_tpu_torch.models import init_weights
+    from dc_vic_tpu_torch.models.dc_vic import to_model_range
+    from dc_vic_tpu_torch.tools.workload import smooth_images
+    from dc_vic_tpu_torch.utils.registry import DECODER_REGISTRY, ENCODER_REGISTRY
+    x = to_model_range(torch.from_numpy(smooth_images(4, 768, 512)).to(dev).permute(0, 3, 1, 2))
+    for enc_name, dec_name, kw in STANDALONE:
+        tanh = {"use_tanh": False} if dec_name != "TestDecoder" else {}
+        with torch.device(dev):
+            enc = ENCODER_REGISTRY.get(enc_name)()
+            dec = DECODER_REGISTRY.get(dec_name)(**kw, **tanh)
+        for m in (enc, dec):
+            init_weights(m, torch.Generator(device=dev).manual_seed(0))
+            m.eval()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = enc(x)
+            out = dec(y)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t
+            y_cpu = copy.deepcopy(enc).cpu()(x[:1].cpu())
+            out_cpu = copy.deepcopy(dec).cpu()(y_cpu)
+        label = f"{enc_name} -> {dec_name}{' (pixel shuffle)' if kw else ''}"
+        for what, got, ref in (("y", y[:1].cpu(), y_cpu), ("output", out[:1].cpu(), out_cpu)):
+            scale = max(1.0, float(ref.abs().max()))
+            err = float((got - ref).abs().max())
+            if (tuple(got.shape) != tuple(ref.shape) or not torch.isfinite(got).all()
+                    or not torch.allclose(got, ref, rtol=STANDALONE_TOL,
+                                          atol=STANDALONE_TOL * scale)):
+                raise AssertionError(f"{label}: the card's {what} is {err:.3e} from the host "
+                                     f"CPU's (largest magnitude {scale:.3e})")
+            print(f"{label}: {what} {list(got.shape[1:])}, card against host CPU max abs diff "
+                  f"{err:.3e} (largest magnitude {scale:.3e}, tolerance {STANDALONE_TOL:g} "
+                  f"relative and of it)")
+        print(f"{label}: batch 4 768x512 on the card {card_s:.3f} s (first call; {smi})")
+        del enc, dec, y, out
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3726,6 +3923,12 @@ def main():
     soak_steps = check_soak(smi, dev, gen)
     torch.cuda.empty_cache()
 
+    t18 = time.perf_counter()
+    launches_alt = check_alt_variants(smi, dev)
+    alt_step = check_alt_training(smi, dev)
+    check_standalone(smi, dev)
+    print(f"item 18 took {time.perf_counter() - t18:.1f} s")
+
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -3742,6 +3945,10 @@ def main():
         k["train_backwards_oasis_step"] = oasis["launched"]["backward"].get(k["name"], 0)
         k["train_launches_soak_step"] = soak_steps["forward"].get(k["name"], 0)
         k["train_backwards_soak_step"] = soak_steps["backward"].get(k["name"], 0)
+        for run, table in launches_alt.items():
+            k[f"launches_{run}"] = table[k["name"]]
+        k["train_launches_variant_a_step"] = alt_step["forward"][k["name"]]
+        k["train_backwards_variant_a_step"] = alt_step["backward"].get(k["name"], 0)
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

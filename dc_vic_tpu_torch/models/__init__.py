@@ -11,13 +11,15 @@ from torch import nn
 
 from ..codec.bottleneck import EntropyBottleneck
 from ..codec.gaussian import GaussianConditional
-from ..nn.layers import Conv2d, GroupNorm
+from ..nn.layers import GDN, Conv2d, GroupNorm
 from ..nn.swin import WindowAttention
 from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               ENCODER_REGISTRY, HYPERDECODER_REGISTRY,
                               HYPERENCODER_REGISTRY, VQ_ESTIMATOR_REGISTRY)
+from . import alt_autoencoders  # noqa: F401  (registers the alternative transforms)
 from . import subnets  # noqa: F401  (registers the subnets)
-from .dc_vic import DCVICModel, FusionModule
+from .dc_vic import ENC_VQ_INPUTS, DCVICModel, FusionModule
+from .subnets import IndexEmbedding
 from .vqgan import VQModel, VQResnetBlock
 
 _DROP = {"type"}
@@ -130,23 +132,25 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
     if model_cfg.get("type") not in MODEL_TYPES:
         raise NotImplementedError(f"model type {model_cfg.get('type')!r} is not ported")
     use_charm, use_beta = MODEL_TYPES[model_cfg["type"]]
-    if model_cfg.get("enc_vq_input", "onehot_indices") != "onehot_indices":
-        raise NotImplementedError("only enc_vq_input=onehot_indices is ported "
-                                  "(ROADMAP.md queue 1, item 2)")
-    if model_cfg.get("enc_input_vq_recon", False) or opt.get("convert_img_range_to_01", False):
-        raise NotImplementedError("enc_input_vq_recon / [0,1] image range are not ported "
-                                  "(ROADMAP.md queue 1, item 2)")
+    enc_vq_input = model_cfg.get("enc_vq_input", "onehot_indices")
+    if enc_vq_input not in ENC_VQ_INPUTS:
+        raise ValueError(f"enc_vq_input {enc_vq_input!r}: one of {ENC_VQ_INPUTS}")
+    recon = bool(model_cfg.get("enc_input_vq_recon", False))
 
     sub = opt["subnet"]
     enc, dec, vq = dict(sub["encoder"]), dict(sub["decoder"]), dict(sub["vq_model"])
     n_embed, embed_dim = vq.get("n_embed", 256), vq.get("embed_dim", 4)
     bottleneck_y = enc.get("out_ch", 192)
     bottleneck_z = dict(sub.get("entropy_model_z") or {}).get("channels", 192)
-    feat_ch = embed_dim + n_embed  # one-hot indices ++ VQ latent
-    if enc.get("input_feat_ch", feat_ch) != feat_ch:
-        raise ValueError(f"encoder input_feat_ch {enc['input_feat_ch']} != {feat_ch}")
+    # flax infers the encoder's input widths, so the YAML's input_feat_ch is
+    # not read: the VQ feature is the latent plus the one-hot indices, one
+    # normalized index or nothing, and the image has 6 channels with the recon
+    feat_ch = embed_dim + {"onehot_indices": n_embed, "norm_indices": 1,
+                           "long_indices": 0}[enc_vq_input]
 
     enc_kw = _clean(enc, drop=("input_feat_ch", "proj_init", "proj_init_std"))
+    if recon:
+        enc_kw["in_ch"] = 6
     dec_kw = _clean(dec, drop=("in_ch",))
     dec_kw["fusion_layer_dict"] = dict(dec_kw.get("fusion_layer_dict") or {})
     # a null max_beta in a base config is "set by the experiment config"
@@ -165,8 +169,6 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
     est = _clean(sub.get("vq_estimator"),
                  drop=("in_ch", "input_resolution", "n_embed", "embed_dim"))
     fusion = dict(sub.get("fusion_module") or {})
-    if fusion.get("fuse_type", "sft") != "sft":
-        raise NotImplementedError("only sft fusion is ported (ROADMAP.md queue 1, item 2)")
     sched = {k: {"dec_ch": v["dec_ch"], "cond_ch": v["cond_ch"],
                  "mid_ch": v.get("mid_ch", v["dec_ch"])}
              for k, v in dict(fusion.get("fuse_scedule_dict") or {}).items()}
@@ -191,11 +193,13 @@ def build_comp_model(opt, device="cuda", recon_kernels: Iterable[str] = ()) -> C
                 in_ch=dec_kw.get("main_ch", 192), n_embed=n_embed,
                 embed_dim=embed_dim, **est),
             vq_model=VQModel(n_embed, embed_dim, dict(vq.get("ddconfig") or {})),
-            fusion_module=FusionModule(sched),
+            fusion_module=FusionModule(sched, fusion.get("fuse_type", "sft")),
             entropy_model_z=EntropyBottleneck(bottleneck_z),
             gaussian=gaussian, n_embed=n_embed, bottleneck_y=bottleneck_y,
             use_beta=use_beta, codec_dtype=cd, entropy_precision=ep,
-            gumbel_sampling=model_cfg.get("gumbel_sampling", False))
+            gumbel_sampling=model_cfg.get("gumbel_sampling", False),
+            enc_vq_input=enc_vq_input, enc_input_vq_recon=recon,
+            convert_img_range_to_01=bool(opt.get("convert_img_range_to_01", False)))
     module.to(device)  # buffers made from numpy start on the CPU
     if cd == "bfloat16":
         for name in _CODEC_DTYPE_STACKS:
@@ -214,10 +218,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random initialisation following the JAX package's
     initialisers: lecun-normal conv/linear weights (truncated at two
     standard deviations), zero biases, unit norms, U(-1/n, 1/n) codebook,
-    N(0, 0.02) relative-position biases and the entropy bottleneck's own
-    scheme. The generator must live on the model's device. Weights held in
-    bf16 are drawn in f32 and rounded, so a bf16 model gets the f32 model's
-    weights of the same seed, rounded once."""
+    N(0, 1) index embedding, N(0, 0.02) relative-position biases, GDN's
+    deterministic init and the entropy bottleneck's own scheme. The
+    generator must live on the model's device. Weights held in bf16 are
+    drawn in f32 and rounded, so a bf16 model gets the f32 model's weights
+    of the same seed, rounded once."""
     def lecun(w, fan_in):
         std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
         draw = torch.empty_like(w, dtype=torch.float32)
@@ -231,6 +236,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             lecun(m.weight, m.weight.shape[0] * m.weight[0, 0].numel())
         elif isinstance(m, nn.Linear):
             lecun(m.weight, m.in_features)
+        elif isinstance(m, IndexEmbedding):
+            nn.init.normal_(m.weight, 0.0, 1.0, generator=generator)
+        elif isinstance(m, GDN):
+            m.reset_parameters()
         elif isinstance(m, nn.Embedding):
             n = m.num_embeddings
             nn.init.uniform_(m.weight, -1.0 / n, 1.0 / n, generator=generator)

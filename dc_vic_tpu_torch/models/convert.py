@@ -3,6 +3,9 @@
 The port's parameter names are the reference's state-dict keys, so a dict
 in that layout (the JAX package's ``export_state_dict`` output, or a
 released ``.pth.tar``'s ``comp_model`` entry as numpy arrays) loads as is.
+The flax trees that the JAX package's path map misnames (the Balle'18
+hyperprior, the alternative ELIC transforms, the light SFT fusion, the
+Balle'18 / Cheng'20 / Test transforms, GDN) are mapped here by flax path.
 """
 from __future__ import annotations
 
@@ -47,6 +50,215 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+# --------------------------------------------------------------------------
+# The JAX package's flax trees of the ELIC transforms, the fusion blocks and
+# the alternative transforms, mapped by flax path. Leaves come in as numpy
+# (or anything ``np.asarray`` takes); convs HWIO -> OIHW, transposed convs
+# (a correlation over the dilated input) -> (I, O, kH, kW) flipped, dense
+# kernels transposed, GDN's ``gamma_raw`` transposed (see nn/layers.py::GDN).
+# --------------------------------------------------------------------------
+
+def _leaf_conv(out, base, leaves, deconv=False):
+    w = np.asarray(leaves["kernel"])
+    w = np.transpose(w, (2, 3, 0, 1))[:, :, ::-1, ::-1] if deconv else np.transpose(w, (3, 2, 0, 1))
+    out[f"{base}.weight"] = np.ascontiguousarray(w)
+    out[f"{base}.bias"] = np.asarray(leaves["bias"])
+
+
+def _conv(out, base, tree):
+    """The JAX package's ``Conv`` (an ``nn.Conv`` named ``Conv_0`` inside)."""
+    _leaf_conv(out, base, tree["Conv_0"])
+
+
+def _deconv(out, base, tree):
+    _leaf_conv(out, base, tree["Conv_0"], deconv=True)
+
+
+def _pixel_shuffle(out, base, tree):
+    """``PixelShuffleUp``: its ``Conv`` -> ``<base>.0`` (nn/layers.py::pixel_shuffle_up)."""
+    _conv(out, f"{base}.0", tree["Conv_0"])
+
+
+def _dense(out, base, leaves):
+    out[f"{base}.weight"] = np.ascontiguousarray(np.asarray(leaves["kernel"]).T)
+    out[f"{base}.bias"] = np.asarray(leaves["bias"])
+
+
+def _gdn(out, base, tree):
+    out[f"{base}.beta"] = np.asarray(tree["beta_raw"])
+    out[f"{base}.gamma"] = np.ascontiguousarray(np.asarray(tree["gamma_raw"]).T)
+
+
+def _bottleneck_blocks(out, base, tree):
+    """``ResidualBottleneckBlocks``: ``BottleneckResBlock_i/Conv_{0,1,2}`` ->
+    ``block{i}.conv.{0,2,4}``."""
+    for child, sub in tree.items():
+        i = int(child.rsplit("_", 1)[1])
+        for j in range(3):
+            _conv(out, f"{base}.block{i}.conv.{2 * j}", sub[f"Conv_{j}"])
+
+
+def _nlam(out, base, tree):
+    """``ChengNLAM``: ``NLAMResBlock_0..2`` trunk, ``_3..5`` attention,
+    ``Conv_0`` the gate's 1x1."""
+    for i in range(6):
+        group = "trunk_block" if i < 3 else "attention_block"
+        for j in range(3):
+            _conv(out, f"{base}.{group}.{i % 3}.c{j + 1}", tree[f"NLAMResBlock_{i}"][f"Conv_{j}"])
+    _conv(out, f"{base}.conv", tree["Conv_0"])
+
+
+def _film(out, base, tree):
+    """``BetaScaleShift``: ``Dense_0`` shared, ``Dense_1`` scale, ``Dense_2`` shift."""
+    for child, name in (("Dense_0", "shared.0"), ("Dense_1", "scale"), ("Dense_2", "shift")):
+        _dense(out, f"{base}.{name}", tree[child])
+
+
+def elic_state_dict(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """An ELIC encoder's or decoder's flax tree (any of subnets.py's
+    ELIC classes, with or without FiLM, VQ insertion or pixel shuffle;
+    the decoders' ``layers`` wrapper included) -> the port's keys under
+    ``prefix``. Named children keep their names; the decoders' anonymous
+    up-convs ``DeconvTorch_i`` / ``PixelShuffleUp_i`` are ``conv{i+1}``,
+    and the plain ElicDecoder's ``ResidualBottleneckBlocks_i`` and
+    ``ChengNLAM_0`` are ``block{i+1}`` and ``attn2``."""
+    pre = f"{prefix}." if prefix else ""
+    out: Dict[str, np.ndarray] = {}
+    for child, sub in tree.items():
+        kind, _, idx = child.rpartition("_")
+        if child == "layers":
+            out.update(elic_state_dict(sub, prefix))
+        elif child == "vq_ind_emb":
+            out[f"{pre}vq_ind_emb.weight"] = np.asarray(sub)
+        elif child == "beta_mlp":
+            _dense(out, f"{pre}mlp.0", sub["Dense_0"])
+            _dense(out, f"{pre}mlp.2", sub["Dense_1"])
+        elif child == "init_fuse":
+            _film(out, f"{pre}init_fuse", sub)
+        elif kind == "beta_ft":
+            _film(out, f"{pre}beta_ft_list.{idx}", sub)
+        elif child in ("conv1", "conv2", "conv3", "conv4", "projection"):
+            _conv(out, pre + child, sub)
+        elif child.startswith("block"):
+            _bottleneck_blocks(out, pre + child, sub)
+        elif child.startswith("attn"):
+            _nlam(out, pre + child, sub)
+        elif kind == "DeconvTorch":
+            _deconv(out, f"{pre}conv{int(idx) + 1}", sub)
+        elif kind == "PixelShuffleUp":
+            _pixel_shuffle(out, f"{pre}conv{int(idx) + 1}", sub)
+        elif kind == "ResidualBottleneckBlocks":
+            _bottleneck_blocks(out, f"{pre}block{int(idx) + 1}", sub)
+        elif child == "ChengNLAM_0":
+            _nlam(out, f"{pre}attn2", sub)
+        else:
+            raise KeyError(f"ELIC transform: no mapping for {child!r}")
+    return out
+
+
+def fusion_state_dict(tree) -> Dict[str, np.ndarray]:
+    """The fusion blocks of a flax ``fused_decoder`` tree (its
+    ``fusion_<key>`` children; the VQGAN layers are skipped) -> the port's
+    ``fusion_module.fusion_modules.<key>`` keys. A light block
+    (``Conv_0..3`` alone) is the 1x1 and 3x3 ``fuse_block``, then scale and
+    shift; a full SFT block's ``GNResBlock_0`` is ``fuse_block`` and its
+    ``Conv_0..3`` are scale.0, scale.2, shift.0, shift.2."""
+    out: Dict[str, np.ndarray] = {}
+    for child, sub in tree.items():
+        if not child.startswith("fusion_"):
+            continue
+        base = f"fusion_module.fusion_modules.{child[len('fusion_'):]}"
+        if "GNResBlock_0" in sub:
+            res = sub["GNResBlock_0"]
+            for norm, name in (("GroupNorm_0", "norm1"), ("GroupNorm_1", "norm2")):
+                out[f"{base}.fuse_block.{name}.weight"] = np.asarray(res[norm]["scale"])
+                out[f"{base}.fuse_block.{name}.bias"] = np.asarray(res[norm]["bias"])
+            for j, name in enumerate(("conv1", "conv2", "conv_out")):
+                if f"Conv_{j}" in res:
+                    _conv(out, f"{base}.fuse_block.{name}", res[f"Conv_{j}"])
+            names = ("scale.0", "scale.2", "shift.0", "shift.2")
+        else:
+            names = ("fuse_block.0", "fuse_block.2", "scale", "shift")
+        for j, name in enumerate(names):
+            _conv(out, f"{base}.{name}", sub[f"Conv_{j}"])
+    return out
+
+
+def transforms_state_dict(flax_params) -> Dict[str, np.ndarray]:
+    """The parts of a DCVICModel parameter tree (with or without its
+    ``params`` level) that the JAX package's path map cannot carry, mapped
+    here: ``encoder`` and ``decoder`` (``elic_state_dict``) and the fusion
+    blocks of ``fused_decoder`` (``fusion_state_dict``). The rest of the
+    tree (VQGAN, hyperprior, context model, estimator, bottleneck) maps
+    through that path map as before."""
+    tree = flax_params.get("params", flax_params)
+    out = elic_state_dict(tree["encoder"], "encoder")
+    out.update(elic_state_dict(tree["decoder"], "decoder"))
+    out.update(fusion_state_dict(tree.get("fused_decoder", {})))
+    return out
+
+
+def _cheng_res(out, base, tree):
+    _conv(out, f"{base}.conv1", tree["Conv_0"])
+    _conv(out, f"{base}.conv2", tree["Conv_1"])
+    if "GDN_0" in tree:
+        _gdn(out, f"{base}.actv2", tree["GDN_0"])
+    if "Conv_2" in tree:
+        _conv(out, f"{base}.skip", tree["Conv_2"])
+
+
+def _cheng_up(out, base, tree):
+    _pixel_shuffle(out, f"{base}.up", tree["PixelShuffleUp_0"])
+    _conv(out, f"{base}.conv", tree["Conv_0"])
+    if "GDN_0" in tree:
+        _gdn(out, f"{base}.actv2", tree["GDN_0"])
+    _pixel_shuffle(out, f"{base}.shortcut", tree["PixelShuffleUp_1"])
+
+
+_SEQ_KINDS = {"Conv": _conv, "DeconvTorch": _deconv, "PixelShuffleUp": _pixel_shuffle,
+              "GDN": _gdn, "ChengNLAM": _nlam, "ChengResBlock": _cheng_res,
+              "ChengUpResBlock": _cheng_up}
+
+# each alternative transform's flax children in call order, which is the
+# order of its port's ``model`` Sequential; None marks a parameter-free
+# layer (ReLU)
+_SEQUENCES = {
+    "Balle18Encoder": ["Conv_0", "GDN_0", "Conv_1", "GDN_1", "Conv_2", "GDN_2", "Conv_3"],
+    "Balle18Decoder": ["DeconvTorch_0", "GDN_0", "DeconvTorch_1", "GDN_1", "DeconvTorch_2",
+                       "GDN_2", "DeconvTorch_3"],
+    "Cheng20Encoder": ["ChengResBlock_0", "ChengResBlock_1", "ChengResBlock_2", "ChengNLAM_0",
+                       "ChengResBlock_3", "ChengResBlock_4", "ChengResBlock_5", "Conv_0",
+                       "ChengNLAM_1"],
+    "Cheng20Decoder": ["ChengNLAM_0", "ChengResBlock_0", "ChengUpResBlock_0", "ChengResBlock_1",
+                       "ChengUpResBlock_1", "ChengNLAM_1", "ChengResBlock_2",
+                       "ChengUpResBlock_2", "ChengResBlock_3", "PixelShuffleUp_0"],
+    "TestEncoder": ["Conv_0", None, "Conv_1", None, "Conv_2", None, "Conv_3"],
+    "TestDecoder": ["DeconvTorch_0", None, "DeconvTorch_1", None, "DeconvTorch_2", None,
+                    "DeconvTorch_3"],
+}
+
+
+def transform_state_dict(type_name: str, flax_params) -> Dict[str, np.ndarray]:
+    """A standalone transform's flax parameters (with or without the
+    ``params`` level) -> the port's state dict of the registered class
+    ``type_name``: the ELIC ones through ``elic_state_dict``, Balle'18,
+    Cheng'20 and Test through their children in call order
+    (models/alt_autoencoders.py). Raises KeyError on a child the transform
+    does not have."""
+    tree = flax_params.get("params", flax_params)
+    if type_name.startswith("Elic"):
+        return elic_state_dict(tree)
+    seq = _SEQUENCES[type_name]
+    if set(tree) != {c for c in seq if c}:
+        raise KeyError(f"{type_name}: flax children {sorted(tree)}, expected "
+                       f"{sorted(c for c in seq if c)}")
+    out: Dict[str, np.ndarray] = {}
+    for i, child in enumerate(seq):
+        if child:
+            _SEQ_KINDS[child.rpartition("_")[0]](out, f"model.{i}", tree[child])
+    return out
+
+
 def balle18_hyperprior_state_dict(flax_params) -> Dict[str, np.ndarray]:
     """The JAX package's Balle18 hyperprior parameters -> the port's keys.
 
@@ -68,14 +280,8 @@ def balle18_hyperprior_state_dict(flax_params) -> Dict[str, np.ndarray]:
         if not set(sub) <= set(children) or not sub:
             continue                                   # not a Balle18 module
         for child, name in children.items():
-            leaves = sub[child]["Conv_0"]
-            w = np.asarray(leaves["kernel"])           # HWIO
-            if child.startswith("DeconvTorch"):        # a correlation over the dilated input
-                w = np.transpose(w, (2, 3, 0, 1))[:, :, ::-1, ::-1]
-            else:
-                w = np.transpose(w, (3, 2, 0, 1))
-            out[f"{root}.{name}.weight"] = np.ascontiguousarray(w)
-            out[f"{root}.{name}.bias"] = np.asarray(leaves["bias"])
+            (_deconv if child.startswith("DeconvTorch") else _conv)(
+                out, f"{root}.{name}", sub[child])
     return out
 
 

@@ -41,12 +41,13 @@ from torch import nn
 from ..codec.bottleneck import EntropyBottleneck
 from ..codec.gaussian import GaussianConditional, get_scale_table
 from ..codec.ops import Noise
-from ..nn.layers import FuseSftBlock
+from ..nn.layers import FuseSftBlock, LightFuseSftBlock
 from ..ops.layout import row_major as _row_major
 from .vqgan import VQModel
 
 GUMBEL_TAU = 1.0  # the Gumbel softmax temperature (the JAX package's default)
 STRIDE = 64  # reflect-pad multiple of the image (4 stride-2 convs + 2 in the hyperprior)
+ENC_VQ_INPUTS = ("onehot_indices", "norm_indices", "long_indices")
 
 
 def pad_image(x: torch.Tensor, stride: int = STRIDE) -> torch.Tensor:
@@ -83,12 +84,15 @@ def likelihood_to_bpp_per_sample(likelihood: torch.Tensor,
 
 
 class FusionModule(nn.Module):
-    """The SFT fusion blocks of the decoder, keyed by tap name."""
+    """The SFT fusion blocks of the decoder, keyed by tap name:
+    ``FuseSftBlock`` for ``fuse_type`` "sft" and, as in the JAX package,
+    ``LightFuseSftBlock`` for every other value ("light_sft")."""
 
-    def __init__(self, schedule: Dict[str, Dict[str, int]]):
+    def __init__(self, schedule: Dict[str, Dict[str, int]], fuse_type: str = "sft"):
         super().__init__()
+        block = FuseSftBlock if fuse_type == "sft" else LightFuseSftBlock
         self.fusion_modules = nn.ModuleDict({
-            key: FuseSftBlock(s["dec_ch"], s["cond_ch"], s["mid_ch"])
+            key: block(s["dec_ch"], s["cond_ch"], s["mid_ch"])
             for key, s in schedule.items()})
 
 
@@ -182,7 +186,16 @@ class EntropyChainMethods:
 class DCVICModel(EntropyChainMethods, nn.Module):
     """The DCVICModel family: ELIC transforms (dual-beta FiLM with
     ``use_beta``), VQGAN prior, a hyperprior and, unless ``context_model``
-    is None, the ChARM context model."""
+    is None, the ChARM context model.
+
+    The encoder's VQ input (``enc_vq_input``): "onehot_indices" gives it
+    concat(latent, one-hot indices), "norm_indices" concat(latent, indices /
+    (n_embed - 1)), "long_indices" the latent and the token map itself (for
+    the encoders that embed it). ``enc_input_vq_recon`` concatenates the
+    VQGAN's reconstruction of the token map (its decoder without fusion taps,
+    no gradient) to the image. With ``convert_img_range_to_01`` the encoder
+    sees the image in [0, 1] (the recon stays in [-1, 1]) and the decoded
+    image is mapped back to [-1, 1]."""
 
     def __init__(self, encoder: nn.Module, decoder: nn.Module,
                  hyperencoder: nn.Module, hyperdecoder: nn.Module,
@@ -193,8 +206,12 @@ class DCVICModel(EntropyChainMethods, nn.Module):
                  bottleneck_y: int = 192, use_beta: bool = True,
                  codec_dtype: Optional[str] = None,
                  entropy_precision: Optional[str] = "high",
-                 gumbel_sampling: bool = False):
+                 gumbel_sampling: bool = False, enc_vq_input: str = "onehot_indices",
+                 enc_input_vq_recon: bool = False, convert_img_range_to_01: bool = False):
         super().__init__()
+        self.enc_vq_input = enc_vq_input
+        self.enc_input_vq_recon = enc_input_vq_recon
+        self.convert_img_range_to_01 = convert_img_range_to_01
         self.use_beta = use_beta
         self.use_charm = context_model is not None
         self.bottleneck_y = bottleneck_y
@@ -238,13 +255,34 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         [B, D, h8, w8] (the rate search's precomputed-token path)."""
         return self.vq_model.quantize.lookup(indices)
 
+    def _vq_feat(self, gt_vq_latent, gt_vq_indices):
+        """The encoder's VQ feature for ``enc_vq_input``."""
+        if self.enc_vq_input == "onehot_indices":
+            onehot = F.one_hot(gt_vq_indices.long(), self.n_embed).permute(0, 3, 1, 2)
+            return torch.cat([gt_vq_latent, onehot.to(gt_vq_latent.dtype)], dim=1)
+        if self.enc_vq_input == "norm_indices":
+            norm = gt_vq_indices.to(gt_vq_latent.dtype) / (self.n_embed - 1)
+            return torch.cat([gt_vq_latent, norm[:, None]], dim=1)
+        return gt_vq_latent
+
+    @torch.no_grad()
+    def vq_recon(self, gt_vq_indices):
+        """The VQGAN's reconstruction of a token map, [-1, 1]: the
+        decoder without fusion taps on post_quant_conv(lookup(indices))."""
+        return self.vq_model.decoder(self.vq_model.post_quant_conv(
+            self.vq_model.quantize.lookup(gt_vq_indices)))
+
     def comp_encode(self, x, gt_vq_latent, gt_vq_indices, beta_rate=None, beta_vq=None):
         """Image and VQ codes -> y f32; the betas only where ``use_beta``."""
-        onehot = F.one_hot(gt_vq_indices.long(), self.n_embed).permute(0, 3, 1, 2)
-        feat = torch.cat([gt_vq_latent, onehot.to(gt_vq_latent.dtype)], dim=1)
+        if self.convert_img_range_to_01:
+            x = (x + 1.0) / 2.0
+        if self.enc_input_vq_recon:
+            x = torch.cat([x, self.vq_recon(gt_vq_indices)], dim=1)
+        feat = self._vq_feat(gt_vq_latent, gt_vq_indices).detach()
+        extra = (gt_vq_indices,) if self.enc_vq_input == "long_indices" else ()
         if self.use_beta:
-            return self.encoder(x, feat, beta_rate, beta_vq).float()
-        return self.encoder(x, feat).float()
+            return self.encoder(x, feat, beta_rate, beta_vq, *extra).float()
+        return self.encoder(x, feat, *extra).float()
 
     # ------------------------------------------------------- codec stages
     def encode_front(self, x, beta_rate=None, beta_vq=None):
@@ -287,8 +325,10 @@ class DCVICModel(EntropyChainMethods, nn.Module):
             vq_latent = self.vq_model.quantize.lookup(indices)
         vq_latent = self.vq_model.post_quant_conv(vq_latent)
         fake = self.vq_model.decoder(vq_latent, self.fusion_module.fusion_modules,
-                                     cond_feats, w)
-        return fake.float(), pred_embed, logits, indices
+                                     cond_feats, w).float()
+        if self.convert_img_range_to_01:
+            fake = fake * 2.0 - 1.0
+        return fake, pred_embed, logits, indices
 
     def reconstruct_uint8(self, y_hat, beta_rate=None, beta_vq=None, w: float = 1.0):
         """y_hat -> uint8 image [B, 3, H, W]."""

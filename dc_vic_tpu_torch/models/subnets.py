@@ -1,6 +1,6 @@
-"""Compression subnets of the DCVICModel family (port of the
-dc_vic_tpu/models/subnets.py modules its configs use): the ELIC analysis and
-synthesis transforms with and without dual-beta FiLM, the Minnen'20 and
+"""Compression subnets of the DCVICModel family (port of
+dc_vic_tpu/models/subnets.py): the ELIC analysis and synthesis transforms
+with and without dual-beta FiLM and VQ insertion, the Minnen'20 and
 Balle'18 hyperpriors, the ChARM context model and the Swin VQ estimator.
 
 NCHW modules with the reference's torch parameter names. Unlike flax, torch
@@ -18,7 +18,7 @@ from ..codec.gaussian import GaussianConditional
 from ..codec.ops import Noise
 from ..nn.layers import (BetaScaleShift, ChengNLAM, FemasrResBlock,
                          ResidualBottleneckBlocks, beta_cond, beta_mlp, conv,
-                         deconv)
+                         deconv, up_conv)
 from ..nn.swin import RSTB
 from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               ENCODER_REGISTRY, HYPERDECODER_REGISTRY,
@@ -116,6 +116,150 @@ class ElicVqCatScEncoder(nn.Module):
         return self.attn4(x)
 
 
+class IndexEmbedding(nn.Embedding):
+    """The learned embedding of the VQ token map that the ``long_indices``
+    encoders concatenate into their projection; ``init_weights`` draws it
+    N(0, 1), as flax does (not the codebook's U(-1/n, 1/n))."""
+
+    def forward(self, indices):
+        """indices [B, h, w] -> [B, dim, h, w]."""
+        return super().forward(indices.long()).permute(0, 3, 1, 2)
+
+
+class _ElicAnalysis(nn.Module):
+    """The ELIC analysis layers conv1, block1, conv2, block2, attn2, conv3,
+    block3, conv4, attn4 (``projection``, where given, registered after
+    conv3) and the VQ insertion of the encoders that take the token map."""
+
+    def _build_layers(self, in_ch, out_ch, main_ch, block_mid_ch, num_blocks, res_in_res,
+                      projection: Optional[nn.Module] = None):
+        rb = lambda: ResidualBottleneckBlocks(main_ch, block_mid_ch, num_blocks, res_in_res)
+        self.conv1 = conv(in_ch, main_ch, 5, 2)
+        self.block1 = rb()
+        self.conv2 = conv(main_ch, main_ch, 5, 2)
+        self.block2 = rb()
+        self.attn2 = ChengNLAM(main_ch)
+        self.conv3 = conv(main_ch, main_ch, 5, 2)
+        if projection is not None:
+            self.projection = projection
+        self.block3 = rb()
+        self.conv4 = conv(main_ch, out_ch, 5, 2)
+        self.attn4 = ChengNLAM(out_ch)
+
+    def _init_emb_projection(self, input_feat_ch, out_ch, main_ch, proj_pos, vq_n_embed,
+                             vq_ind_embed_dim) -> nn.Module:
+        """The index embedding and the 3x3 projection of concat(feat, h,
+        emb) after conv3 (/8) or conv4 (/16)."""
+        if proj_pos not in ("conv3", "conv4"):
+            raise ValueError(f"proj_pos {proj_pos!r}: 'conv3' or 'conv4'")
+        self.proj_pos = proj_pos
+        self.vq_ind_emb = IndexEmbedding(vq_n_embed, vq_ind_embed_dim)
+        proj_ch = main_ch if proj_pos == "conv3" else out_ch
+        return conv(input_feat_ch + proj_ch + vq_ind_embed_dim, proj_ch, 3)
+
+    def _project_emb(self, h, feat, vq_indices):
+        return h + self.projection(torch.cat([feat, h, self.vq_ind_emb(vq_indices)], dim=1))
+
+
+@ENCODER_REGISTRY.register()
+class ElicEncoder(_ElicAnalysis):
+    """The plain ELIC analysis transform: four stride-2 5x5 convs, residual
+    bottleneck stacks, NLAM at /4 and /16 (standalone: it takes x alone)."""
+
+    def __init__(self, in_ch: int = 3, out_ch: int = 192, main_ch: int = 192,
+                 block_mid_ch: int = 96, num_blocks: int = 3, res_in_res: bool = False):
+        super().__init__()
+        self._build_layers(in_ch, out_ch, main_ch, block_mid_ch, num_blocks, res_in_res)
+
+    def forward(self, x):
+        x = self.attn2(self.block2(self.conv2(self.block1(self.conv1(x)))))
+        return self.attn4(self.conv4(self.block3(self.conv3(x))))
+
+
+@ENCODER_REGISTRY.register()
+class ElicVqScEncoder(_ElicAnalysis):
+    """ElicEncoder with a 1x1 projection of the VQ feature added after
+    conv3 (/8)."""
+
+    def __init__(self, in_ch: int = 3, input_feat_ch: int = 260, out_ch: int = 192,
+                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
+                 res_in_res: bool = False):
+        super().__init__()
+        self._build_layers(in_ch, out_ch, main_ch, block_mid_ch, num_blocks, res_in_res,
+                           projection=conv(input_feat_ch, main_ch, 1))
+
+    def forward(self, x, feat):
+        x = self.attn2(self.block2(self.conv2(self.block1(self.conv1(x)))))
+        x = self.conv3(x) + self.projection(feat)
+        return self.attn4(self.conv4(self.block3(x)))
+
+
+@ENCODER_REGISTRY.register()
+class ElicVqEmbCatEncoder(_ElicAnalysis):
+    """ElicVqCatScEncoder with a learned embedding of the VQ indices
+    concatenated into the projection (``enc_vq_input: long_indices``)."""
+
+    def __init__(self, in_ch: int = 3, input_feat_ch: int = 4, out_ch: int = 192,
+                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
+                 res_in_res: bool = False, proj_pos: str = "conv3", vq_n_embed: int = 256,
+                 vq_ind_embed_dim: int = 32):
+        super().__init__()
+        proj = self._init_emb_projection(input_feat_ch, out_ch, main_ch, proj_pos, vq_n_embed,
+                                         vq_ind_embed_dim)
+        self._build_layers(in_ch, out_ch, main_ch, block_mid_ch, num_blocks, res_in_res, proj)
+
+    def forward(self, x, feat, vq_indices):
+        x = self.attn2(self.block2(self.conv2(self.block1(self.conv1(x)))))
+        x = self.conv3(x)
+        if self.proj_pos == "conv3":
+            x = self._project_emb(x, feat, vq_indices)
+        x = self.conv4(self.block3(x))
+        if self.proj_pos == "conv4":
+            x = self._project_emb(x, feat, vq_indices)
+        return self.attn4(x)
+
+
+@ENCODER_REGISTRY.register()
+class ElicDualBetaFtVqEmbCatEncoder(_ElicAnalysis, _BetaFilm):
+    """Dual-beta FiLM and the embedded-index VQ insertion. As the reference,
+    it has no FiLM right after conv3: ``beta_ft_list`` holds 0-4 and 6-8,
+    keyed by position."""
+
+    FILM = (0, 1, 2, 3, 4, 6, 7, 8)
+
+    def __init__(self, in_ch: int = 3, input_feat_ch: int = 4, out_ch: int = 192,
+                 main_ch: int = 192, block_mid_ch: int = 96, num_blocks: int = 3,
+                 res_in_res: bool = False, proj_pos: str = "conv3", vq_n_embed: int = 256,
+                 vq_ind_embed_dim: int = 32, max_beta_1: float = 3.0,
+                 max_beta_2: float = 3.5, cond_ch: int = 128, L: int = 10,
+                 use_pi: bool = False, include_x: bool = True):
+        super().__init__()
+        self._init_beta(cond_ch, L, max_beta_1, max_beta_2, use_pi, include_x)
+        proj = self._init_emb_projection(input_feat_ch, out_ch, main_ch, proj_pos, vq_n_embed,
+                                         vq_ind_embed_dim)
+        self._build_layers(in_ch, out_ch, main_ch, block_mid_ch, num_blocks, res_in_res, proj)
+        self.beta_ft_list = nn.ModuleDict({
+            str(i): BetaScaleShift(out_ch if i >= 7 else main_ch, cond_ch) for i in self.FILM})
+
+    def forward(self, x, feat, beta_1, beta_2, vq_indices):
+        cond = self.cond(beta_1, beta_2)
+        ft = lambda i, h: self.beta_ft_list[str(i)](h, cond)
+        x = ft(0, self.conv1(x))
+        x = ft(1, self.block1(x))
+        x = ft(2, self.conv2(x))
+        x = ft(3, self.block2(x))
+        x = ft(4, self.attn2(x))
+        x = self.conv3(x)
+        if self.proj_pos == "conv3":
+            x = self._project_emb(x, feat, vq_indices)
+        x = ft(6, self.block3(x))
+        x = self.conv4(x)
+        if self.proj_pos == "conv4":
+            x = self._project_emb(x, feat, vq_indices)
+        x = ft(7, x)
+        return ft(8, self.attn4(x))
+
+
 class _ElicFeatDecoder(nn.Module):
     """The ELIC synthesis stack with fusion taps, shared by the decoders
     with and without FiLM: ``_run`` returns the transformer feature and the
@@ -132,23 +276,20 @@ class _ElicFeatDecoder(nn.Module):
 
     def _build_layers(self, fusion_layer_dict, in_ch, feat_layer_name, out_ch, main_ch,
                       block_mid_ch, num_blocks, pixel_shuffle, res_in_res):
-        if pixel_shuffle:
-            raise NotImplementedError("pixel-shuffle ELIC decoders are not ported "
-                                      "(ROADMAP.md queue 1, item 2)")
         self.fusion_layer_dict = dict(fusion_layer_dict)
         self.feat_layer_name = feat_layer_name
         self.num_layers = self._num_layers(self.fusion_layer_dict, feat_layer_name)
         rb = lambda: ResidualBottleneckBlocks(main_ch, block_mid_ch, num_blocks, res_in_res)
         make = {
             "attn1": lambda: ChengNLAM(in_ch),
-            "conv1": lambda: deconv(in_ch, main_ch),
+            "conv1": lambda: up_conv(in_ch, main_ch, pixel_shuffle),
             "block1": rb,
-            "conv2": lambda: deconv(main_ch, main_ch),
+            "conv2": lambda: up_conv(main_ch, main_ch, pixel_shuffle),
             "attn2": lambda: ChengNLAM(main_ch),
             "block2": rb,
-            "conv3": lambda: deconv(main_ch, main_ch),
+            "conv3": lambda: up_conv(main_ch, main_ch, pixel_shuffle),
             "block3": rb,
-            "conv4": lambda: deconv(main_ch, out_ch),
+            "conv4": lambda: up_conv(main_ch, out_ch, pixel_shuffle),
         }
         for name in self.LAYER_NAMES[:self.num_layers]:
             self.add_module(name, make[name]())
@@ -163,6 +304,24 @@ class _ElicFeatDecoder(nn.Module):
             if name in self.fusion_layer_dict:
                 fusion_feats[self.fusion_layer_dict[name]] = x
         return feat, fusion_feats
+
+
+@DECODER_REGISTRY.register()
+class ElicDecoder(_ElicFeatDecoder):
+    """The plain ELIC synthesis transform: all nine layers, then tanh
+    (``use_tanh``); standalone, it takes y alone and has no taps."""
+
+    def __init__(self, in_ch: int = 192, out_ch: int = 3, main_ch: int = 192,
+                 block_mid_ch: int = 96, num_blocks: int = 3, use_tanh: bool = True,
+                 pixel_shuffle: bool = False, res_in_res: bool = False):
+        super().__init__()
+        self.use_tanh = use_tanh
+        self._build_layers({}, in_ch, self.LAYER_NAMES[-1], out_ch, main_ch, block_mid_ch,
+                           num_blocks, pixel_shuffle, res_in_res)
+
+    def forward(self, x):
+        x, _ = self._run(x)
+        return torch.tanh(x) if self.use_tanh else x
 
 
 @DECODER_REGISTRY.register()
@@ -396,9 +555,6 @@ class DualBlockSwinVqEstimator(nn.Module):
                  act_type: str = "silu", use_upsample: bool = False,
                  proj_pos: str = "before_rstb"):
         super().__init__()
-        if act_type not in ("silu", "swish"):
-            raise NotImplementedError(f"estimator act_type {act_type!r} is not ported "
-                                      "(ROADMAP.md queue 1, item 2)")
         if proj_pos not in ("before_rstb", "after_rstb"):
             raise ValueError(proj_pos)
         self.use_upsample = use_upsample
@@ -407,12 +563,14 @@ class DualBlockSwinVqEstimator(nn.Module):
         self.first_block = nn.Sequential(
             conv(in_ch, main_ch, 3),
             nn.Upsample(scale_factor=2, mode="nearest") if use_upsample else nn.Identity(),
-            FemasrResBlock(main_ch), FemasrResBlock(main_ch), conv(main_ch, main_ch, 3))
+            FemasrResBlock(main_ch, act_type), FemasrResBlock(main_ch, act_type),
+            conv(main_ch, main_ch, 3))
         self.embed_projection = conv(main_ch, embed_dim, 1)
         self.swin_blks = nn.ModuleList(
             RSTB(main_ch, blk_depth, num_heads, window_size)
             for _ in range(num_swin_blocks))
-        self.out_block = nn.Sequential(FemasrResBlock(main_ch), conv(main_ch, n_embed, 3))
+        self.out_block = nn.Sequential(FemasrResBlock(main_ch, act_type),
+                                       conv(main_ch, n_embed, 3))
 
     def forward(self, x):
         x = self.first_block(x)

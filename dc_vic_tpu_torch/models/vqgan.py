@@ -152,11 +152,13 @@ class _Mid(nn.Module):
 
 class VQEncoder(nn.Module):
     """conv_in -> per-level ResnetBlocks (+attn) + Downsample -> mid ->
-    GroupNorm + swish -> conv_out (z_channels)."""
+    GroupNorm + swish -> conv_out (z_channels, twice that with
+    ``double_z``)."""
 
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 2, 4),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (32,),
-                 resolution: int = 256, z_channels: int = 4, in_channels: int = 3):
+                 resolution: int = 256, z_channels: int = 4, in_channels: int = 3,
+                 double_z: bool = False):
         super().__init__()
         self.conv_in = conv(in_channels, ch, 3)
         self.down = nn.ModuleList()
@@ -174,7 +176,7 @@ class VQEncoder(nn.Module):
             self.down.append(level)
         self.mid = _Mid(block_in)
         self.norm_out = GroupNorm(num_groups32(block_in), block_in, act="swish")
-        self.conv_out = conv(block_in, z_channels, 3)
+        self.conv_out = conv(block_in, 2 * z_channels if double_z else z_channels, 3)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -280,13 +282,13 @@ class VQModel(nn.Module):
                       attn_resolutions=tuple(dd.get("attn_resolutions", (32,))),
                       resolution=dd.get("resolution", 256),
                       z_channels=dd.get("z_channels", 4))
-        if dd.get("double_z", False):
-            raise NotImplementedError("double_z VQGAN encoders are not ported "
-                                      "(ROADMAP.md queue 1, item 2)")
-        self.encoder = VQEncoder(in_channels=dd.get("in_channels", 3), **common)
+        double_z = dd.get("double_z", False)
+        self.encoder = VQEncoder(in_channels=dd.get("in_channels", 3), double_z=double_z,
+                                 **common)
         self.decoder = VQDecoder(out_ch=dd.get("out_ch", 3), **common)
         self.quantize = VectorQuantizer(n_embed, embed_dim)
-        self.quant_conv = PointwiseLinear(common["z_channels"], embed_dim)
+        self.quant_conv = PointwiseLinear(common["z_channels"] * (2 if double_z else 1),
+                                          embed_dim)
         self.post_quant_conv = PointwiseLinear(embed_dim, common["z_channels"])
 
     def encode(self, x):

@@ -1,5 +1,5 @@
-"""Building blocks of the flagship model (port of the subset of
-dc_vic_tpu/nn/layers.py that config/dc_vic_patchgan.yaml uses).
+"""Building blocks of the DCVICModel family and the alternative transforms
+(port of dc_vic_tpu/nn/layers.py).
 
 NCHW modules whose parameter names are the reference's torch keys. Convs use
 torch's symmetric padding k//2, which is what the JAX package's explicit
@@ -89,6 +89,34 @@ def deconv(cin: int, cout: int, k: int = 5) -> ConvTranspose2d:
     doubles the spatial size."""
     return ConvTranspose2d(cin, cout, k, stride=2, padding=(k - 1) // 2,
                            output_padding=1)
+
+
+def pixel_shuffle_up(cin: int, cout: int, k: int = 5) -> nn.Sequential:
+    """A conv to 4 * cout channels, then depth-to-space x2 (the JAX
+    package's PixelShuffleUp, whose reshape is torch's channel order
+    c * 4 + i * 2 + j)."""
+    return nn.Sequential(conv(cin, 4 * cout, k), nn.PixelShuffle(2))
+
+
+def up_conv(cin: int, cout: int, pixel_shuffle: bool) -> nn.Module:
+    """The ELIC decoders' x2 upsampling: a 5x5 pixel-shuffle conv or a 5x5
+    transposed conv."""
+    return pixel_shuffle_up(cin, cout, 5) if pixel_shuffle else deconv(cin, cout, 5)
+
+
+def activation(act: str) -> nn.Module:
+    """The GNResBlock activations: swish/silu, leakyrelu (slope 0.2, not
+    PyTorch's 0.01), gelu (flax's default, the tanh approximation) and
+    relu."""
+    if act in ("swish", "silu"):
+        return nn.SiLU()
+    if act == "leakyrelu":
+        return nn.LeakyReLU(0.2)
+    if act == "gelu":
+        return nn.GELU(approximate="tanh")
+    if act == "relu":
+        return nn.ReLU()
+    raise ValueError(f"activation {act!r}: swish, silu, leakyrelu, gelu or relu")
 
 
 class PointwiseLinear(nn.Linear):
@@ -274,9 +302,9 @@ class GNResBlock(nn.Module):
 
 
 class _NormLayer(nn.Module):
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, act: Optional[str] = "swish"):
         super().__init__()
-        self.norm = GroupNorm(num_groups32(ch), ch, act="swish")
+        self.norm = GroupNorm(num_groups32(ch), ch, act=act)
 
     def forward(self, x):
         return self.norm(x)
@@ -284,13 +312,17 @@ class _NormLayer(nn.Module):
 
 class FemasrResBlock(nn.Module):
     """The same block with femasr naming (the VQ estimator):
-    conv = [norm, act, conv, norm, act, conv]; the swish is fused into the
-    norms, so positions 1 and 4 hold no parameters."""
+    conv = [norm, act, conv, norm, act, conv]. Positions 1 and 4 hold no
+    parameters: a swish (``act`` "swish" or "silu") is fused into the norms
+    and they are identities, any other ``activation`` sits there."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, act: str = "swish"):
         super().__init__()
-        self.conv = nn.Sequential(_NormLayer(ch), nn.Identity(), conv(ch, ch, 3),
-                                  _NormLayer(ch), nn.Identity(), conv(ch, ch, 3))
+        fused = act in ("swish", "silu")
+        norm = lambda: _NormLayer(ch, "swish" if fused else None)
+        act_layer = lambda: nn.Identity() if fused else activation(act)
+        self.conv = nn.Sequential(norm(), act_layer(), conv(ch, ch, 3),
+                                  norm(), act_layer(), conv(ch, ch, 3))
 
     def forward(self, x):
         return x + self.conv(x)
@@ -311,3 +343,58 @@ class FuseSftBlock(nn.Module):
     def forward(self, dec_feat, cond_feat, w: float = 1.0):
         fuse = self.fuse_block(torch.cat([cond_feat, dec_feat], dim=1))
         return dec_feat + w * (dec_feat * self.scale(fuse) + self.shift(fuse))
+
+
+class LightFuseSftBlock(nn.Module):
+    """The lighter SFT fusion: dec + w * (dec * scale(f) + shift(f)) with
+    f = the 1x1 and 3x3 ``fuse_block`` (leaky ReLU 0.2 after each) on
+    concat(cond, dec) in place of the GroupNorm ResBlock, and one 3x3 conv
+    each for scale and shift."""
+
+    def __init__(self, dec_ch: int, cond_ch: int, mid_ch: int):
+        super().__init__()
+        self.fuse_block = nn.Sequential(conv(cond_ch + dec_ch, mid_ch, 1), nn.LeakyReLU(0.2),
+                                        conv(mid_ch, mid_ch, 3), nn.LeakyReLU(0.2))
+        self.scale = conv(mid_ch, dec_ch, 3)
+        self.shift = conv(mid_ch, dec_ch, 3)
+
+    def forward(self, dec_feat, cond_feat, w: float = 1.0):
+        fuse = self.fuse_block(torch.cat([cond_feat, dec_feat], dim=1))
+        return dec_feat + w * (dec_feat * self.scale(fuse) + self.shift(fuse))
+
+
+class GDN(nn.Module):
+    """Generalized divisive normalization, y_i = x_i / sqrt(beta_i + sum_j
+    gamma[i, j] * x_j^2) (``inverse``: times the root), plain PyTorch as the
+    JAX package's is plain JAX. ``beta`` and ``gamma`` are stored through
+    the sqrt reparameterization with a pedestal, in compressai's layout:
+    ``gamma`` [out, in] is the 1x1 conv's weight, the transpose of the JAX
+    package's ``gamma_raw`` (its einsum sums ``gamma_raw[j, i]``). Init
+    (``reset_parameters``) is deterministic: sqrt(1 + pedestal) and
+    sqrt(gamma_init * I + pedestal)."""
+
+    PEDESTAL = 2.0 ** -18
+
+    def __init__(self, ch: int, inverse: bool = False, beta_min: float = 1e-6,
+                 gamma_init: float = 0.1):
+        super().__init__()
+        self.inverse = inverse
+        self.gamma_init = gamma_init
+        self.beta_bound = (beta_min + self.PEDESTAL) ** 0.5
+        self.gamma_bound = self.PEDESTAL ** 0.5
+        self.beta = nn.Parameter(torch.empty(ch))
+        self.gamma = nn.Parameter(torch.empty(ch, ch))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        ch = self.beta.numel()
+        self.beta.copy_(torch.sqrt(torch.ones(ch) + self.PEDESTAL))
+        self.gamma.copy_(torch.sqrt(self.gamma_init * torch.eye(ch) + self.PEDESTAL))
+
+    def forward(self, x):
+        beta = torch.clamp(self.beta, min=self.beta_bound) ** 2 - self.PEDESTAL
+        gamma = torch.clamp(self.gamma, min=self.gamma_bound) ** 2 - self.PEDESTAL
+        norm = torch.sqrt(F.conv2d(torch.square(x).to(gamma.dtype),
+                                   gamma[:, :, None, None], beta))
+        return x * norm if self.inverse else x / norm

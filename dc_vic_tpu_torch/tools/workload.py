@@ -40,6 +40,43 @@ def deployment_config(opt):
     return opt
 
 
+def variant_a(opt):
+    """Variant A of the model options, on a dual-beta ChARM configuration
+    (config/dc_vic_patchgan.yaml at full width): the token map embedded
+    into the encoder (``long_indices``, ElicDualBetaFtVqEmbCatEncoder with a
+    32-wide embedding of the codebook's indices, projection after conv3),
+    the VQGAN recon beside the image, the image in [0, 1], pixel-shuffle
+    decoder upsampling, the light SFT fusion and a gelu estimator. Every
+    key is one the JAX package's build_comp_model reads."""
+    opt = copy.deepcopy(opt)
+    sub = opt["subnet"]
+    opt["model"]["enc_vq_input"] = "long_indices"
+    opt["model"]["enc_input_vq_recon"] = True
+    opt["convert_img_range_to_01"] = True
+    sub["encoder"]["type"] = "ElicDualBetaFtVqEmbCatEncoder"
+    sub["encoder"]["vq_n_embed"] = sub["vq_model"]["n_embed"]
+    sub["encoder"]["vq_ind_embed_dim"] = 32
+    sub["encoder"]["proj_pos"] = "conv3"
+    sub["decoder"]["pixel_shuffle"] = True
+    sub["fusion_module"]["fuse_type"] = "light_sft"
+    sub["vq_estimator"]["act_type"] = "gelu"
+    return opt
+
+
+def variant_b(opt):
+    """Variant B, on a single-beta ChARM configuration
+    (config/exp1_stage1_1.yaml at full width): the normalized index beside
+    the VQ latent (``norm_indices``, ElicVqScEncoder's 1x1 projection), a
+    ``double_z`` VQGAN encoder and a leaky-ReLU estimator."""
+    opt = copy.deepcopy(opt)
+    sub = opt["subnet"]
+    opt["model"]["enc_vq_input"] = "norm_indices"
+    sub["encoder"]["type"] = "ElicVqScEncoder"
+    sub["vq_model"]["ddconfig"]["double_z"] = True
+    sub["vq_estimator"]["act_type"] = "leakyrelu"
+    return opt
+
+
 def scale_encoder(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """A copy of an f32 state dict with the encoder's parameters scaled by
     the workload's rate scale."""

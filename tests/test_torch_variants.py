@@ -284,23 +284,3 @@ def test_default_device_is_the_card():
     for v in VARIANTS[1:]:
         with pytest.raises(RuntimeError, match="CUDA"):
             build_comp_model(tiny_config(*v))
-
-
-UNPORTED_OPTIONS = {
-    "enc_vq_input": lambda c: c["model"].__setitem__("enc_vq_input", "norm_indices"),
-    "enc_input_vq_recon": lambda c: c["model"].__setitem__("enc_input_vq_recon", True),
-    "fuse_type": lambda c: c["subnet"]["fusion_module"].__setitem__("fuse_type", "concat"),
-    "pixel_shuffle": lambda c: c["subnet"]["decoder"].__setitem__("pixel_shuffle", True),
-    "estimator_act_type": lambda c: c["subnet"]["vq_estimator"].__setitem__("act_type", "gelu"),
-    "double_z": lambda c: c["subnet"]["vq_model"]["ddconfig"].__setitem__("double_z", True),
-}
-
-
-@pytest.mark.parametrize("option", sorted(UNPORTED_OPTIONS))
-def test_unported_options_name_their_roadmap_item(option):
-    """Each model option the port leaves out raises and names the ROADMAP
-    item that holds it."""
-    cfg = tiny_config()
-    UNPORTED_OPTIONS[option](cfg)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1, item 2"):
-        build_comp_model(cfg, device="cpu")
