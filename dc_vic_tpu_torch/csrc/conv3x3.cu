@@ -126,51 +126,8 @@ repack_weights_kernel(const float* __restrict__ w, float4* __restrict__ wt, int 
   wt[idx] = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// ---- warpgroup matrix multiply: D[64 x 64] (+)= A[64 x 8] B[8 x 64], TF32, A
-// from registers (the m16n8k8 A fragment of each of the four warps), B from
-// shared memory through a descriptor, asynchronous.
-__device__ __forceinline__ uint64_t b_descriptor(const void* smem) {
-  const uint64_t addr = static_cast<uint64_t>(__cvta_generic_to_shared(smem));
-  // start address, the 128 bytes between core matrices along K, the 256 bytes
-  // between 8-channel groups along N (all in 16-byte units); no swizzle
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(128 >> 4) << 16) | (uint64_t(256 >> 4) << 32);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// An empty statement that reads and writes the registers: the compiler can
-// neither read what a wgmma writes before the wait in front of this, nor
-// reuse what a wgmma in flight still reads before it.
-__device__ __forceinline__ void hold(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void hold(uint32_t (&a)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
-}
-__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t desc, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(accumulate));
-}
+// The warpgroup products, their descriptor and fences are tf32x3.cuh's. Here
+// D [64 x 64] (+)= A [64 x 8] B [8 x 64]: A from registers, B from shared memory.
 
 template <bool kFused>
 __device__ __forceinline__ void conv_tile(
@@ -280,7 +237,7 @@ __device__ __forceinline__ void conv_tile(
 
     float part[32];  // this step's sum over the 9 taps, from zero
     const float* xa = x_s + cur * kXBuf + t * kXPlane + row0 * kXStride + x0 + g;
-    const uint64_t b0 = b_descriptor(w_s + cur * kWBuf);
+    const uint64_t b0 = tf32x3::b_descriptor(w_s + cur * kWBuf);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const float* p = xa + (tap / 3) * kXStride + tap % 3;
@@ -293,19 +250,17 @@ __device__ __forceinline__ void conv_tile(
       // a tap's hi operand, then its lo operand, 2 KB each (16-byte units)
       const uint64_t b_hi = b0 + tap * 2 * (kBOperand >> 4);
       const uint64_t b_lo = b_hi + (kBOperand >> 4);
-      wgmma_fence();
+      tf32x3::wgmma_fence();
       // small terms first; the first product of a step starts from zero
-      wgmma_m64n64k8(part, a_lo, b_hi, tap > 0);
-      wgmma_m64n64k8(part, a_hi, b_lo, 1);
-      wgmma_m64n64k8(part, a_hi, b_hi, 1);
-      wgmma_commit();
+      tf32x3::wgmma_split(part, a_hi, a_lo, b_hi, b_lo, tap > 0);
+      tf32x3::wgmma_commit();
       // the products read a_hi and a_lo until they are done; the other
       // warpgroups keep the tensor cores busy meanwhile
-      wgmma_wait_all();
-      hold(a_hi);
-      hold(a_lo);
+      tf32x3::wgmma_wait<0>();
+      tf32x3::hold(a_hi);
+      tf32x3::hold(a_lo);
     }
-    hold(part);
+    tf32x3::hold(part);
     if (more) store_x((s + 1) * kKC, x_s + (cur ^ 1) * kXBuf);
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] += part[i];

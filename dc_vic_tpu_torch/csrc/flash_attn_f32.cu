@@ -11,45 +11,60 @@
 // What bounds it on Hopper: operations. One call at [4, 6144, 512] is
 // 309 GFLOP against 0.2 GB of operands. The codec needs f32-class results,
 // so the products run on the tensor cores as an error-compensated 3xTF32
-// split (tf32x3.cuh): three mma.sync.m16n8k8 per multiply, a third of what
-// that instruction reaches (322 of the 495 TFLOP/s TF32 on an H100) at best.
-// With operands in registers each element has to be split (four
-// instructions) by every warp that uses it, so next to
-// the tensor cores what decides the rate is how many products each split and
-// each shared-memory load feed, and how well those instructions hide behind
-// the products: a warp issues in order, and the split, the product and the
-// rounded add of one step depend on each other.
+// split (tf32x3.cuh): three TF32 products per multiply, 1.874 ms at the
+// card's 495 TFLOP/s. Only the warpgroup instruction wgmma reaches that rate.
+// At C = 512 both on-chip stores are full: the 64 x 512 f32 output takes half
+// the register file (255 registers a thread, a few spilled), Q 128 KB of the
+// 227 KB of shared memory. What holds the kernel at about a third of its
+// bound is the time around the products: a warpgroup's products of a chunk
+// take 192 tensor-core cycles, the staging, adds and hand-over of that chunk
+// about 600 more (clock64 stamps, tools/attn_stamps.py), and neither the
+// registers nor the shared memory leave room for larger chunks or a second
+// group of products in flight.
 //
-// Design. A block of 256 threads (8 warps) owns BQ = 64 query rows of one
-// image and walks the keys in tiles of BK = 32. Registers cannot hold a
-// 16-row slab of O at C = 512 (256 accumulators a thread) nor Q, so:
-//   * the Q tile stays in shared memory for the whole walk (130 KB at
-//     C = 512), which leaves no room for whole K and V tiles; K and V stream
-//     through a ring of four 17 KB stages filled by cp.async, first the K
-//     tile in chunks of 128 channels, then the V tile in chunks of 8 keys.
-//     Loads run three chunks ahead of the products; one block-wide barrier
-//     per chunk hands a stage over;
-//   * S = Q K^T: warp (rs, kh) computes the 16 rows rs x 16 keys kh of the
-//     64 x 32 score tile, its accumulators live across the K chunks;
-//   * the softmax is f32 and online: the two warps that share 16 rows
-//     exchange their partial row maxima through shared memory (one barrier),
-//     each takes exp on its scores, and writes its probabilities, already
-//     split in hi and lo, to shared memory with the partial row sums and the
-//     rescale factor exp(m_old - m_new);
-//   * O += P V: warp w owns all 64 rows x C / 8 columns of O (128
-//     accumulators at C = 512), so every V element is split by one warp only
-//     and P comes from shared memory in the operand layout.
-// The width C is a template argument: with every stride and trip count known
-// the compiler lays a chunk's loads, splits, products and adds out as one
-// straight block and overlaps the latencies of one step with the next; with
-// C read at run time each column tile became a block of its own in which the
-// load, the split, the products and the adds waited for each other.
-// Every tensor-core chain is one or two k8 steps from zero, added to the f32
-// accumulator with a rounded add (see tf32x3.cuh). Row strides are padded so
-// that the lanes of each fragment load hit distinct banks: C + 8 for Q and
-// 136 for a K chunk (8-byte loads, the 4 rows x 4 pairs of a half warp in 16
-// distinct bank pairs), 36 for P (rows 4 banks apart, 4 columns a row),
-// C + 8 for a V chunk (rows 8 banks apart, 8 columns a row).
+// Design. A block of two warpgroups owns BQ = 64 query rows of one image,
+// the M of every wgmma, and walks the keys in tiles of BK = 32:
+//   * warpgroup wg owns the channels [wg C/2, (wg + 1) C/2): it takes the
+//     score tile S = Q K^T over its half of the channels (wgmma m64n32k8,
+//     keys as N), and O = P V over its half of the columns (wgmma m64n64k8,
+//     columns as N; 128 accumulators a thread at C = 512);
+//   * the two partial score tiles meet through shared memory (one barrier of
+//     the two warpgroups per tile, a buffer per tile parity); both
+//     warpgroups then hold the whole tile and take the same online softmax
+//     in registers, with the same bits;
+//   * P stays in registers: the score accumulator gives a thread keys 2t and
+//     2t + 1 of each 8-key group, which serve as the k positions t and t + 4
+//     of the A fragment of P V, so V's keys are staged in the order
+//     0, 2, 4, 6 | 1, 3, 5, 7 of each group;
+//   * Q is staged once per block, raw, in the order of the A fragments (a
+//     warp's four registers of a k8 step are one 16-byte load, 128 KB at
+//     C = 512), and split into hi and lo in registers at each use: one split
+//     feeds a 32-key product;
+//   * K and V are split once per block, into shared memory: a warpgroup
+//     walks its own chunks of 4 KB (K: 32 keys x 32 channels; V: 16 keys x
+//     64 columns), each copied raw by cp.async into a ring of kRaw = 4 slots,
+//     then split by the warpgroup into one of two stages of hi and lo planes
+//     in the K-major core-matrix layout that wgmma reads as B (V transposed
+//     on the way); each element is split by one thread and read by a whole
+//     warpgroup product;
+//   * overlap: the copies run three chunks ahead (a load from L2 takes
+//     longer than a chunk's products: staged through registers one chunk
+//     ahead, the loads set the pace). While the
+//     tensor cores take chunk s, the warpgroup splits chunk s + 1 into the
+//     other stage; one barrier of the warpgroup's own 128 threads per chunk
+//     hands the stages over. The two warpgroups take turns to issue (a pair
+//     of named barriers), so that each one's staging runs under the other's
+//     products. There is no producer warp: the two warpgroups need all the
+//     registers, and a warpgroup's own threads issue its copies, which takes
+//     them no registers.
+// Numerics (tf32x3.cuh): each tensor-core chain starts from zero and is added
+// to an f32 accumulator with a rounded add: a score chain is the 32 channels
+// of a K chunk (4 k8 steps, 12 products), a value chain the 32 keys of a tile
+// (two V chunks, 4 k8 steps, 12 products), added as O = O * exp(m_old -
+// m_new) + chain by one fmaf. (Score chains of 64 channels did not hold the
+// scores of +-500 at C = 128 to 1e-4 of float64.) The width C is a template
+// argument, so every chunk of a tile is unrolled with its accumulators in
+// registers.
 //
 // Keys past N score -inf (probability 0) and their V rows are zero-filled;
 // query rows past N are computed on zeros and not stored. Any N is allowed;
@@ -64,25 +79,38 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;          // query rows per block
-constexpr int kBK = 32;          // keys per tile
-constexpr int kKC = 128;         // channels of a K chunk
-constexpr int kVK = 8;           // keys of a V chunk (one k8 step)
-constexpr int kStages = 4;       // ring of K/V chunks in shared memory
-constexpr int kMaxC = 512;
-constexpr int kLdK = kKC + 8;    // row stride of a K chunk
-constexpr int kLdP = kBK + 4;    // row stride of the probabilities
-constexpr int kStageFloats = kBK * kLdK;
-constexpr int kMT = kBQ / 16;    // m16 row slabs of the block
-constexpr int kVChunks = kBK / kVK;
-static_assert(kStageFloats >= kVK * (kMaxC + 8), "a V chunk must fit a stage");
+constexpr int kThreads = 256;        // two warpgroups
+constexpr int kBQ = 64;              // query rows of a block: the M of every product
+constexpr int kBK = 32;              // keys of a tile: the N of the score product
+constexpr int kKC = 32;              // channels of a K chunk: four k8 steps
+constexpr int kVC = 64;              // columns of a V chunk: the N of the value product
+constexpr int kVK = 16;              // keys of a V chunk: two k8 steps
+constexpr int kPlane = kBK * kKC;    // floats of a chunk, raw or one split plane: 4 KB
+static_assert(kPlane == kVC * kVK, "K and V chunks are of one size");
+constexpr int kStage = 2 * kPlane;   // floats of a split stage: hi and lo planes
+constexpr int kRaw = 4;              // raw chunks a warpgroup has in flight or landed
+constexpr int kXch = kBQ * kBK;      // floats of one warpgroup's partial score tile
+constexpr int kBarExchange = 1;      // named barriers (0 is __syncthreads) ...
+constexpr int kBarGroup = 2;         // ... 2 + wg for warpgroup wg's chunks ...
+constexpr int kBarTurn = 4;          // ... and 4 + wg: warpgroup wg may issue
 
-constexpr size_t smem_floats(int C) {
-  return static_cast<size_t>(kBQ) * (C + 8) + kStages * kStageFloats + 2 * kBQ * kLdP +
-         6 * kBQ;
+constexpr int smem_bytes(int C) {
+  // Q; per warpgroup two split stages and kRaw raw chunks; the partial
+  // scores of two tiles
+  return static_cast<int>(sizeof(float)) *
+         (kBQ * C + 2 * (2 * kStage + kRaw * kPlane) + 4 * kXch);
 }
 
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+// this thread's shared-memory writes, visible to the tensor cores' reads
+__device__ __forceinline__ void fence_to_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
@@ -96,26 +124,6 @@ template <int kPending> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
-// Start the copy of kRows rows from row0 on, kCols columns from col0 on, of a
-// row-major [N, kC] matrix into shared memory with row stride kLd floats;
-// rows at or past N become zeros.
-template <int kRows, int kCols, int kLd, int kC>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int row0, int col0, int N) {
-  constexpr int kC4 = kCols / 4;
-  constexpr int kIters = kRows * kC4 / kThreads;  // 16-byte pieces per thread
-  static_assert(kRows * kC4 % kThreads == 0, "the copy must divide among the threads");
-#pragma unroll
-  for (int it = 0; it < kIters; ++it) {
-    const int i = threadIdx.x + it * kThreads;
-    const int r = i / kC4;
-    const int c = (i - r * kC4) * 4;
-    const bool valid = row0 + r < N;
-    cp_async16(dst + r * kLd + c,
-               src + static_cast<size_t>(valid ? row0 + r : 0) * kC + col0 + c, valid);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -125,241 +133,299 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__device__ __forceinline__ void store_split2(float* hi, float* lo, float p0, float p1) {
-  uint32_t h0, l0, h1, l1;
-  tf32x3::split(p0, h0, l0);
-  tf32x3::split(p1, h1, l1);
-  *reinterpret_cast<float2*>(hi) = make_float2(__uint_as_float(h0), __uint_as_float(h1));
-  *reinterpret_cast<float2*>(lo) = make_float2(__uint_as_float(l0), __uint_as_float(l1));
+// four values split, hi to one 16-byte slot and lo to another
+__device__ __forceinline__ void store_split4(float4* hi, float4* lo, float x0, float x1,
+                                             float x2, float x3) {
+  uint32_t h[4], l[4];
+  tf32x3::split(x0, h[0], l[0]);
+  tf32x3::split(x1, h[1], l[1]);
+  tf32x3::split(x2, h[2], l[2]);
+  tf32x3::split(x3, h[3], l[3]);
+  *hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                    __uint_as_float(h[3]));
+  *lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                    __uint_as_float(l[3]));
 }
 
 template <int kC>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o, int N) {
-  constexpr int kLdQ = kC + 8, kLdV = kC + 8;
-  constexpr int kKChunks = kC / kKC;             // K chunks of a tile
-  constexpr int kPer = kKChunks + kVChunks;      // chunks of a tile, K then V
-  constexpr int kNT = kC / 64;                   // n8 tiles of O a warp owns
+  constexpr int kHalf = kC / 2;           // channels of S and columns of O a warpgroup owns
+  constexpr int kCG = kHalf / kVC;        // column groups of O a warpgroup owns
+  constexpr int kNK = kHalf / kKC;        // K chunks of a tile
+  constexpr int kNV = kCG * (kBK / kVK);  // V chunks of a tile: column group, key half
+  constexpr int kPer = kNK + kNV;         // chunks of a tile, K then V
+  constexpr int kSteps = kC / 8;          // k8 steps of a Q row
+  static_assert(kPer >= 2, "a tile is at least two chunks");
+
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);   // [kBQ][kLdQ]
-  float* ring = Qs + kBQ * kLdQ;                 // [kStages][kStageFloats]
-  float* Ph = ring + kStages * kStageFloats;     // [kBQ][kLdP] probabilities, hi
-  float* Pl = Ph + kBQ * kLdP;                   // [kBQ][kLdP] probabilities, lo
-  float* pmax = Pl + kBQ * kLdP;                 // [2][kBQ] row maxima of each key half
-  float* psum = pmax + 2 * kBQ;                  // [2][kBQ] row sums of each key half
-  float* alpha_s = psum + 2 * kBQ;               // [kBQ] exp(m_old - m_new) of the tile
-  float* l_s = alpha_s + kBQ;                    // [kBQ] running softmax denominators
+  float4* const qf = smem4;                                         // [4 warps][kSteps][32 lanes]
+  float* const split = reinterpret_cast<float*>(smem4 + kBQ * kC / 4);  // [2 wg][2][kStage]
+  float* const raw = split + 4 * kStage;                            // [2 wg][kRaw][kPlane]
+  float4* const xch = reinterpret_cast<float4*>(raw + 2 * kRaw * kPlane);  // [2][2 wg][kXch]
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int lane = tid & 31, w = (tid >> 5) & 3;      // w: the warp within its warpgroup
   const int g = lane >> 2, t = lane & 3;
-  const int rs = warp >> 1, kh = warp & 1;       // the warp's part of the score tile
-  const int r0 = rs * 16 + g, r1 = r0 + 8;       // its two score rows
   const size_t base = static_cast<size_t>(blockIdx.y) * N * kC;
   const int q0 = blockIdx.x * kBQ;
-  const int col_w = warp * (kC / 8);             // the warp's first column of O
+  const int tiles = (N + kBK - 1) / kBK;
+  const float* const kg = k + base + wg * kHalf;
+  const float* const vg = v + base + wg * kHalf;
+  float* const my_split = split + wg * 2 * kStage;
+  float* const my_raw = raw + wg * kRaw * kPlane;
 
-  if (tid < kBQ) l_s[tid] = 0.f;
+  // ---- Q, once: slot (w, j, lane) holds that lane's A fragment of k8 step j
+#pragma unroll 4
+  for (int e = tid; e < kBQ * kC / 4; e += kThreads) {
+    const int ln = e & 31, j = (e >> 5) % kSteps, wq = (e >> 5) / kSteps;
+    const int r = q0 + 16 * wq + (ln >> 2);
+    const float* p = q + base + static_cast<size_t>(r) * kC + 8 * j + (ln & 3);
+    const bool in0 = r < N, in1 = r + 8 < N;
+    qf[e] = make_float4(in0 ? p[0] : 0.f, in1 ? p[8 * kC] : 0.f, in0 ? p[4] : 0.f,
+                        in1 ? p[8 * kC + 4] : 0.f);
+  }
 
-  // Start the copy of chunk j of a key tile into a stage of the ring.
-  auto issue = [&](int tile, int j, int stage) {
-    if (tile * kBK < N) {
-      float* dst = ring + stage * kStageFloats;
-      if (j < kKChunks)
-        load_rows<kBK, kKC, kLdK, kC>(dst, k + base, tile * kBK, j * kKC, N);
-      else
-        load_rows<kVK, kC, kLdV, kC>(dst, v + base, tile * kBK + (j - kKChunks) * kVK, 0, N);
-    }
-    cp_async_commit();  // an empty group past the end keeps the count uniform
-  };
-  // the loader runs kAhead chunks ahead of the products, less than one tile
-  constexpr int kAhead = kStages - 1;
-  static_assert(kAhead <= kPer, "the chunks in flight stay within two tiles");
-  load_rows<kBQ, kC, kLdQ, kC>(Qs, q + base, q0, 0, N);  // lands with chunk 0
+  // ---- a chunk's way in: global -> raw slot (cp.async) -> split stage.
+  // K chunk qi: keys x channels qi * 32 + [0, 32). Its raw slot is already in
+  // the order of the B operands: float4 e (= wtid + 128 i) holds channels
+  // (e / 64) * 8 + (e / 8 % 2) * 4 + (0..3) of key (e / 16 % 4) * 8 + e % 8,
+  // which is where k8 step e / 64's [32 x 8] operand wants it, so the split
+  // writes float4 e of each plane. V chunk qi = kNK + 2 cg + kh: keys
+  // kh * 16 + [0, 16) x columns cg * 64 + [0, 64), raw row-major; the split
+  // writes column n's keys m * 8 + h + (0, 2, 4, 6) (h = wtid / 64) as one
+  // float4 of k8 step m's [64 x 8] operand: V transposed, keys in the order
+  // of P's fragment. Keys at or past N are zero-filled.
+  auto fetch = [&](float* dst, int tile, int qi) {
 #pragma unroll
-  for (int c = 0; c < kAhead; ++c) issue(0, c, c);
-
-  float acc[kMT][kNT][4];
-#pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) acc[mt][nt][x] = 0.f;
-  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  float m0 = -INFINITY, m1 = -INFINITY;          // running maxima of rows r0, r1
-
-  for (int tile = 0; tile * kBK < N; ++tile) {
-#pragma unroll 1
-    for (int j = 0; j < kPer; ++j) {
-      cp_async_wait<kStages - 2>();  // this thread's part of the chunk has landed
-      __syncthreads();               // everyone's has; the chunk before is consumed
-      const int stage = (tile * kPer + j) % kStages;
-      {                              // into the stage that chunk occupied
-        const bool wrap = j + kAhead >= kPer;
-        issue(tile + wrap, j + kAhead - (wrap ? kPer : 0), (stage + kAhead) % kStages);
-      }
-      const float* st = ring + stage * kStageFloats;
-
-      if (j < kKChunks) {
-        // ---- S += Q[:, chunk] K[:, chunk]^T for this warp's 16 x 16 part
-        // A k8 step takes channels 2t and 2t + 1 of its eight for the lane's
-        // two k positions (t, t + 4), in Q and K alike: a sum over channels
-        // has no order, and each operand pair is then one 8-byte load. Two
-        // steps share a tensor-core chain before the rounded add.
-        const float* qa = Qs + r0 * kLdQ + j * kKC + 2 * t;
-        const float* kb = st + (kh * 16 + g) * kLdK + 2 * t;
-#pragma unroll 2
-        for (int ks = 0; ks < kKC / 8; ks += 2) {
-          float d[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-          for (int kk = ks; kk < ks + 2; ++kk) {
-            const float2 q0v = *reinterpret_cast<const float2*>(qa + kk * 8);
-            const float2 q1v = *reinterpret_cast<const float2*>(qa + 8 * kLdQ + kk * 8);
-            const float a[4] = {q0v.x, q1v.x, q0v.y, q1v.y};
-            uint32_t a_hi[4], a_lo[4];
-#pragma unroll
-            for (int x = 0; x < 4; ++x) tf32x3::split(a[x], a_hi[x], a_lo[x]);
-#pragma unroll
-            for (int jn = 0; jn < 2; ++jn) {
-              const float2 kv = *reinterpret_cast<const float2*>(kb + jn * 8 * kLdK + kk * 8);
-              uint32_t b_hi[2], b_lo[2];
-              tf32x3::split(kv.x, b_hi[0], b_lo[0]);
-              tf32x3::split(kv.y, b_hi[1], b_lo[1]);
-              tf32x3::mma_split(d[jn], a_hi, a_lo, b_hi, b_lo);
-            }
-          }
-#pragma unroll
-          for (int jn = 0; jn < 2; ++jn)
-#pragma unroll
-            for (int x = 0; x < 4; ++x) s[jn][x] += d[jn][x];
-        }
-
-        if (j == kKChunks - 1) {
-          // ---- online softmax of the finished score tile
-          const int key0 = tile * kBK + kh * 16 + 2 * t;
-#pragma unroll
-          for (int jn = 0; jn < 2; ++jn) {
-            if (key0 + jn * 8 >= N) s[jn][0] = s[jn][2] = -INFINITY;
-            if (key0 + jn * 8 + 1 >= N) s[jn][1] = s[jn][3] = -INFINITY;
-          }
-          const float mx0 =
-              quad_max(fmaxf(fmaxf(s[0][0], s[0][1]), fmaxf(s[1][0], s[1][1])));
-          const float mx1 =
-              quad_max(fmaxf(fmaxf(s[0][2], s[0][3]), fmaxf(s[1][2], s[1][3])));
-          if (t == 0) {
-            pmax[kh * kBQ + r0] = mx0;
-            pmax[kh * kBQ + r1] = mx1;
-          }
-          __syncthreads();
-          // tile 0 holds key 0, so the new maxima are finite from the start
-          const float mn0 = fmaxf(m0, fmaxf(pmax[r0], pmax[kBQ + r0]));
-          const float mn1 = fmaxf(m1, fmaxf(pmax[r1], pmax[kBQ + r1]));
-          float p[2][4];
-#pragma unroll
-          for (int jn = 0; jn < 2; ++jn) {
-            p[jn][0] = expf(s[jn][0] - mn0);
-            p[jn][1] = expf(s[jn][1] - mn0);
-            p[jn][2] = expf(s[jn][2] - mn1);
-            p[jn][3] = expf(s[jn][3] - mn1);
-            const int col = kh * 16 + jn * 8 + 2 * t;
-            store_split2(Ph + r0 * kLdP + col, Pl + r0 * kLdP + col, p[jn][0], p[jn][1]);
-            store_split2(Ph + r1 * kLdP + col, Pl + r1 * kLdP + col, p[jn][2], p[jn][3]);
-            s[jn][0] = s[jn][1] = s[jn][2] = s[jn][3] = 0.f;
-          }
-          const float sum0 = quad_sum((p[0][0] + p[0][1]) + (p[1][0] + p[1][1]));
-          const float sum1 = quad_sum((p[0][2] + p[0][3]) + (p[1][2] + p[1][3]));
-          if (t == 0) {
-            psum[kh * kBQ + r0] = sum0;
-            psum[kh * kBQ + r1] = sum1;
-            if (kh == 0) {
-              alpha_s[r0] = expf(m0 - mn0);  // 0 on the first tile
-              alpha_s[r1] = expf(m1 - mn1);
-            }
-          }
-          m0 = mn0;
-          m1 = mn1;
-        }
+    for (int i = 0; i < 2; ++i) {
+      const int e = wtid + 128 * i;
+      int key;
+      const float* src;
+      if (qi < kNK) {
+        key = tile * kBK + ((e >> 4) & 3) * 8 + (e & 7);
+        src = kg + qi * kKC + (e >> 6) * 8 + ((e >> 3) & 1) * 4;
       } else {
-        // ---- O += P[:, 8 keys] V[8 keys, :] for this warp's columns
-        const int jv = j - kKChunks;
-        if (jv == 0) {
-          // the barrier above published P, the row sums and the rescale factors
+        key = tile * kBK + ((qi - kNK) & 1) * kVK + (e >> 4);
+        src = vg + ((qi - kNK) >> 1) * kVC + (e & 15) * 4;
+      }
+      const bool in = key < N;
+      cp_async16(dst + 4 * e, src + static_cast<size_t>(in ? key : 0) * kC, in);
+    }
+  };
+  float rv[8];  // a thread's raw values of the chunk it splits next
+  auto split_load = [&](const float* src, int qi) {
+    if (qi < kNK) {
 #pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            const float al0 = alpha_s[mt * 16 + g], al1 = alpha_s[mt * 16 + g + 8];
+      for (int i = 0; i < 2; ++i) {
+        const float4 x = reinterpret_cast<const float4*>(src)[wtid + 128 * i];
+        rv[4 * i] = x.x;
+        rv[4 * i + 1] = x.y;
+        rv[4 * i + 2] = x.z;
+        rv[4 * i + 3] = x.w;
+      }
+    } else {
+      const float* r = src + (wtid >> 6) * kVC + (wtid & 63);
 #pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              acc[mt][nt][0] *= al0;
-              acc[mt][nt][1] *= al0;
-              acc[mt][nt][2] *= al1;
-              acc[mt][nt][3] *= al1;
-            }
-          }
-          if (tid < kBQ) l_s[tid] = l_s[tid] * alpha_s[tid] + (psum[tid] + psum[kBQ + tid]);
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) rv[4 * m + i] = r[(m * 8 + 2 * i) * kVC];
+    }
+  };
+  auto split_store = [&](float* dst, int qi) {
+    float4* const hi = reinterpret_cast<float4*>(dst);
+    if (qi < kNK) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        store_split4(hi + wtid + 128 * i, hi + kPlane / 4 + wtid + 128 * i, rv[4 * i],
+                     rv[4 * i + 1], rv[4 * i + 2], rv[4 * i + 3]);
+    } else {
+      const int n = wtid & 63;
+      float4* const at = hi + ((n >> 3) * 2 + (wtid >> 6)) * 8 + (n & 7);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        store_split4(at + m * kVC * 2, at + kPlane / 4 + m * kVC * 2, rv[4 * m],
+                     rv[4 * m + 1], rv[4 * m + 2], rv[4 * m + 3]);
+    }
+  };
+
+  float acc[kCG][32];  // O: rows 16w + g (+ 8), columns wg C/2 + c * 64 + 8j + 2t (+ 1)
+#pragma unroll
+  for (int c = 0; c < kCG; ++c)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[c][x] = 0.f;
+  float sacc[16], spart[16], part[32];
+  uint32_t p_hi[4][4], p_lo[4][4];  // P as the A fragments of the tile's four k8 steps
+  float m0 = -INFINITY, m1 = -INFINITY;  // running maxima of rows g and g + 8
+  float l0 = 0.f, l1 = 0.f;              // running denominators
+  float al0 = 0.f, al1 = 0.f;            // exp(m_old - m_new) of the tile
+
+  // chunk c of the walk is chunk c % kPer of tile c / kPer; its raw slot is c % kRaw
+#pragma unroll
+  for (int c = 0; c < kRaw; ++c) {
+    fetch(my_raw + c * kPlane, c / kPer, c % kPer);
+    cp_async_commit();
+  }
+  cp_async_wait<kRaw - 1>();  // chunk 0, this thread's part
+  __syncthreads();            // everyone's; Q is staged
+  split_load(my_raw, 0);
+  split_store(my_split, 0);
+  cp_async_wait<kRaw - 2>();  // chunk 1
+  fence_to_async();
+  __syncthreads();
+
+  for (int tile = 0; tile < tiles; ++tile) {
+#pragma unroll
+    for (int qi = 0; qi < kPer; ++qi) {
+      const int s = tile * kPer + qi;
+      const uint64_t b = tf32x3::b_descriptor(my_split + (s & 1) * kStage);
+      // first the loads whose latency the turn and the products hide: the
+      // next chunk's raw values, and the copy of the chunk kRaw on into the
+      // raw slot the next chunk's split has left (its loads already landed)
+      split_load(my_raw + ((s + 1) % kRaw) * kPlane, (qi + 1) % kPer);
+      fetch(my_raw + (s % kRaw) * kPlane, tile + (qi + kRaw) / kPer, (qi + kRaw) % kPer);
+      cp_async_commit();
+      // the warpgroups take turns to issue, warpgroup 0 first: each one's
+      // split, copies and adds run while the other's products do
+      if (wg == 1 || s > 0) bar_sync(kBarTurn + wg, kThreads);
+      uint32_t a_hi[4][4], a_lo[4][4];  // Q's A fragments of a K chunk's k8 steps
+      if (qi < kNK) {
+        // ---- S (+)= Q[:, 32 channels] K[tile, 32 channels]^T: one chain
+        const float4* qa = qf + (w * kSteps + wg * (kHalf / 8) + qi * 4) * 32 + lane;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const float4 f = qa[kk * 32];
+          tf32x3::split(f.x, a_hi[kk][0], a_lo[kk][0]);
+          tf32x3::split(f.y, a_hi[kk][1], a_lo[kk][1]);
+          tf32x3::split(f.z, a_hi[kk][2], a_lo[kk][2]);
+          tf32x3::split(f.w, a_hi[kk][3], a_lo[kk][3]);
         }
-        uint32_t p_hi[kMT][4], p_lo[kMT][4];
+        tf32x3::wgmma_fence();
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          const int at = (mt * 16 + g) * kLdP + jv * kVK + t;
-          p_hi[mt][0] = __float_as_uint(Ph[at]);
-          p_hi[mt][1] = __float_as_uint(Ph[at + 8 * kLdP]);
-          p_hi[mt][2] = __float_as_uint(Ph[at + 4]);
-          p_hi[mt][3] = __float_as_uint(Ph[at + 8 * kLdP + 4]);
-          p_lo[mt][0] = __float_as_uint(Pl[at]);
-          p_lo[mt][1] = __float_as_uint(Pl[at + 8 * kLdP]);
-          p_lo[mt][2] = __float_as_uint(Pl[at + 4]);
-          p_lo[mt][3] = __float_as_uint(Pl[at + 8 * kLdP + 4]);
+        for (int kk = 0; kk < 4; ++kk)  // 16-byte units: 1 KB a k8 step, lo 4 KB on
+          tf32x3::wgmma_split(spart, a_hi[kk], a_lo[kk], b + kk * kBK * 2,
+                              b + kPlane / 4 + kk * kBK * 2, kk > 0);
+        tf32x3::wgmma_commit();
+        bar_arrive(kBarTurn + (wg ^ 1), kThreads);
+      } else {
+        // ---- O[:, 64 columns] (+)= P[:, 16 keys] V[16 keys, 64 columns]: half a chain
+        const int kh = (qi - kNK) & 1;
+        tf32x3::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)  // 2 KB a k8 step, lo 4 KB on
+          tf32x3::wgmma_split(part, p_hi[2 * kh + kk], p_lo[2 * kh + kk], b + kk * kVC * 2,
+                              b + kPlane / 4 + kk * kVC * 2, kh || kk > 0);
+        tf32x3::wgmma_commit();
+        bar_arrive(kBarTurn + (wg ^ 1), kThreads);
+      }
+      // meanwhile the next chunk into the other split stage
+      split_store(my_split + ((s + 1) & 1) * kStage, (qi + 1) % kPer);
+      tf32x3::wgmma_wait<0>();
+      if (qi < kNK) {
+        tf32x3::hold(spart);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          tf32x3::hold(a_hi[kk]);
+          tf32x3::hold(a_lo[kk]);
         }
-        const float* vb = st + t * kLdV + col_w + g;
 #pragma unroll
-        for (int n0 = 0; n0 < kNT; n0 += 4) {  // four column tiles' loads in flight
-          float vraw[4][2];
+        for (int x = 0; x < 16; ++x) sacc[x] = qi == 0 ? spart[x] : sacc[x] + spart[x];
+      } else {
+        tf32x3::hold(part);
 #pragma unroll
-          for (int n = 0; n < 4 && n0 + n < kNT; ++n) {
-            vraw[n][0] = vb[(n0 + n) * 8];
-            vraw[n][1] = vb[4 * kLdV + (n0 + n) * 8];
-          }
+        for (int kk = 0; kk < 4; ++kk) {
+          tf32x3::hold(p_hi[kk]);
+          tf32x3::hold(p_lo[kk]);
+        }
+        if ((qi - kNK) & 1) {  // a 32-key chain ends: O = O * alpha + chain
+          const int c = (qi - kNK) >> 1;
 #pragma unroll
-          for (int n = 0; n < 4 && n0 + n < kNT; ++n) {
-            uint32_t b_hi[2], b_lo[2];
-            tf32x3::split(vraw[n][0], b_hi[0], b_lo[0]);
-            tf32x3::split(vraw[n][1], b_hi[1], b_lo[1]);
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              tf32x3::mma_split(d, p_hi[mt], p_lo[mt], b_hi, b_lo);
-#pragma unroll
-              for (int x = 0; x < 4; ++x) acc[mt][n0 + n][x] += d[x];
-            }
-          }
+          for (int x = 0; x < 32; ++x) acc[c][x] = fmaf(acc[c][x], x & 2 ? al1 : al0, part[x]);
         }
       }
+      if (qi == kNK - 1) {
+        // ---- the two halves of the score tile meet; online softmax
+        // tile parity: a warpgroup writes tile t + 2's scores only after the
+        // other has passed this barrier for tile t + 1, so after its reads
+        float4* const mine = xch + ((tile & 1) * 2 + wg) * (kXch / 4);
+        const float4* const other = xch + ((tile & 1) * 2 + (wg ^ 1)) * (kXch / 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mine[i * 128 + wtid] =
+              make_float4(sacc[4 * i], sacc[4 * i + 1], sacc[4 * i + 2], sacc[4 * i + 3]);
+        bar_sync(kBarExchange, kThreads);
+        float sc[16];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 y = other[i * 128 + wtid];  // the same positions, other channels
+          sc[4 * i] = sacc[4 * i] + y.x;
+          sc[4 * i + 1] = sacc[4 * i + 1] + y.y;
+          sc[4 * i + 2] = sacc[4 * i + 2] + y.z;
+          sc[4 * i + 3] = sacc[4 * i + 3] + y.w;
+        }
+        const int key0 = tile * kBK + 2 * t;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (key0 + 8 * i >= N) sc[4 * i] = sc[4 * i + 2] = -INFINITY;
+          if (key0 + 8 * i + 1 >= N) sc[4 * i + 1] = sc[4 * i + 3] = -INFINITY;
+        }
+        float mx0 = fmaxf(sc[0], sc[1]), mx1 = fmaxf(sc[2], sc[3]);
+#pragma unroll
+        for (int i = 1; i < 4; ++i) {
+          mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+        }
+        // tile 0 holds key 0, so the new maxima are finite from the start
+        const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+        al0 = expf(m0 - mn0);  // 0 on the first tile
+        al1 = expf(m1 - mn1);
+        m0 = mn0;
+        m1 = mn1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p0 = expf(sc[4 * i] - mn0), p1 = expf(sc[4 * i + 1] - mn0);
+          const float p2 = expf(sc[4 * i + 2] - mn1), p3 = expf(sc[4 * i + 3] - mn1);
+          sum0 += p0 + p1;
+          sum1 += p2 + p3;
+          // k position t is key 2t, k position t + 4 is key 2t + 1
+          tf32x3::split(p0, p_hi[i][0], p_lo[i][0]);
+          tf32x3::split(p2, p_hi[i][1], p_lo[i][1]);
+          tf32x3::split(p1, p_hi[i][2], p_lo[i][2]);
+          tf32x3::split(p3, p_hi[i][3], p_lo[i][3]);
+        }
+        l0 = l0 * al0 + quad_sum(sum0);
+        l1 = l1 * al1 + quad_sum(sum1);
+      }
+      cp_async_wait<kRaw - 2>();  // chunk s + 2, this thread's part
+      fence_to_async();
+      bar_sync(kBarGroup + wg, 128);  // chunk s + 1 is split, s + 2 has landed; s is read
     }
   }
 
-  __syncthreads();
+  if (wg == 0) bar_sync(kBarTurn, kThreads);  // warpgroup 1's last turn handed back
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  const int r0 = q0 + 16 * w + g;
+  float* const o0 = o + base + static_cast<size_t>(r0) * kC + wg * kHalf + 2 * t;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
+  for (int c = 0; c < kCG; ++c)
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = mt * 16 + g + half * 8;
-      if (q0 + r >= N) continue;
-      const float inv = 1.f / l_s[r];
-      float* o_row = o + base + static_cast<size_t>(q0 + r) * kC + col_w + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-        *reinterpret_cast<float2*>(o_row + nt * 8) =
-            make_float2(acc[mt][nt][half * 2] * inv, acc[mt][nt][half * 2 + 1] * inv);
+    for (int j = 0; j < 8; ++j) {
+      if (r0 < N)
+        *reinterpret_cast<float2*>(o0 + c * kVC + 8 * j) =
+            make_float2(acc[c][4 * j] * inv0, acc[c][4 * j + 1] * inv0);
+      if (r0 + 8 < N)
+        *reinterpret_cast<float2*>(o0 + 8 * kC + c * kVC + 8 * j) =
+            make_float2(acc[c][4 * j + 2] * inv1, acc[c][4 * j + 3] * inv1);
     }
-  }
 }
 
 template <int kC>
 int launch(const float* q, const float* k, const float* v, float* o, int B, int N,
            cudaStream_t stream) {
-  constexpr int smem = static_cast<int>(sizeof(float) * smem_floats(kC));
+  constexpr int smem = smem_bytes(kC);
   const cudaError_t e = cudaFuncSetAttribute(
       flash_attn_f32_kernel<kC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -384,4 +450,10 @@ extern "C" int dcvic_flash_attn_f32(const float* q, const float* k, const float*
     case 512: return launch<512>(q, k, v, o, B, N, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The dynamic shared memory a block of the kernel takes at width C, in
+// bytes (-1 for a width it does not take).
+extern "C" int dcvic_flash_attn_f32_smem(int C) {
+  return C == 128 || C == 256 || C == 384 || C == 512 ? smem_bytes(C) : -1;
 }

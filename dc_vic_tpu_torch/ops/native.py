@@ -112,6 +112,8 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.dcvic_vq_argmin.argtypes = [p, p, p, i, i, i, ll, ll, ll, i, p]
     lib.dcvic_flash_attn_f32.restype = i
     lib.dcvic_flash_attn_f32.argtypes = [p, p, p, p, i, i, i, p]
+    lib.dcvic_flash_attn_f32_smem.restype = i
+    lib.dcvic_flash_attn_f32_smem.argtypes = [i]
     lib.dcvic_gn_channel_sums.restype = i
     lib.dcvic_gn_channel_sums.argtypes = [p, p, i, i, ll, i, p]
     lib.dcvic_gn_apply.restype = i

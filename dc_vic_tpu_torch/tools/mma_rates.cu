@@ -1,7 +1,7 @@
 // Issue rates of the tensor-core instructions the port's kernels use, with
 // nothing else in the loop: TF32 mma.sync.m16n8k8 (per warp) and
-// wgmma.mma_async.m64n64k8 (per warpgroup, A from registers, B from shared
-// memory), and bf16 wgmma.mma_async.m64n64k16 and m64n128k16 with A from
+// wgmma.mma_async.m64n64k8 and m64n32k8 (per warpgroup, A from registers, B
+// from shared memory), and bf16 wgmma.mma_async.m64n64k16 and m64n128k16 with A from
 // shared memory or from registers (B from shared memory). The kernels of the
 // port are judged against these ceilings. Built and run by mma_rates.py;
 // prints one line per configuration.
@@ -79,6 +79,41 @@ __global__ void wgmma_loop(float* out, long long* cycles, int iters) {
   const long long t1 = clock64();
   float s = 0.f;
   for (int i = 0; i < 32; ++i) s += d[i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+  if (threadIdx.x == 0 && blockIdx.x == 0) *cycles = t1 - t0;
+}
+
+// As wgmma_loop at N = 32 (the attention kernel's score product): kGroup
+// products of m64n32k8, a commit and a wait for all of them per round.
+template <int kGroup>
+__global__ void wgmma_n32_loop(float* out, long long* cycles, int iters) {
+  extern __shared__ float4 sm[];
+  for (int i = threadIdx.x; i < 2048; i += blockDim.x) sm[i] = make_float4(1e-3f, 2e-3f, 0.f, 1e-3f);
+  __syncthreads();
+  const uint64_t desc = ((static_cast<uint64_t>(__cvta_generic_to_shared(sm)) & 0x3FFFF) >> 4) |
+                        (uint64_t(8) << 16) | (uint64_t(16) << 32);
+  float d[16];
+  for (int i = 0; i < 16; ++i) d[i] = 0.f;
+  const uint32_t a[4] = {threadIdx.x, 1u, 2u, 3u};
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+    for (int r = 0; r < kGroup; ++r)
+      asm volatile(
+          "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+          "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+          "{%16, %17, %18, %19}, %20, 1, 1, 1;"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+            "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+            "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+          : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc + (r % 8) * 64));
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  }
+  const long long t1 = clock64();
+  float s = 0.f;
+  for (int i = 0; i < 16; ++i) s += d[i];
   out[blockIdx.x * blockDim.x + threadIdx.x] = s;
   if (threadIdx.x == 0 && blockIdx.x == 0) *cycles = t1 - t0;
 }
@@ -218,6 +253,14 @@ int main() {
              groups);
     report(name, "TF32", sms, double(iters) * 3 * groups, 2.0 * 64 * 64 * 8,
            [&](long long* c) { wgmma_loop<3><<<sms, groups * 128, 65536>>>(out, c, iters); });
+  }
+  cudaFuncSetAttribute(wgmma_n32_loop<12>, cudaFuncAttributeMaxDynamicSharedMemorySize, 65536);
+  for (int groups : {1, 2, 4}) {
+    const int iters = 3000;
+    snprintf(name, sizeof name, "wgmma m64n32k8, %d warpgroups an SM, 12 per commit and wait",
+             groups);
+    report(name, "TF32", sms, double(iters) * 12 * groups, 2.0 * 64 * 32 * 8,
+           [&](long long* c) { wgmma_n32_loop<12><<<sms, groups * 128, 65536>>>(out, c, iters); });
   }
   bf16_rates<64, true>(sms, out);
   bf16_rates<64, false>(sms, out);

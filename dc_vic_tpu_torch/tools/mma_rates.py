@@ -4,14 +4,16 @@
 
 Builds ``mma_rates.cu`` (beside this file) with nvcc for sm_90a into the
 port's build directory and runs it: ``mma.sync.m16n8k8`` from 4, 8 and 16 warps
-an SM and its latency, and ``wgmma.mma_async.m64n64k8`` (A from registers, B
-from shared memory) from 1, 2 and 4 warpgroups an SM, then bf16
+an SM and its latency, ``wgmma.mma_async.m64n64k8`` (A from registers, B
+from shared memory) from 1, 2 and 4 warpgroups an SM, ``m64n32k8`` the same
+with twelve products per commit and wait (the attention kernel's score
+chunk), then bf16
 ``wgmma.mma_async.m64n64k16`` and ``m64n128k16`` with A from shared memory or
 from registers (B from shared memory), nine products per commit and a wait
 that leaves one group in flight, as the bf16 conv kernels issue them, from 1,
 2 and 4 warpgroups an SM; each with nothing else in the loop. These are the
-ceilings the attention kernel (``mma.sync``) and the conv kernels (``wgmma``)
-are read against. Needs CUDA and nvcc; fails without.
+ceilings the attention and conv kernels are read against. Needs CUDA and
+nvcc; fails without.
 """
 from __future__ import annotations
 

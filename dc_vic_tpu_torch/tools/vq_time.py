@@ -32,18 +32,16 @@ two turns. Needs CUDA; fails without.
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import subprocess
 import sys
-import types
 
 import torch
 
 from ..codec.driver import STRIDE, VQ_STRIDE
 from ..ops import native, vq
-from ..utils.profiling import graph_ms, host_us_per_call, profiled_ms
+from ..utils.profiling import graph_ms, host_us_per_call, load_parent, profiled_ms
 
 
 def latent_hw(H: int, W: int):
@@ -67,16 +65,6 @@ def bound_ms(M: int, N: int = N_EMBED, D: int = 4):
     by_bytes = (M * D * 4 + N * D * 4 + M * 4) / HBM_BYTES_PER_S * 1e3
     by_ops = M * N * OPS_PER_PAIR / F32_FLOPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def load_parent(pkg_dir: str):
-    """``ops/vq.py`` of the package at ``pkg_dir``, imported as a private
-    package so that its ``native`` builds and loads its own library."""
-    name = "_vq_time_parent_ops"
-    pkg = types.ModuleType(name)
-    pkg.__path__ = [os.path.join(os.path.abspath(pkg_dir), "ops")]
-    sys.modules[name] = pkg
-    return importlib.import_module(f"{name}.vq")
 
 
 def caller(mod):
@@ -124,7 +112,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {smi}")
     impls = [("change", vq)]
     if args.parent:
-        impls = [("parent", load_parent(args.parent)), ("change", vq)]
+        impls = [("parent", load_parent(args.parent, "vq", "_vq_time_parent_ops")),
+                 ("change", vq)]
     order = impls + impls[::-1]                   # parent, change, change, parent
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -5,7 +5,9 @@ and writes it as a Chrome trace; ``kernel_times`` sums a profile's device
 time by kernel name and ``kernel_report`` lists it. ``graph_ms``,
 ``profiled_ms`` and ``host_us_per_call`` time a call that launches one
 small kernel: by the replay of a captured CUDA graph, by the profiler's
-kernel durations, and by the host's clock over the enqueue. ``StageTimer``
+kernel durations, and by the host's clock over the enqueue; ``load_parent``
+imports a module of another tree's ``ops`` with its own kernel build, so
+that two versions of a kernel can be timed in turns. ``StageTimer``
 accumulates host-clock seconds per named stage, each stage ending in a wait
 for the device work it names (``sync``), so that a stage's time is its own
 on a device that runs asynchronously.
@@ -13,8 +15,11 @@ on a device that runs asynchronously.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import os
+import sys
 import time
+import types
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
 
@@ -151,6 +156,17 @@ def host_us_per_call(fn, *args, calls: int = 1000) -> float:
     us = (time.perf_counter() - t) / calls * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def load_parent(pkg_dir: str, module: str, name: str = "_parent_ops"):
+    """``ops/<module>.py`` of the ``dc_vic_tpu_torch`` package at ``pkg_dir``
+    (``git archive <commit> dc_vic_tpu_torch`` unpacked into a directory that
+    ``.gitignore`` lists), imported as the private package ``name`` so that
+    its ``native`` builds and loads its own library from its own sources."""
+    pkg = types.ModuleType(name)
+    pkg.__path__ = [os.path.join(os.path.abspath(pkg_dir), "ops")]
+    sys.modules[name] = pkg
+    return importlib.import_module(f"{name}.{module}")
 
 
 class StageTimer:

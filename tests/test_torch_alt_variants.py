@@ -16,8 +16,9 @@ leaves. Floats agree within atol = rtol = 1e-3; the compressai streams'
 bytes are the JAX Codec's; one y section through the plain R1 and R2 codes
 as the JAX device coder. Variant A's RD step: every trained tensor's
 gradient (the index embedding and the light blocks among them) within a
-relative L2 error of 1e-3 (+1e-7) (tests/test_torch_alt_options.py). bf16
-parity of the variants is not held on the CPU (the f32 path is).
+relative L2 error of 1e-3 (+1e-7) (tests/test_torch_alt_options.py). Under
+the deployment numerics (``codec_dtype: bfloat16``) each variant's decode
+stacks are held to the JAX model built the same way, on the same weights.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +26,7 @@ import pytest
 import torch
 
 import torch_threads  # noqa: F401
-from variant_helpers import VARIANTS, carried, check_eval_forward
+from variant_helpers import BETAS, VARIANTS, carried, check_eval_forward, model_state_dict
 
 from dc_vic_tpu.codec.driver import Codec as JaxCodec
 from dc_vic_tpu.ops import rans_device as jrd
@@ -48,6 +49,62 @@ def variant(request):
     cfg = VARIANTS[request.param]()
     jspec, params, spec = carried(cfg)
     return request.param, cfg, jspec, params, spec
+
+
+BF16_TOL = 4e-2   # tests/test_torch_bf16.py's tolerance between two bf16 results
+
+
+def test_variant_decode_stacks_bf16_match_jax(variant):
+    """The deployment numerics (``codec_dtype: bfloat16``, ``entropy_precision:
+    default``) on the variant's weights: the port's bf16 model and the JAX
+    model built with the same keys, on one y_hat, through the ELIC decoder's
+    features and conditions (A: pixel-shuffle upsampling, the dual-beta
+    conditions the light SFT blocks read) and, on the JAX feature so that it
+    is judged alone, the VQ estimator (A: gelu; B: leaky ReLU). The largest
+    difference must stay under BF16_TOL times the largest |value| of the
+    port's f32 result, and each bf16 result must differ from that f32 result:
+    bf16 keeps 8 bits, and XLA:CPU and oneDNN round the bf16 sums at
+    different places (tests/test_torch_bf16.py, whose stacks showed up to
+    2.5e-2). The whole forward is not held: a rounding flip of y or of a
+    codeword index moves the image by far more than that on random weights."""
+    from dc_vic_tpu.models import build_comp_model as jax_build
+    from dc_vic_tpu_torch.models import build_comp_model
+    from dc_vic_tpu_torch.models.convert import load_reference_state_dict
+    _, cfg, _, params, spec32 = variant
+    cfg16 = dict(cfg, codec_dtype="bfloat16", entropy_precision="default")
+    m16 = jax_build(cfg16).module
+    port16 = build_comp_model(cfg16, device="cpu").module
+    load_reference_state_dict(port16, model_state_dict(params))
+    port16.eval()
+    y_hat = np.round(np.random.default_rng(2).standard_normal((1, 8, 8, 24)) * 3
+                     ).astype(np.float32)
+    jb = (jnp.array([BETAS[0]]), jnp.array([BETAS[1]])) if m16.use_beta else ()
+    tb = (torch.tensor([BETAS[0]]), torch.tensor([BETAS[1]])) if m16.use_beta else ()
+    feat_j, cond_j = m16.apply(params, jnp.asarray(y_hat), *jb,
+                               method=lambda mod, y, *b: mod.decoder.get_feats(y, *b))
+    pred_j, logits_j = m16.apply(params, feat_j, method=lambda mod, f: mod.vq_estimator(f))
+    nchw = lambda a: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(a, np.float32).transpose(0, 3, 1, 2)))
+    got = {}
+    with torch.no_grad():
+        for name, port in (("bf16", port16), ("f32", spec32.module)):
+            feat, cond = port.decoder.get_feats(nchw(y_hat), *tb)
+            pred, logits = port.vq_estimator(nchw(feat_j).to(feat.dtype))
+            got[name] = dict(feat=feat, pred=pred, logits=logits,
+                             **{f"cond {k}": c for k, c in cond.items()})
+    want = dict(feat=feat_j, pred=pred_j, logits=logits_j,
+                **{f"cond {k}": c for k, c in cond_j.items()})
+    assert got["bf16"]["feat"].dtype == torch.bfloat16 and feat_j.dtype == jnp.bfloat16
+    assert set(got["bf16"]) == set(want)
+    for key, w in want.items():
+        g16, g32 = (got[n][key].detach().float().permute(0, 2, 3, 1).numpy()
+                    if got[n][key].dim() == 4 else got[n][key].detach().float().numpy()
+                    for n in ("bf16", "f32"))
+        scale = float(np.abs(g32).max())
+        err = float(np.abs(g16 - np.asarray(w, np.float32)).max())
+        assert np.isfinite(g16).all() and err <= BF16_TOL * scale, \
+            f"{key}: port bf16 vs JAX bf16 {err:.3e} over {BF16_TOL} x {scale:.3e}"
+        assert not np.array_equal(g16, g32), f"{key}: the bf16 result is the f32 result"
 
 
 def test_variant_builds_the_options(variant):
