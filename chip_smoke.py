@@ -262,6 +262,36 @@
    the output's largest magnitude; decoders before their tanh). The
    kernels line carries each variant's launches per round trip
    (launches_variant_a_f32_tpu_on, ...).
+19. More than one device (parallel/mesh.py): (a) data-parallel training of
+   the flagship with the kernels on, batch 6 of 256x256: stage 1_2's RD step
+   and stage 1_3's GAN step (fresh weights from seed 0), each once in this
+   process, then again from the same state through an nccl process group of
+   world 1, which must give the same bits, then in 2 ranks on this one card
+   joined by gloo (spawned processes, 3 images each): every rank starts from
+   the bits this process started from, the gradients the optimizers used
+   are within GRAD_TOL relative L2 of the 1-process step's taken in
+   micro-batches of the ranks' shape (each rank's rows and slice of the
+   global draws in turn, _Microbatch), and the ranks hold the same bits
+   after the step. Against the 1-process step of the whole batch at once
+   the terms are held within WHOLE_BATCH_TERM_TOL of max(|term|, 1) and
+   every gradient within WHOLE_BATCH_GRAD_TOL relative L2: on random
+   weights the batch shapes' cuDNN algorithms flip the rounding of y and
+   the estimator's argmax at near-ties, which moves whole gradients by
+   percents, and the eval forward on the batch against its halves (nothing
+   sliced) prints how far y moves before rounding and how many roundings
+   and argmaxes flip. With two or more cards the same again
+   with nccl, one card a rank. Every step runs under DETERMINISTIC and its
+   launches and Function backwards are held to the shape rules in its own
+   process; a second, warm step is timed (host clock, ending in a
+   synchronize). (b) The contract configuration (bf16, entropy_precision
+   default, kernels on, tpu format, device backend, lanes 512, batch 16) on
+   make_mesh(["cuda:0", "cuda:0"]) (and on every card when there are two or
+   more): bit-exact round trips, decoded images equal to each shard's
+   reconstruct_uint8, batch 15 padded to 16, launches equal to twice a
+   single-device round trip's at batch 8, portable streams decoding
+   bit-exactly between the mesh codec and a single-device one in both
+   directions; the wall time of a round trip and bench_device_cycle of the
+   mesh against the single-device codec at batch 16.
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -3725,6 +3755,518 @@ def check_standalone(smi, dev):
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------- more than one device (item 19)
+
+DP_WORLD = 2            # ranks of the data-parallel comparison
+DP_STAGES = ("1_2", "1_3")
+# the averaged step against the step of the whole batch at once: batch 3
+# and batch 6 run other cuDNN algorithms, which flip roundings and argmaxes
+# at near-ties on random weights (measured up to 4.0e-2 RD, 1.1e-1 GAN
+# relative L2 in a gradient, 2.4e-4 in a term); a rank's rows, betas or
+# noise sliced wrong move the step by far more
+WHOLE_BATCH_TERM_TOL = 1e-3     # relative to max(|term|, 1)
+WHOLE_BATCH_GRAD_TOL = 0.2      # relative L2 per parameter tensor
+
+
+def _bits(named):
+    """sha256 of (name, bytes) over a {name: tensor} mapping, in name order:
+    two processes' tensors compared without moving them."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for name in sorted(named):
+        t = named[name].detach().contiguous().reshape(-1)
+        h.update(name.encode())
+        h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _train_state(tr):
+    """The trainer's parameters, buffers and optimizer states by name (a
+    copy)."""
+    out = {f"model.{k}": v.clone() for k, v in tr.model.state_dict().items()}
+    if tr.state.disc is not None:
+        out.update({f"disc.{k}": v.clone() for k, v in tr.state.disc.state_dict().items()})
+    for key in ("g_opt", "aux_opt", "d_opt"):
+        opt = getattr(tr.state, key)
+        if opt is not None:
+            sd = opt.state_dict()
+            out.update({f"{key}.{k}": sd[k] for k in ("count", "sched_count")})
+            for moment in ("mu", "nu"):
+                out.update({f"{key}.{moment}.{n}": t for n, t in sd.get(moment, {}).items()})
+    return out
+
+
+def _snapshot(tr):
+    """What ``_restore`` puts back: weights, optimizer states, the
+    generator's state, the step count."""
+    opts = {k: getattr(tr.state, k) for k in ("g_opt", "aux_opt", "d_opt")}
+    return dict(model=_train_state(tr), opts={k: o.state_dict() for k, o in opts.items()
+                                               if o is not None},
+                gen=tr.state.generator.get_state(), step=tr.state.step)
+
+
+def _restore(tr, snap):
+    tr.model.load_state_dict({k[len("model."):]: v for k, v in snap["model"].items()
+                              if k.startswith("model.")})
+    if tr.state.disc is not None:
+        tr.state.disc.load_state_dict({k[len("disc."):]: v for k, v in snap["model"].items()
+                                       if k.startswith("disc.")})
+    for k, sd in snap["opts"].items():
+        getattr(tr.state, k).load_state_dict(sd)
+    tr.state.generator.set_state(snap["gen"])
+    tr.state.step = snap["step"]
+
+
+def _dp_step(tr, batch, dp, grads=True):
+    """One step of the trainer's stage on ``batch`` under DETERMINISTIC,
+    its launches and Function backwards held to the shape rules. Returns
+    (terms as floats, launches, the gradients the optimizers used, or
+    None without ``grads``)."""
+    from dc_vic_tpu_torch.train.steps import gan_step, rd_step
+    from dc_vic_tpu_torch.utils.backends import backend_flags
+
+    def run():
+        with backend_flags(**DETERMINISTIC):
+            if tr.gan:
+                return gan_step(tr.state, batch, tr.losses, tr.policy, tr.mc_sampling,
+                                tr.y_hat_cond, tr.lpips_fn, tr.oasis, dp=dp)
+            return rd_step(tr.state, batch, tr.losses, tr.policy, tr.lpips_fn, dp=dp)
+    terms, launched, _ = recorded_step(tr.model, run)
+    terms = {k: float(v) for k, v in terms.items()}
+    if not grads:
+        return terms, launched, None
+    grads = {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()
+             if p.grad is not None}
+    if tr.state.disc is not None:
+        grads.update({f"disc.{n}": p.grad.detach().clone()
+                      for n, p in tr.state.disc.named_parameters() if p.grad is not None})
+    return terms, launched, grads
+
+
+def _timed_step(tr, batch, dp):
+    """One more step on ``batch``, the VQ targets the model's own: (its
+    launches and Function backwards, held to the rules; host seconds,
+    ending in a synchronize)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    terms, launched, _ = _dp_step(tr, batch, dp, grads=False)
+    if not all(np.isfinite(v) for v in terms.values()) or terms["skipped"]:
+        raise AssertionError(f"a data-parallel step gave {terms}")
+    return launched, time.perf_counter() - t
+
+
+class _Microbatch:
+    """A rank of a data-parallel step played in one process, one rank after
+    the other: the step runs on the rank's rows with the rank's slices of
+    the global draws and keeps the rank's own gradients and terms where a
+    rank would average them (no collective). The mean over the ranks is the
+    1-process step of the global batch taken in micro-batches of the
+    ranks' shape."""
+
+    def __init__(self, tr, rank, world):
+        self.rank, self.world = rank, world
+        modules = [("", tr.model)] + ([("disc.", tr.state.disc)] if tr.state.disc else [])
+        self.names = {id(p): prefix + n for prefix, m in modules
+                      for n, p in m.named_parameters()}
+        self.grads, self.terms = {}, {}
+
+    @property
+    def shard(self):
+        return self.rank, self.world
+
+    def all_reduce_mean(self, values):
+        self.terms = {k: float(v) for k, v in values.items()}
+        return values
+
+    def mean_grads(self, params):
+        import torch
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        self.grads.update({self.names[id(p)]: g.detach().clone()
+                           for p, g in zip(params, grads) if p.grad is not None})
+        return grads
+
+
+def _microbatch_reference(tr, batch, snap, world):
+    """The gradients and terms of the 1-process step of ``batch`` taken in
+    ``world`` micro-batches of the ranks' shape (``_Microbatch``), each
+    from ``snap``: what the ranks' averaged step must give."""
+    from dc_vic_tpu_torch.parallel.mesh import shard_rows
+    parts = []
+    for r in range(world):
+        _restore(tr, snap)
+        part = _Microbatch(tr, r, world)
+        _dp_step(tr, batch[shard_rows(batch.shape[0], r, world)], part, grads=False)
+        parts.append(part)
+    grads = {n: sum(p.grads[n] for p in parts) / world for n in parts[0].grads}
+    terms = {k: sum(p.terms[k] for p in parts) / world for k in parts[0].terms}
+    return grads, terms
+
+
+def _batch_shape_witness(tr, batch, world):
+    """What batch 3 against batch 6 does to the model with nothing sliced:
+    its eval forward (hard rounds, no noise) on the whole batch and on
+    ``world`` contiguous parts of it in turn, from the same weights and
+    per-sample betas. Returns the largest per-image relative L2 of y before
+    rounding, the elements of y and z whose rounding flipped (|change| >
+    0.5), and the VQ targets' and the estimator's argmax flips."""
+    import torch
+    from dc_vic_tpu_torch.utils.backends import backend_flags
+    n = batch.shape[0]
+    betas = [None, None]
+    if tr.policy.use_beta:
+        betas = [torch.linspace(0.0, m, n, device=batch.device)
+                 for m in (tr.policy.max_beta_rate, tr.policy.max_beta_vq)]
+
+    def forward(lo, hi):
+        with torch.no_grad(), backend_flags(**DETERMINISTIC):
+            out = tr.model(batch[lo:hi], *(b if b is None else b[lo:hi] for b in betas),
+                           is_train=False)
+        return dict(y=out["latent_code"]["y"], y_hat=out["quantized_code"]["y"],
+                    z_hat=out["quantized_code"]["z"], targets=out["gt_vq_indices"],
+                    argmax=out["out_vq_logits"].argmax(dim=1))
+
+    whole = forward(0, n)
+    step = n // world
+    parts = [forward(r * step, (r + 1) * step) for r in range(world)]
+    split = {k: torch.cat([p[k] for p in parts]) for k in whole}
+    y, y_split = whole["y"].double().flatten(1), split["y"].double().flatten(1)
+    rel = torch.linalg.vector_norm(y_split - y, dim=1) / torch.linalg.vector_norm(y, dim=1)
+    flips = lambda k: int(((split[k] - whole[k]).abs() > 0.5).sum())
+    return dict(y_rel_l2=float(rel.max()), y_flips=flips("y_hat"), y_elements=y.numel(),
+                z_flips=flips("z_hat"), z_elements=whole["z_hat"].numel(),
+                target_flips=int((split["targets"] != whole["targets"]).sum()),
+                argmax_flips=int((split["argmax"] != whole["argmax"]).sum()),
+                tokens=whole["argmax"].numel())
+
+
+def _hold_whole_batch(got, want, label):
+    """The averaged step of the ranks against the 1-process step of the
+    whole batch at once: every term within WHOLE_BATCH_TERM_TOL of
+    max(|term|, 1), every gradient within WHOLE_BATCH_GRAD_TOL relative L2
+    (+1e-7). Prints the comparison before it holds it. Returns (the
+    largest gradient error, the gradients over GRAD_TOL)."""
+    import torch
+    if set(got["grads"]) != set(want["grads"]):
+        raise AssertionError(f"{label}: gradients of other tensors than the 1-process step")
+    rels, diff2, norm2 = [], 0.0, 0.0
+    for n, w in want["grads"].items():
+        err, rel = _rel_l2(got["grads"][n].to(w.device), w)
+        wn = float(torch.linalg.vector_norm(w.double()))
+        diff2, norm2 = diff2 + err ** 2, norm2 + wn ** 2
+        rels.append((rel if err > 1e-7 else 0.0, err > GRAD_TOL * wn + 1e-7, n))
+    rels.sort(reverse=True)
+    over = sum(o for _, o, _ in rels)
+    terms = {k: (got["terms"][k], w, abs(got["terms"][k] - w) / max(abs(w), 1.0))
+             for k, w in want["terms"].items() if k != "skipped"}
+    worst_term = max(terms, key=lambda k: terms[k][2])
+    print(f"{label} against the batch-{TRAIN_BATCH} step in one process: {over} of "
+          f"{len(rels)} gradients over {GRAD_TOL} relative L2 (+1e-7), the largest "
+          f"{rels[0][0]:.3e} ({rels[0][2]}), all gradients together "
+          f"{(diff2 / norm2) ** 0.5:.3e}; terms " + ", ".join(
+              f"{k} {g:.6f} against {w:.6f}" for k, (g, w, _) in terms.items())
+          + f"; the largest term error {terms[worst_term][2]:.2e} ({worst_term}) of "
+          f"max(|term|, 1)")
+    if rels[0][0] > WHOLE_BATCH_GRAD_TOL or terms[worst_term][2] > WHOLE_BATCH_TERM_TOL:
+        raise AssertionError(
+            f"{label}: against the whole batch's step, gradients over "
+            f"{WHOLE_BATCH_GRAD_TOL} relative L2: "
+            f"{[(n, f'{r:.3e}') for r, _, n in rels if r > WHOLE_BATCH_GRAD_TOL][:8]}; terms "
+            f"over {WHOLE_BATCH_TERM_TOL}: "
+            f"{[k for k, t in terms.items() if t[2] > WHOLE_BATCH_TERM_TOL]}")
+    return rels[0][0], over
+
+
+def _dp_rank(rank, world, backend, store, root, devices, out):
+    """One rank of item 19 (a), in its own process: each stage's trainer on
+    ``devices[rank]`` through the process group, the rank's rows of the
+    first global batch, one counted step and one timed step. Writes what it
+    saw to ``out/rank{rank}.pt`` (rank 0 also the gradients)."""
+    import torch
+    from dc_vic_tpu_torch.ops import native
+    from dc_vic_tpu_torch.parallel.mesh import init_distributed, teardown
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    torch.cuda.set_device(devices[rank])
+    native.kernels()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dp = init_distributed(rank, world, backend, f"file://{store}")
+    res = {}
+    try:
+        for stage in DP_STAGES:
+            tr = build_trainer(training_opt(stage, root), device=devices[rank], dp=dp)
+            batch = tr._to_device(next(tr.train_loader.epoch_batches(0))["real_images"])
+            start = _bits(_train_state(tr))
+            terms, _, grads = _dp_step(tr, batch, dp)
+            after = _bits(_train_state(tr))
+            launched, step_s = _timed_step(tr, batch, dp)
+            res[stage] = dict(start=start, after=after, terms=terms, launched=launched,
+                              batch=int(batch.shape[0]), step_s=step_s,
+                              peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            if rank == 0:
+                res[stage]["grads"] = {n: g.cpu() for n, g in grads.items()}
+            del tr, grads
+            torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        teardown()
+
+
+def _hold_dp_grads(got, want, label):
+    """The averaged gradients of a data-parallel step against the 1-process
+    step's: the same tensors, each within GRAD_TOL relative L2 (+1e-7).
+    Returns the relative error of the tensor that used the largest share
+    of its tolerance."""
+    import torch
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: gradients of other tensors than the 1-process step")
+    shares = {}
+    for name, w in want.items():
+        err, rel = _rel_l2(got[name].to(w.device), w)
+        shares[name] = (err / (GRAD_TOL * float(torch.linalg.vector_norm(w.double())) + 1e-7),
+                        rel)
+    order = sorted(shares, key=lambda n: -shares[n][0])
+    worst_name = order[0]
+    worst, worst_rel = shares[worst_name]
+    if worst > 1.0:
+        raise AssertionError(f"{label}: relative L2 errors over {GRAD_TOL}: " + ", ".join(
+            f"{n} {shares[n][1]:.3e}" for n in order[:8] if shares[n][0] > 1.0))
+    print(f"{label}: {len(want)} gradients within {GRAD_TOL} relative L2 (+1e-7) of the "
+          f"1-process step's; the largest share of that tolerance {worst:.3f} ({worst_name}, "
+          f"relative error {worst_rel:.3e})")
+    return worst_rel
+
+
+def check_data_parallel(smi):
+    """Item 19 (a). Returns {stage: {"plain": launches, "ranks": [launches
+    of each rank]}} of the counted steps."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.parallel.mesh import init_distributed, teardown
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dcvic_dp_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    plain, out = {}, {}
+    try:
+        _training_images(root)
+        dp1 = init_distributed(0, 1, "nccl", f"file://{os.path.join(root, 'store_nccl1')}")
+        try:
+            for stage in DP_STAGES:
+                tr = build_trainer(training_opt(stage, root))
+                batch = tr._to_device(next(tr.train_loader.epoch_batches(0))["real_images"])
+                snap = _snapshot(tr)
+                terms, launched, grads = _dp_step(tr, batch, None)
+                after = _train_state(tr)
+                # the same state again, through the process group of one rank
+                _restore(tr, snap)
+                terms1, launched1, grads1 = _dp_step(tr, batch, dp1)
+                same = (terms1 == terms and launched1 == launched
+                        and all(torch.equal(grads1[n], g) for n, g in grads.items())
+                        and set(grads1) == set(grads)
+                        and all(torch.equal(v, after[k]) for k, v in _train_state(tr).items()))
+                if not same:
+                    raise AssertionError(f"stage {stage}: the nccl world-1 step is not the "
+                                         f"plain step bit for bit")
+                _restore(tr, snap)
+                witness = _batch_shape_witness(tr, batch, DP_WORLD)
+                micro, micro_terms = _microbatch_reference(tr, batch, snap, DP_WORLD)
+                launched, step_s = _timed_step(tr, batch, None)
+                plain[stage] = dict(start=_bits(snap["model"]), terms=terms, launched=launched,
+                                    grads=grads, step_s=step_s, micro=micro,
+                                    micro_terms=micro_terms)
+                print(f"item 19, stage {stage}: the eval forward on batch {TRAIN_BATCH} against "
+                      f"{DP_WORLD} parts of {TRAIN_BATCH // DP_WORLD} in turn, nothing sliced "
+                      f"(the weights the steps start from): y before rounding within "
+                      f"{witness['y_rel_l2']:.3e} relative L2 an image; rounding flips y "
+                      f"{witness['y_flips']} of {witness['y_elements']}, z "
+                      f"{witness['z_flips']} of {witness['z_elements']}; argmax flips: VQ "
+                      f"targets {witness['target_flips']}, estimator "
+                      f"{witness['argmax_flips']} of {witness['tokens']} tokens")
+                buckets = {k: 4 * sum(p.numel() for p in getattr(tr.state, k).params)
+                           for k in ("g_opt", "d_opt" if tr.gan else "aux_opt")}
+                print(f"item 19, stage {stage} ({'GAN' if tr.gan else 'RD'}) step, batch "
+                      f"{TRAIN_BATCH} in one process: {terms}; the nccl world-1 step gives the "
+                      f"same bits (terms, gradients, weights, optimizer states); in "
+                      f"{DP_WORLD} micro-batches: {micro_terms}; launches "
+                      f"{launched['forward']}, Function backwards {launched['backward']}; a "
+                      f"rank's all-reduce buckets a step (bytes): {buckets} and "
+                      f"{4 * (len(terms) - 1)} of terms")
+                del tr, snap, after, grads1
+                torch.cuda.empty_cache()
+        finally:
+            teardown()
+        runs = [("gloo", ["cuda:0"] * DP_WORLD)]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("nccl", [f"cuda:{i}" for i in range(DP_WORLD)]))
+        else:
+            print(f"item 19: one card ({smi}), so no nccl run over {DP_WORLD} cards")
+        for backend, devices in runs:
+            done = os.path.join(root, f"ranks_{backend}")
+            os.makedirs(done)
+            torch.multiprocessing.spawn(
+                _dp_rank, args=(DP_WORLD, backend, os.path.join(root, f"store_{backend}"),
+                                root, devices, done), nprocs=DP_WORLD, join=True)
+            ranks = [torch.load(os.path.join(done, f"rank{r}.pt"), weights_only=False)
+                     for r in range(DP_WORLD)]
+            for stage in DP_STAGES:
+                want = plain[stage]
+                label = f"item 19, stage {stage}, {DP_WORLD} ranks ({backend}, {devices})"
+                for r, rank in enumerate(ranks):
+                    got = rank[stage]
+                    if got["start"] != want["start"]:
+                        raise AssertionError(f"{label}: rank {r} did not start from the "
+                                             f"1-process step's bits")
+                    if got["launched"]["forward"]["vq_argmin"] < 1 or any(
+                            n < 1 for k, n in got["launched"]["forward"].items()
+                            if k not in ("rans_encode_pack", "rans_decode_section")):
+                        raise AssertionError(f"{label}: rank {r} launches {got['launched']}")
+                    if got["terms"].get("skipped"):
+                        raise AssertionError(f"{label}: rank {r} skipped the step")
+                if ranks[0][stage]["after"] != ranks[1][stage]["after"] or \
+                        ranks[0][stage]["terms"] != ranks[1][stage]["terms"]:
+                    raise AssertionError(f"{label}: the ranks differ after the step")
+                got = ranks[0][stage]
+                print(f"{label}: terms of the mean over the ranks {got['terms']}")
+                worst = _hold_dp_grads(got["grads"], want["micro"],
+                                       f"{label} against one process in micro-batches")
+                whole_worst, over = _hold_whole_batch(got, want, label)
+                rel_total = abs(got["terms"]["total"] / want["micro_terms"]["total"] - 1)
+                out.setdefault(stage, {})[backend] = dict(
+                    worst=worst, step_s=[rank[stage]["step_s"] for rank in ranks],
+                    launched=[rank[stage]["launched"] for rank in ranks],
+                    whole_batch_worst=whole_worst, whole_batch_over=over)
+                print(f"{label}: ranks bit-equal after the step (weights, optimizer states); "
+                      f"mean loss {got['terms']['total']:.6f} against "
+                      f"{want['micro_terms']['total']:.6f} in micro-batches (relative "
+                      f"{rel_total:.2e}); launches a "
+                      f"rank {ranks[0][stage]['launched']['forward']} on batch "
+                      f"{ranks[0][stage]['batch']}; warm step "
+                      f"{', '.join(f'{r[stage]['step_s']:.4f}' for r in ranks)} s a rank against "
+                      f"{want['step_s']:.4f} s in one process ({smi}; host clock, one step "
+                      f"each; peak {max(r[stage]['peak_gib'] for r in ranks):.2f} GiB a rank)")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"item 19 (a) took {time.perf_counter() - t_phase:.1f} s")
+    for stage in DP_STAGES:
+        out[stage]["plain"] = plain[stage]["launched"]
+    return out
+
+
+def _mesh_round_trip(codec, images, label):
+    """A round trip on a mesh codec with every counter set to 0 just
+    before it and read just after: latents bit-exact, the decoded images
+    each shard's reconstruct_uint8 of the encoder's y_hat. Returns
+    (launches, results, images, encode s, decode s)."""
+    import torch
+    from dc_vic_tpu_torch.ops import counts
+    counts.reset()
+    res, out, enc_s, dec_s = drive(codec, images)
+    launches = counts.launches()
+    B, H, W = images.shape[:3]
+    strings = [r["string_list"] for r in res]
+    if len(res) != B or out.shape != images.shape:
+        raise AssertionError(f"{label}: {len(res)} results, images {out.shape}")
+    if not codec.verify_roundtrip(res, strings, (H, W)):
+        raise AssertionError(f"{label}: decode-side y_hat differs from the encoder's")
+    recon = []
+    with torch.no_grad():
+        for c, part in zip(codec._shards, codec._cut(np.stack([r["y_hat"] for r in res]))):
+            y = torch.from_numpy(np.ascontiguousarray(part.transpose(0, 3, 1, 2))).to(c.device)
+            recon.append(c.module.reconstruct_uint8(y, *c._betas(0))[:, :, :H, :W]
+                         .permute(0, 2, 3, 1).cpu().numpy())
+    if not np.array_equal(out, np.concatenate(recon)[:B]):
+        raise AssertionError(f"{label}: decoded images differ from the shards' "
+                             f"reconstruct_uint8(y_hat)")
+    print(f"{label}: y_hat round trip bit-exact, images equal each shard's "
+          f"reconstruct_uint8, {float(np.mean([r['bpp'] for r in res])):.4f} bpp, encode "
+          f"{enc_s:.4f} s, decode {dec_s:.4f} s; launches {launches}")
+    return launches, res, out, enc_s, dec_s
+
+
+def check_mesh_codec(deployment_sd, smi):
+    """Item 19 (b). Returns the launches of the mesh round trip at batch 16."""
+    import torch
+    from dc_vic_tpu_torch.codec.container import HeaderHandler
+    from dc_vic_tpu_torch.codec.driver import Codec
+    from dc_vic_tpu_torch.models import RECON_KERNELS, build_comp_model
+    from dc_vic_tpu_torch.parallel.mesh import make_mesh
+    from dc_vic_tpu_torch.tools.workload import DEPLOYMENT, deployment_config, deployment_images
+    from dc_vic_tpu_torch.utils.config import load_config
+    t_phase = time.perf_counter()
+    B16, lanes = DEPLOYMENT["batch"], DEPLOYMENT["lanes"]
+    images16 = deployment_images()
+    spec = build_comp_model(deployment_config(load_config(os.path.join(
+        ROOT, "config", "dc_vic_patchgan.yaml"))), recon_kernels=RECON_KERNELS)
+    spec.module.load_state_dict(deployment_sd, strict=True)
+    single = Codec(spec, encode_backend="device", lanes=lanes)
+    label = f"bf16 contract configuration, kernels on, one device, batch {B16 // 2}"
+    _, half, _ = counted_round_trip(single, images16[:B16 // 2], label)
+    meshes = [make_mesh(["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_mesh())
+    launches = None
+    for mesh in meshes:
+        n = len(mesh)
+        name = f"mesh {[str(d) for d in mesh]}"
+        mc = Codec(spec, encode_backend="device", lanes=lanes, mesh=mesh)
+        got, res, out, enc_s, dec_s = _mesh_round_trip(
+            mc, images16, f"item 19, contract configuration on {name}, batch {B16}")
+        want = {k: v * n for k, v in half.items()} if n == 2 else None
+        if want is not None and got != want:
+            raise AssertionError(f"{name}: launches {got}, twice the batch-{B16 // 2} round "
+                                 f"trip's {want}")
+        if any(v < 1 for v in got.values()):
+            raise AssertionError(f"{name}: a kernel never launched: {got}")
+        if launches is None:
+            launches = got
+        h = HeaderHandler.decode(res[0]["string_list"][0])
+        if (h["encode_batch"], h["lanes"], h["bf16"], h["portable"]) != (B16, lanes, True, False):
+            raise AssertionError(f"{name}: header {h}")
+        # a batch that does not divide: 15 images run as 16
+        res15 = mc.compress(images16[:15], 0, debug=True)
+        s15 = [r["string_list"] for r in res15]
+        if (len(res15) != 15 or not mc.verify_roundtrip(res15, s15, images16.shape[1:3])
+                or mc.decompress(s15).shape != (15,) + images16.shape[1:]
+                or HeaderHandler.decode(s15[0][0])["encode_batch"] != (-(-15 // n)) * n):
+            raise AssertionError(f"{name}: the batch of 15 did not round-trip padded")
+        print(f"item 19, {name}: a batch of 15 round-trips bit-exactly, padded to "
+              f"{(-(-15 // n)) * n}")
+        # portable streams, both ways, against the single-device codec
+        pm_codec = Codec(spec, encode_backend="device", lanes=lanes, portable=True, mesh=mesh)
+        ps_codec = Codec(spec, encode_backend="device", lanes=lanes, portable=True)
+        for enc, dec, way in ((pm_codec, ps_codec, "mesh -> one device"),
+                              (ps_codec, pm_codec, "one device -> mesh")):
+            pres = enc.compress(images16, 0, debug=True)
+            pstr = [r["string_list"] for r in pres]
+            for part in (slice(0, B16), slice(0, 4), slice(5, 6)):
+                if not dec.verify_roundtrip(pres[part], pstr[part], images16.shape[1:3]):
+                    raise AssertionError(f"{name}: portable streams {way}, images {part}: "
+                                         f"latents differ")
+        print(f"item 19, {name}: portable streams decode bit-exactly mesh -> one device and "
+              f"one device -> mesh (groupings of {B16}, 4 and 1)")
+        del pm_codec, ps_codec
+        # the times: the same global batch on the mesh and on one device
+        _, _, s_enc, s_dec = drive(single, images16)
+        _, _, m_enc, m_dec = drive(mc, images16)
+        s_cyc = single.bench_device_cycle(images16, 0)
+        m_cyc = mc.bench_device_cycle(images16, 0)
+        print(f"item 19, contract cycle at batch {B16} ({smi}): one device encode {s_enc:.4f} "
+              f"s, decode {s_dec:.4f} s, bench_device_cycle {s_cyc['enc_s']:.4f} / "
+              f"{s_cyc['dec_s']:.4f} s; {name} encode {m_enc:.4f} s, decode {m_dec:.4f} s, "
+              f"bench_device_cycle {m_cyc['enc_s']:.4f} / {m_cyc['dec_s']:.4f} s (host clock, "
+              f"one warm run each, in turn)")
+        del mc
+        torch.cuda.empty_cache()
+    del single, spec
+    torch.cuda.empty_cache()
+    print(f"item 19 (b) took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3934,7 +4476,6 @@ def main():
     oasis = check_oasis(smi, dev)
     torch.cuda.empty_cache()
     profile_contract(deployment_sd, launches16, smi)
-    del deployment_sd
     torch.cuda.empty_cache()
     print(f"item 16 took {time.perf_counter() - t16:.1f} s")
 
@@ -3946,6 +4487,13 @@ def main():
     alt_step = check_alt_training(smi, dev)
     check_standalone(smi, dev)
     print(f"item 18 took {time.perf_counter() - t18:.1f} s")
+
+    t19 = time.perf_counter()
+    dp_launches = check_data_parallel(smi)
+    launches_mesh = check_mesh_codec(deployment_sd, smi)
+    del deployment_sd
+    torch.cuda.empty_cache()
+    print(f"item 19 took {time.perf_counter() - t19:.1f} s")
 
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
@@ -3967,6 +4515,13 @@ def main():
             k[f"launches_{run}"] = table[k["name"]]
         k["train_launches_variant_a_step"] = alt_step["forward"][k["name"]]
         k["train_backwards_variant_a_step"] = alt_step["backward"].get(k["name"], 0)
+        k["launches_mesh_2_batch16"] = launches_mesh[k["name"]]
+        for stage, table in dp_launches.items():
+            k[f"train_launches_dp_{stage}_plain"] = table["plain"]["forward"][k["name"]]
+            for backend, run in table.items():
+                if backend != "plain":
+                    k[f"train_launches_dp_{stage}_{backend}_ranks"] = [
+                        launched["forward"][k["name"]] for launched in run["launched"]]
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

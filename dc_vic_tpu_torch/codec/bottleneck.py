@@ -85,7 +85,9 @@ class EntropyBottleneck(nn.Module):
         if noise is None:
             raise ValueError("the training likelihood needs a noise source")
         v = x.transpose(0, 1).reshape(C, 1, -1)
-        lik = self._likelihood_v(v + noise.uniform(v.shape, v))
+        # v's last axis runs over (image, row, column): the images' draws
+        # lie back to back along it
+        lik = self._likelihood_v(v + noise.uniform(v.shape, v, batch_axis=2))
         x_hat = ste_round(x - med) + med
         return x_hat, lik.reshape(C, B, H, W).transpose(0, 1)
 

@@ -53,6 +53,10 @@ stride 256 whose latents are stitched and quantized once, and the
 reconstruction on 32 x 32 y cells at stride 16, stitched into the image.
 Both run on the device in chunks of ``_TILE_CHUNK`` tiles, which bounds the
 VQGAN attention's length and the memory whatever the image's size.
+
+Several devices: ``Codec(spec, ..., mesh=devices)`` builds a
+``codec.mesh.MeshCodec``, a composite of one single-device Codec per device
+(that module's docstring).
 """
 from __future__ import annotations
 
@@ -251,6 +255,11 @@ class Codec:
     whether the conv stacks compute in f32 or bf16, the entropy chain is f32
     either way, and both settings travel in the tpu format's header.
 
+    ``mesh``: a list of devices (``parallel.mesh.make_mesh``) to spread each
+    batch over: ``Codec(...)`` then builds a ``codec.mesh.MeshCodec`` with
+    the same methods, one replica of the model on each entry.
+    ``params_backend`` then defaults to "accel", and "cpu" is refused.
+
     Result dicts: ``string_list`` [header, z_str, y_str], ``num_pixel``,
     ``bpp`` (the container's actual bytes, length fields included),
     ``pred_y_bpp`` / ``pred_z_bpp`` (tpu format, device backend: the
@@ -263,9 +272,15 @@ class Codec:
     # one batch shape whatever the image's size
     _TILE_CHUNK = 16
 
+    def __new__(cls, *args, mesh=None, **kwargs):
+        if mesh is None:
+            return super().__new__(cls)
+        from .mesh import MeshCodec
+        return MeshCodec(*args, mesh=mesh, **kwargs)
+
     def __init__(self, spec, stream_format: str = "tpu", encode_backend: str = "host",
                  lanes: int = 128, portable: bool = False,
-                 params_backend: Optional[str] = None):
+                 params_backend: Optional[str] = None, mesh=None):
         if stream_format not in ("tpu", "compressai"):
             raise ValueError(f"stream_format {stream_format!r}: 'tpu' or 'compressai'")
         if encode_backend not in ("host", "device"):
@@ -491,19 +506,31 @@ class Codec:
         (unpadded). The betas are a quality level's pair, or given as
         ``beta_rate`` and ``beta_vq`` without a quality (the header then
         records quality 0, as the reference's does)."""
+        images, betas, common = self._dispatch_args(images, quality_ind, beta_rate, beta_vq,
+                                                    debug)
+        x = self._upload_images(images)
+        out = self._encode_tail(x, *self._beta_tensors(*betas), common["fmt"], debug)
+        return dict(out=out, B=len(images), encode_batch=len(images), **common)
+
+    def _dispatch_args(self, images, quality_ind, beta_rate, beta_vq, debug):
+        """``compress_dispatch``'s arguments checked: (the images, uint8 or
+        f32; (beta_rate, beta_vq); the handle's fields other than its batch
+        sizes)."""
         quality_ind, beta_rate, beta_vq = self._resolve_betas(quality_ind, beta_rate, beta_vq)
         images = np.asarray(images)
         if images.ndim != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected [B, H, W, 3] images, got {images.shape}")
-        B, H, W = images.shape[:3]
         if images.dtype != np.uint8:
             images = images.astype(np.float32)
-        x = torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
-        b1, b2 = self._beta_tensors(beta_rate, beta_vq)
         fmt = ("compressai" if self.stream_format == "compressai" else
                "tpu_dev" if self.encode_backend == "device" else "tpu_host")
-        out = self._encode_tail(x, b1, b2, fmt, debug)
-        return dict(out=out, B=B, H=H, W=W, quality_ind=quality_ind, debug=debug, fmt=fmt)
+        return images, (beta_rate, beta_vq), dict(H=images.shape[1], W=images.shape[2],
+                                                  quality_ind=quality_ind, debug=debug,
+                                                  fmt=fmt)
+
+    def _upload_images(self, images: np.ndarray) -> torch.Tensor:
+        """NHWC host images, reflect-padded, on this codec's device."""
+        return torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
 
     def _esc_dense_flags(self, H: int, W: int, y_escmax, z_escmax) -> np.ndarray:
         """Per image: some section holds more escapes than ``esc_cap``, so
@@ -523,8 +550,8 @@ class Codec:
             header = HeaderHandler.encode(
                 (H, W), max_abs_y, handle["quality_ind"], tpu_format=True, lanes=self.lanes,
                 esc_dense=bool(esc_dense[b]), t2free=bool(t2free), escfree=bool(escfree[b]),
-                portable=self.portable, encode_batch=B, fast_entropy=self._fast_entropy,
-                bf16=self._bf16)
+                portable=self.portable, encode_batch=handle["encode_batch"],
+                fast_entropy=self._fast_entropy, bf16=self._bf16)
             strings = [header, z_strs[b], y_strs[b]]
             results.append(dict(
                 string_list=strings, num_pixel=H * W,
@@ -630,10 +657,11 @@ class Codec:
             self.compress_dispatch(images, quality_ind, beta_rate, beta_vq, debug))
 
     # ------------------------------------------------------------ decode
-    def _parse(self, string_lists) -> Dict:
+    def _parse(self, string_lists, run_B: Optional[int] = None) -> Dict:
         """Headers of one decode batch, checked to agree with each other
-        and with this codec. Returns the first header's fields, with the
-        tpu format's per-stream guarantees merged over the batch."""
+        and with this codec, the decode running at batch ``run_B`` (default:
+        the streams'). Returns the first header's fields, with the tpu
+        format's per-stream guarantees merged over the batch."""
         headers = [HeaderHandler.decode(s[0]) for s in string_lists]
         first = dict(headers[0])
         for h in headers:
@@ -646,7 +674,7 @@ class Codec:
                                  "batch")
         if first["stream_format"] != "tpu":
             return first
-        run_B = len(string_lists)
+        run_B = run_B or len(string_lists)
         for h in headers:
             # the numeric configuration changes the entropy parameters a
             # stream was coded with; a decoder built otherwise would desync
@@ -756,6 +784,40 @@ class Codec:
             res["img"] = self._reconstruct(y_hat, b1, b2, yH * Y_STRIDE, yW * Y_STRIDE)
         return res
 
+    def _upload_tpu(self, z_strs: List[bytes], y_strs: List[bytes], img_size: Tuple[int, int],
+                    lanes: int) -> Tuple[torch.Tensor, ...]:
+        """The word buffers of a tpu-format decode on the device, and the
+        coder's tables, before the chain (which never waits)."""
+        _, _, zH, zW, yH, yW = _geometry(*img_size)
+        y_cap, z_cap = self._tpu_caps(len(z_strs), yH, yW, zH, zW, lanes)
+        y_words, y_base = self._upload_words(y_strs, y_cap)
+        z_words, z_base = self._upload_words(z_strs, z_cap)
+        self._dtable("y"), self._dtable("z")
+        return z_words, z_base, y_words, y_base
+
+    def _tpu_chain(self, words, z_strs, y_strs, img_size: Tuple[int, int], b1, b2,
+                   lanes: int, esc_dense: bool, t2free: bool, escfree: bool, portable: bool,
+                   include_latents: bool = False):
+        """Queue the decode chain on uploaded words (``_upload_tpu``).
+        Returns a ``PendingImages`` of the pixels and the consumed-word
+        counts, or with ``include_latents`` (chain's dict, its check), no
+        reconstruction."""
+        H, W = img_size
+        B = len(z_strs)
+        padH, padW, zH, zW, yH, yW = _geometry(H, W)
+        out = self._decode_pipeline(
+            *words, B, zH, zW, yH, yW, lanes, sparse_esc=not esc_dense,
+            recon=not include_latents, b1=b1, b2=b2, tier2=not t2free, escfree=escfree,
+            portable=portable)
+
+        def check(consumed):
+            self._check_consumed(consumed, z_strs, y_strs)
+        if include_latents:
+            return out, check
+        flat = torch.cat([out["img"].permute(0, 2, 3, 1).reshape(-1),
+                          out["consumed_words"].reshape(-1).view(torch.uint8)])
+        return PendingImages(flat, (B, padH, padW, H, W), check)
+
     def _decompress_tpu(self, z_strs: List[bytes], y_strs: List[bytes],
                         img_size: Tuple[int, int], b1, b2, lanes: int, esc_dense: bool,
                         t2free: bool, escfree: bool, portable: bool,
@@ -764,27 +826,14 @@ class Codec:
         decode chain, bring the pixels and the consumed-word counts back in
         one copy. ``include_latents`` returns the chain's dict instead
         (checked), without reconstruction."""
-        H, W = img_size
-        B = len(z_strs)
-        padH, padW, zH, zW, yH, yW = _geometry(H, W)
-        y_cap, z_cap = self._tpu_caps(B, yH, yW, zH, zW, lanes)
-        y_words, y_base = self._upload_words(y_strs, y_cap)
-        z_words, z_base = self._upload_words(z_strs, z_cap)
-        self._dtable("y"), self._dtable("z")      # uploaded before the chain, which never waits
-        out = self._decode_pipeline(
-            z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, lanes,
-            sparse_esc=not esc_dense, recon=not include_latents, b1=b1, b2=b2,
-            tier2=not t2free, escfree=escfree, portable=portable)
-
-        def check(consumed):
-            self._check_consumed(consumed, z_strs, y_strs)
+        words = self._upload_tpu(z_strs, y_strs, img_size, lanes)
+        got = self._tpu_chain(words, z_strs, y_strs, img_size, b1, b2, lanes, esc_dense,
+                              t2free, escfree, portable, include_latents)
         if include_latents:
+            out, check = got
             check(out["consumed_words"].cpu().numpy())
             return out
-        flat = torch.cat([out["img"].permute(0, 2, 3, 1).reshape(-1),
-                          out["consumed_words"].reshape(-1).view(torch.uint8)])
-        pending = PendingImages(flat, (B, padH, padW, H, W), check)
-        return pending if defer_fetch else pending.fetch()
+        return got if defer_fetch else got.fetch()
 
     @staticmethod
     def _check_consumed(consumed, z_strs: List[bytes], y_strs: List[bytes]) -> None:
@@ -857,19 +906,24 @@ class Codec:
         H, W = hdr["img_size"]
         if tuple(img_size) != (H, W):
             raise ValueError(f"img_size {img_size} != header size {(H, W)}")
-        z_strs, y_strs = [s[1] for s in string_lists], [s[2] for s in string_lists]
+        y_hat, z_hat = self._latents([s[1] for s in string_lists],
+                                     [s[2] for s in string_lists], (H, W), hdr)
+        return all(np.array_equal(y_hat[b], r["y_hat"])
+                   and np.array_equal(z_hat[b], r["z_hat"])
+                   for b, r in enumerate(results))
+
+    def _latents(self, z_strs, y_strs, img_size: Tuple[int, int], hdr: Dict):
+        """The decoded (y_hat, z_hat) of the streams, NHWC host arrays."""
         if hdr["stream_format"] == "tpu":
             out = self._decompress_tpu(
-                z_strs, y_strs, (H, W), None, None, hdr["lanes"] or self.lanes,
+                z_strs, y_strs, img_size, None, None, hdr["lanes"] or self.lanes,
                 esc_dense=hdr["esc_dense"], t2free=hdr["t2free"], escfree=hdr["escfree"],
                 portable=bool(hdr["portable"]), include_latents=True)
             y_hat, z_hat = out["y_hat"], out["z_hat"]
         else:
-            y_hat, z_hat = self._decode_latents(z_strs, y_strs, H, W, bool(hdr["portable"]))
-        y_hat, z_hat = _nhwc(y_hat), _nhwc(z_hat)
-        return all(np.array_equal(y_hat[b], r["y_hat"])
-                   and np.array_equal(z_hat[b], r["z_hat"])
-                   for b, r in enumerate(results))
+            y_hat, z_hat = self._decode_latents(z_strs, y_strs, *img_size,
+                                                bool(hdr["portable"]))
+        return _nhwc(y_hat), _nhwc(z_hat)
 
     @_codec_call
     def bench_device_cycle(self, images: np.ndarray, quality_ind: Optional[int] = None,
@@ -881,37 +935,48 @@ class Codec:
         end to end and waited for once. Host entropy coding and the copies
         to and from the host are outside. Returns the median seconds per
         batch of each chain. Needs a CUDA device."""
-        if self.stream_format != "tpu":
-            raise ValueError("the device cycle needs stream_format='tpu'")
-        if self.device.type != "cuda":
-            raise RuntimeError("bench_device_cycle times the card: build the model on cuda")
-        _, beta_rate, beta_vq = self._resolve_betas(quality_ind, beta_rate, beta_vq)
-        images = np.asarray(images)
-        B, H, W = images.shape[:3]
-        x = torch.from_numpy(np.ascontiguousarray(_pad_np(images))).to(self.device)
-        b1, b2 = self._beta_tensors(beta_rate, beta_vq)
+        return device_cycle(self, [self], lambda items: [items], images, quality_ind,
+                            beta_rate, beta_vq, iters)
 
-        def timed(fn):
+
+def device_cycle(codec, shards: List[Codec], cut, images: np.ndarray,
+                 quality_ind: Optional[int], beta_rate: Optional[float],
+                 beta_vq: Optional[float], iters: int) -> Dict[str, float]:
+    """``bench_device_cycle`` of ``codec`` whose batches run on the
+    single-device ``shards``, ``cut(batch)`` giving each shard's part:
+    every shard's chain is queued before the wait for all their cards."""
+    if codec.stream_format != "tpu":
+        raise ValueError("the device cycle needs stream_format='tpu'")
+    if any(c.device.type != "cuda" for c in shards):
+        raise RuntimeError("bench_device_cycle times the card: build the model on cuda")
+    _, beta_rate, beta_vq = shards[0]._resolve_betas(quality_ind, beta_rate, beta_vq)
+    images = np.asarray(images)
+    H, W = images.shape[1:3]
+    ups = [(c._upload_images(x), *c._beta_tensors(beta_rate, beta_vq))
+           for c, x in zip(shards, cut(images))]
+    devices = {c.device for c in shards}
+
+    def timed(fn):
+        """Median seconds of ``fn`` until every card is done, after a
+        first run that is not counted."""
+        times = []
+        for i in range(iters + 1):
+            t0 = time.perf_counter()
             fn()
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(iters):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            return statistics.median(times)
+            for d in devices:
+                torch.cuda.synchronize(d)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times[1:])
 
-        enc_s = timed(lambda: self._encode_tail(x, b1, b2, "tpu_dev", False))
-        res = self.compress(images, beta_rate=beta_rate, beta_vq=beta_vq)
-        hdr = self._parse([r["string_list"] for r in res])
-        _, _, zH, zW, yH, yW = _geometry(H, W)
-        y_cap, z_cap = self._tpu_caps(B, yH, yW, zH, zW, self.lanes)
-        y_words, y_base = self._upload_words([r["string_list"][2] for r in res], y_cap)
-        z_words, z_base = self._upload_words([r["string_list"][1] for r in res], z_cap)
-        dec_s = timed(lambda: self._decode_pipeline(
-            z_words, z_base, y_words, y_base, B, zH, zW, yH, yW, self.lanes,
-            sparse_esc=not hdr["esc_dense"], recon=True, b1=b1, b2=b2,
-            tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]),
-            portable=bool(hdr["portable"])))
-        return {"enc_s": enc_s, "dec_s": dec_s}
+    enc_s = timed(lambda: [c._encode_tail(*up, "tpu_dev", False)
+                           for c, up in zip(shards, ups)])
+    res = codec.compress(images, beta_rate=beta_rate, beta_vq=beta_vq)
+    hdr = codec._parse([r["string_list"] for r in res])
+    _, _, zH, zW, yH, yW = _geometry(H, W)
+    zs, ys = (cut([r["string_list"][k] for r in res]) for k in (1, 2))
+    words = [c._upload_tpu(z, y, (H, W), codec.lanes) for c, z, y in zip(shards, zs, ys)]
+    dec_s = timed(lambda: [c._decode_pipeline(
+        *w, len(z), zH, zW, yH, yW, codec.lanes, sparse_esc=not hdr["esc_dense"],
+        recon=True, b1=b1, b2=b2, tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]),
+        portable=bool(hdr["portable"])) for c, w, z, (_, b1, b2) in zip(shards, words, zs, ups)])
+    return {"enc_s": enc_s, "dec_s": dec_s}

@@ -3,7 +3,7 @@ the straight-through round, the lower bound with its one-sided gradient, and
 the source of the training forward's random draws."""
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import torch
 
@@ -39,14 +39,21 @@ class Noise:
     for the likelihoods and Gumbel noise for the estimator's sampling. From
     a ``torch.Generator`` on the tensors' device, or, to replay another
     run's draws, from ``draws``: tensors consumed in call order (each must
-    have the shape asked for)."""
+    have the shape asked for).
+
+    ``shard=(rank, world)``: a data-parallel rank's source. Each draw is
+    made (or replayed) at the global batch's shape, ``world`` times the
+    local size along ``batch_axis``, and the rank's contiguous slice is
+    returned, so the ranks together see the single-process draws."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
-                 draws: Optional[Iterable[torch.Tensor]] = None):
+                 draws: Optional[Iterable[torch.Tensor]] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         if (generator is None) == (draws is None):
             raise ValueError("Noise takes a generator or a list of draws")
         self.generator = generator
         self._draws = None if draws is None else iter(draws)
+        self.rank, self.world = shard or (0, 1)
 
     def _replay(self, shape, like: torch.Tensor) -> torch.Tensor:
         try:
@@ -57,16 +64,24 @@ class Noise:
             raise ValueError(f"Noise: replayed draw {tuple(t.shape)}, asked for {tuple(shape)}")
         return t.to(device=like.device, dtype=like.dtype)
 
-    def uniform(self, shape, like: torch.Tensor) -> torch.Tensor:
-        """U(-0.5, 0.5) of ``shape`` on ``like``'s device and dtype."""
-        if self._draws is not None:
-            return self._replay(shape, like)
-        return torch.rand(shape, generator=self.generator, device=like.device,
-                          dtype=like.dtype) - 0.5
+    def _draw(self, shape, like, batch_axis: int, fresh) -> torch.Tensor:
+        """``fresh(global shape)`` or the next replayed draw, and this
+        rank's slice of it."""
+        shape = list(shape)
+        local = shape[batch_axis]
+        shape[batch_axis] = local * self.world
+        t = self._replay(shape, like) if self._draws is not None else fresh(shape)
+        return t if self.world == 1 else t.narrow(batch_axis, self.rank * local, local)
 
-    def gumbel(self, shape, like: torch.Tensor) -> torch.Tensor:
+    def uniform(self, shape, like: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
+        """U(-0.5, 0.5) of ``shape`` on ``like``'s device and dtype; the
+        batch runs along ``batch_axis``."""
+        return self._draw(shape, like, batch_axis, lambda s: torch.rand(
+            s, generator=self.generator, device=like.device, dtype=like.dtype) - 0.5)
+
+    def gumbel(self, shape, like: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
         """Standard Gumbel draws of ``shape``: -log(E), E ~ Exp(1)."""
-        if self._draws is not None:
-            return self._replay(shape, like)
-        e = torch.empty(shape, device=like.device, dtype=like.dtype)
-        return -torch.log(e.exponential_(generator=self.generator))
+        def fresh(s):
+            e = torch.empty(s, device=like.device, dtype=like.dtype)
+            return -torch.log(e.exponential_(generator=self.generator))
+        return self._draw(shape, like, batch_axis, fresh)

@@ -1,7 +1,13 @@
 """Host data loader: threaded decode and prefetch, infinite shuffled batches
 (port of dc_vic_tpu/data/loader.py). A pool of threads reads the next
 batches while the current one trains; the item order and each item's crop
-depend on the seed alone, not on the threads."""
+depend on the seed alone, not on the threads.
+
+A data-parallel rank (``rank``, ``world``) takes its rows of each global
+batch (``parallel/mesh.py::shard_rows``; ``groups=2`` for the halves of an
+``mc_sampling`` batch) and decodes only those. The global order, crops and
+flips are the single-process loader's, because each item's generator is
+keyed by (seed, epoch, index) alone."""
 from __future__ import annotations
 
 import queue
@@ -10,18 +16,23 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from ..parallel.mesh import shard_rows
 from .datasets import BaseImageDataset
 
 
 class HostDataLoader:
     def __init__(self, dataset: BaseImageDataset, batch_size: int, num_workers: int = 8,
-                 seed: int = 0, prefetch: int = 4, drop_last: bool = True):
+                 seed: int = 0, prefetch: int = 4, drop_last: bool = True,
+                 rank: int = 0, world: int = 1, groups: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.seed = seed
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.rank, self.world, self.groups = rank, world, groups
+        if world > 1:
+            shard_rows(batch_size, rank, world, groups)     # raises if it does not divide
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -29,13 +40,17 @@ class HostDataLoader:
 
     def epoch_batches(self, epoch: int = 0, shuffle: bool = True) -> Iterator[Dict]:
         """One pass over the dataset: dicts of ``real_images`` (NHWC
-        float32 in [-1, 1]) and ``paths``."""
+        float32 in [-1, 1]) and ``paths``; this rank's rows of each global
+        batch."""
         n = len(self.dataset)
         rng = np.random.default_rng(self.seed + epoch)
         order = rng.permutation(n) if shuffle else np.arange(n)
         if self.drop_last:
             order = order[: (n // self.batch_size) * self.batch_size]
         batches = [order[i:i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        if self.world > 1:
+            batches = [b[shard_rows(len(b), self.rank, self.world, self.groups)]
+                       for b in batches]
 
         def fetch(idx: int) -> Dict:
             item_rng = np.random.default_rng(

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..codec.ops import Noise
+from ..parallel.mesh import DataParallel
 from .optim import Optimizer
 
 
@@ -57,13 +58,23 @@ class BetaPolicy:
     weight_type: str = "exp"     # 'exp' -> e^beta, 'linear' -> beta + offset
     weight_offset: float = 1.0
 
-    def sample(self, generator: torch.Generator, batch_size: int):
+    def sample(self, generator: torch.Generator, batch_size: int,
+               shard: Optional[Tuple[int, int]] = None):
         """(beta_rate, beta_vq), each [batch_size] or [1] f32 on the
         generator's device: one of the selected pairs, or each beta on a
-        grid of num_levels + 1 levels up to its maximum."""
+        grid of num_levels + 1 levels up to its maximum. ``shard=(rank,
+        world)``: per-sample betas are drawn for the global batch of
+        ``world * batch_size`` and the rank's slice is returned."""
         if not self.use_beta:
             return None, None
-        n = batch_size if self.sample_batch_beta else 1
+        rank, world = shard or (0, 1)
+        if not self.sample_batch_beta:
+            return self._draw(generator, 1)
+        b1, b2 = self._draw(generator, batch_size * world)
+        return (b1[rank * batch_size:(rank + 1) * batch_size],
+                b2[rank * batch_size:(rank + 1) * batch_size])
+
+    def _draw(self, generator: torch.Generator, n: int):
         dev = generator.device
         if self.use_selected_pairs:
             i = torch.randint(0, len(self.selected_beta_rate), (n,), generator=generator,
@@ -187,32 +198,54 @@ def _zero_grads(*modules):
             p.grad = None
 
 
+def _noise(generator: torch.Generator, dp: Optional[DataParallel]) -> Noise:
+    return Noise(generator) if dp is None else Noise(generator, shard=dp.shard)
+
+
+def _update(opts, terms: Dict[str, torch.Tensor], totals, dp: Optional[DataParallel]):
+    """The end of a step: with ``dp``, the logged terms averaged over the
+    ranks in one collective and each optimizer's gradients averaged before
+    its step; the step is skipped unless every total (read from ``terms``
+    after that average, so every rank decides alike) is finite. Returns the
+    terms with ``skipped``."""
+    terms = {k: v.detach() for k, v in terms.items()}
+    if dp is not None:
+        terms = dp.all_reduce_mean(terms)
+    ok = _finite(terms[totals[0]])
+    for name in totals[1:]:
+        ok = ok & _finite(terms[name])
+    for opt in opts:
+        opt.step(None if dp is None else dp.mean_grads(opt.params), ok=ok)
+    terms["skipped"] = (~ok).float()
+    return terms
+
+
 def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPolicy,
-            lpips_fn=None) -> Dict[str, torch.Tensor]:
+            lpips_fn=None, dp: Optional[DataParallel] = None) -> Dict[str, torch.Tensor]:
     """One RD step (stages 1_1 and 1_2) on a batch NCHW in [-1, 1]: main and aux
     updates in one backward (the aux loss reaches only the quantiles, which
-    the main loss never does). Returns the terms as device scalars."""
+    the main loss never does). Returns the terms as device scalars. ``dp``:
+    this rank's share of a data-parallel step, ``batch`` its slice of the
+    global batch (``parallel/mesh.py``)."""
     model = state.model
-    beta_rate, beta_vq = policy.sample(state.generator, batch.shape[0])
+    shard = None if dp is None else dp.shard
+    beta_rate, beta_vq = policy.sample(state.generator, batch.shape[0], shard)
     _zero_grads(model)
     total, terms, out = rd_losses(model, losses, batch, beta_rate, beta_vq, policy,
-                                  Noise(state.generator), lpips_fn)
+                                  _noise(state.generator, dp), lpips_fn)
     aux = model.aux_loss()
     (total + aux).backward()
-    ok = _finite(total.detach())
-    state.g_opt.step(ok=ok)
-    state.aux_opt.step(ok=ok)
+    terms.update(bpp=out["bpp"], qbpp=out["qbpp"], vq_accuracy=out["vq_accuracy"],
+                 total=total, aux=aux)
+    terms = _update((state.g_opt, state.aux_opt), terms, ("total",), dp)
     state.step += 1
-    terms = {k: v.detach() for k, v in terms.items()}
-    terms.update(bpp=out["bpp"].detach(), qbpp=out["qbpp"].detach(),
-                 vq_accuracy=out["vq_accuracy"].detach(), total=total.detach(),
-                 aux=aux.detach(), skipped=(~ok).float())
     return terms
 
 
 def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPolicy,
              mc_sampling: bool = False, y_hat_cond: bool = False,
-             lpips_fn=None, oasis: bool = False) -> Dict[str, torch.Tensor]:
+             lpips_fn=None, oasis: bool = False,
+             dp: Optional[DataParallel] = None) -> Dict[str, torch.Tensor]:
     """One GAN step (stages 1_3 and 3): the generator's update against the
     discriminator as it is, then the discriminator's on the reals and the
     generator's (detached) fakes; both are skipped unless both losses are
@@ -220,7 +253,9 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
     and G on its first; ``y_hat_cond`` gives D the y_hat of each;
     ``oasis`` keys the adversarial terms on VQ token maps: the fakes on the
     generator batch's, the reals on the same map, or with ``mc_sampling``
-    on their own."""
+    on their own. ``dp`` as in ``rd_step``; with ``mc_sampling`` the rank's
+    batch holds its slice of each half of the global batch, in that order
+    (``shard_rows(..., groups=2)``)."""
     model, disc = state.model, state.disc
     gan_loss = losses["gan_loss"]
     if mc_sampling:
@@ -228,13 +263,15 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
         g_batch, d_real_batch = batch[:half], batch[half:half * 2]
     else:
         g_batch = d_real_batch = batch
-    beta_rate, beta_vq = policy.sample(state.generator, g_batch.shape[0])
+    beta_rate, beta_vq = policy.sample(state.generator, g_batch.shape[0],
+                                       None if dp is None else dp.shard)
 
     _zero_grads(model, disc)
     disc.requires_grad_(False)
     try:
         g_total, terms, out = gan_g_losses(model, disc, losses, g_batch, beta_rate, beta_vq,
-                                           policy, Noise(state.generator), lpips_fn, oasis)
+                                           policy, _noise(state.generator, dp), lpips_fn,
+                                           oasis)
         g_total.backward()
     finally:
         disc.requires_grad_(True)
@@ -251,11 +288,8 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
                          beta_vq, real_y_hat, fake_y_hat, real_tokens=real_tokens,
                          fake_tokens=fake_tokens)
     d_total.backward()
-    ok = _finite(g_total.detach()) & _finite(d_total.detach())
-    state.g_opt.step(ok=ok)
-    state.d_opt.step(ok=ok)
+    terms.update(bpp=out["bpp"], vq_accuracy=out["vq_accuracy"], total=g_total,
+                 d_loss=d_total)
+    terms = _update((state.g_opt, state.d_opt), terms, ("total", "d_loss"), dp)
     state.step += 1
-    terms = {k: v.detach() for k, v in terms.items()}
-    terms.update(bpp=out["bpp"].detach(), vq_accuracy=out["vq_accuracy"].detach(),
-                 total=g_total.detach(), d_loss=d_total.detach(), skipped=(~ok).float())
     return terms

@@ -29,13 +29,29 @@ TF32 off (the stage configs train in f32) and cuDNN free to benchmark its
 algorithms (``_FLAGS``); the process's settings are left as they were.
 ``recon_kernels`` in the config chooses the reconstruction kernels
 (``build_comp_model``).
+
+Data parallelism (``dp``, a ``parallel.mesh.DataParallel``; the counterpart
+of the JAX trainer's mesh, which it always builds): one process per rank,
+each with a whole trainer on its own device. Per rank: the loader decodes
+the rank's rows of each global batch, and the step runs on them with betas
+and noise drawn for the global batch and sliced. All-reduced: the
+optimizers' gradients (one flat bucket each, before its step) and the
+logged scalars (one collective a step; the skip is decided on their mean).
+Rank 0's weights are broadcast after the seeded initialisation and any
+checkpoint load, and every rank takes the whole first global batch for
+ActNorm's data-dependent init. Rank 0 alone writes the CSVs, the
+checkpoints and the log, and runs the validation; the other ranks wait at a
+barrier. No wrapper module is used, so checkpoint keys are the model's own
+whatever the rank count: a checkpoint written by 2 ranks boots 1, and the
+reverse. A BatchNorm discriminator is refused with more than one rank (its
+batch statistics would be the rank's, not the global batch's).
 """
 from __future__ import annotations
 
 import importlib
 import importlib.util
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,6 +63,7 @@ from ..metrics.image import calc_ms_ssim, calc_psnr
 from ..models import build_comp_model, init_weights
 from ..models.dc_vic import pad_image
 from ..models.discriminators import build_discriminator, init_discriminator
+from ..parallel.mesh import DataParallel
 from ..utils.backends import backend_flags
 from ..utils.logger import AvgMeter, CSVLogger, bolded_log, get_root_logger
 from ..utils.paths import PathHandler
@@ -67,11 +84,14 @@ class Trainer:
     """One stage of the curriculum; ``gan`` selects the GAN step, ``oasis``
     its token-keyed adversarial loss."""
 
-    def __init__(self, opt, gan: bool = False, oasis: bool = False, device="cuda"):
+    def __init__(self, opt, gan: bool = False, oasis: bool = False, device="cuda",
+                 dp: Optional[DataParallel] = None):
         self.opt = opt
         self.gan = gan
         self.oasis = oasis
         self.device = torch.device(device)
+        self.dp = dp
+        self.is_main = dp is None or dp.is_main
         self.logger = get_root_logger()
         self.paths = PathHandler(opt.get("ckpt_root", "./checkpoint"), opt.get("exp", "exp"))
         self.paths.make_job_dir()
@@ -90,9 +110,13 @@ class Trainer:
     def _set_data(self):
         dcfg = self.opt["dataset"]
         self.batch_size = dcfg.get("batch_size", 6)
+        self.train_dataset = build_dataset(dcfg["train_dataset"], is_train=True)
+        rank, world = self.dp.shard if self.dp is not None else (0, 1)
+        # mc_sampling's halves of the global batch stay apart on every rank
+        mc = self.gan and dict(self.opt.get("trainer") or {}).get("mc_sampling", False)
         self.train_loader = HostDataLoader(
-            build_dataset(dcfg["train_dataset"], is_train=True), self.batch_size,
-            num_workers=8, seed=self.opt.get("seed", 0))
+            self.train_dataset, self.batch_size, num_workers=8, seed=self.opt.get("seed", 0),
+            rank=rank, world=world, groups=2 if mc and world > 1 else 1)
         self.eval_loader = HostDataLoader(
             build_dataset(dcfg["eval_dataset"], is_train=False), 1, num_workers=1)
 
@@ -162,9 +186,16 @@ class Trainer:
         if self.gan:
             disc = build_discriminator(dict(opt["discriminator"]), self.device)
             init_discriminator(disc, gen)
-            if opt["discriminator"].get("norm_type") == "actnorm":
-                # ActNorm takes its loc and scale from the first real batch
-                real = self._to_device(next(self.train_loader.infinite())["real_images"])
+            norm_type = opt["discriminator"].get("norm_type")
+            if norm_type == "batchnorm" and self.dp is not None and self.dp.world > 1:
+                raise NotImplementedError("a BatchNorm discriminator over more than one "
+                                          "rank: its statistics would be per rank")
+            if norm_type == "actnorm":
+                # ActNorm takes its loc and scale from the first real batch:
+                # the whole global batch, on every rank
+                first = HostDataLoader(self.train_dataset, self.batch_size, num_workers=8,
+                                       seed=self.opt.get("seed", 0))
+                real = self._to_device(next(first.epoch_batches(0))["real_images"])
                 beta = torch.zeros(1, device=self.device)
                 with torch.no_grad():
                     disc(real, beta, beta)
@@ -178,9 +209,16 @@ class Trainer:
             self._load_checkpoint(load_cfg)
         elif opt.get("start_iter", 0) > 0:
             self._resume_same_exp(int(opt["start_iter"]))
+        if self.dp is not None:
+            self.dp.replicate(self.model)
+            self.dp.replicate(disc)
         self.saver = Saver(self.paths.model_dir, opt.get("keep_step") or ())
 
     def _set_loggers(self):
+        self._wandb = None
+        if not self.is_main:
+            self.loss_csv = self.eval_csv = self.meter = None
+            return
         fields = ["iter", "total", "bpp", "distortion", "skipped"]
         if self.gan:
             fields += ["adv", "d_loss"]
@@ -190,7 +228,6 @@ class Trainer:
                                    "vq_acc"])
         self.meter = AvgMeter()
         # the optional wandb sink: used where the package is installed
-        self._wandb = None
         if self.opt.get("use_wandb"):
             if importlib.util.find_spec("wandb") is None:
                 self.logger.warning("use_wandb set but wandb is not installed")
@@ -213,8 +250,10 @@ class Trainer:
         with backend_flags(**_FLAGS):
             if self.gan:
                 return gan_step(self.state, batch, self.losses, self.policy,
-                                self.mc_sampling, self.y_hat_cond, self.lpips_fn, self.oasis)
-            return rd_step(self.state, batch, self.losses, self.policy, self.lpips_fn)
+                                self.mc_sampling, self.y_hat_cond, self.lpips_fn, self.oasis,
+                                dp=self.dp)
+            return rd_step(self.state, batch, self.losses, self.policy, self.lpips_fn,
+                           dp=self.dp)
 
     @staticmethod
     def _carried_keys(target: Dict, raw: Dict) -> List[str]:
@@ -335,8 +374,10 @@ class Trainer:
         bolded_log(f"training {opt.get('exp')} [{start_iter}..{total_iter}]")
         for itr in range(start_iter + 1, total_iter + 1):
             batch = self._to_device(next(data_iter)["real_images"])
-            self.meter.update(self.step(batch))
-            if itr % log_step == 0:
+            terms = self.step(batch)
+            if self.is_main:
+                self.meter.update(terms)
+            if itr % log_step == 0 and self.is_main:
                 avg = self.meter.pop()
                 stat = timer.get_time_stat(itr)
                 self.logger.info(
@@ -358,11 +399,23 @@ class Trainer:
         br, bv = self.policy.max_beta_rate, self.policy.max_beta_vq
         return [(0.0, 0.0), (0.0, bv), (br, 0.0), (br, bv)]
 
-    @torch.no_grad()
+    def _on_main(self, work):
+        """``work()`` on rank 0 alone, the other ranks waiting at a barrier
+        (every rank calls this); its result on rank 0, None elsewhere."""
+        result = work() if self.is_main else None
+        if self.dp is not None:
+            self.dp.barrier()
+        return result
+
     def validate(self, itr: int, max_samples: int = 24) -> Dict[str, float]:
         """bpp (of the hard-rounded codes), PSNR, MS-SSIM and VQ accuracy on
         the eval images, one CSV row per beta corner (the beta columns empty
-        without betas). Returns the last corner's averages."""
+        without betas). Returns the last corner's averages (rank 0; an
+        empty dict on the other ranks)."""
+        return self._on_main(lambda: self._validate(itr, max_samples)) or {}
+
+    @torch.no_grad()
+    def _validate(self, itr: int, max_samples: int) -> Dict[str, float]:
         avg = {}
         with backend_flags(**_FLAGS):
             for corner in self._beta_eval_grid():
@@ -394,7 +447,11 @@ class Trainer:
 
     def save(self, itr: int):
         """comp_model, training_state (optimizers and step) and, in the GAN
-        stages, the discriminator and its optimizer."""
+        stages, the discriminator and its optimizer; written by rank 0
+        (returns the paths there, None elsewhere)."""
+        return self._on_main(lambda: self._save(itr))
+
+    def _save(self, itr: int):
         training_state = {"g_opt": self.state.g_opt.state_dict(),
                           "aux_opt": self.state.aux_opt.state_dict(), "step": self.state.step}
         payloads = {"comp_model": self.model.state_dict(), "training_state": training_state}
@@ -407,26 +464,27 @@ class Trainer:
 
 
 @TRAINER_REGISTRY.register()
-def RateDistortionVqCodeTrainer(opt, device="cuda"):
-    return Trainer(opt, gan=False, device=device)
+def RateDistortionVqCodeTrainer(opt, device="cuda", dp=None):
+    return Trainer(opt, gan=False, device=device, dp=dp)
 
 
 @TRAINER_REGISTRY.register()
-def DualBetaCondRateDistortionVqCodeTrainer(opt, device="cuda"):
-    return Trainer(opt, gan=False, device=device)
+def DualBetaCondRateDistortionVqCodeTrainer(opt, device="cuda", dp=None):
+    return Trainer(opt, gan=False, device=device, dp=dp)
 
 
 @TRAINER_REGISTRY.register()
-def DualBetaCondGanDistortionVqCodeTrainer(opt, device="cuda"):
-    return Trainer(opt, gan=True, device=device)
+def DualBetaCondGanDistortionVqCodeTrainer(opt, device="cuda", dp=None):
+    return Trainer(opt, gan=True, device=device, dp=dp)
 
 
 @TRAINER_REGISTRY.register()
-def DualBetaCondOasisGanDistortionVqFusionTrainer(opt, device="cuda"):
-    return Trainer(opt, gan=True, oasis=True, device=device)
+def DualBetaCondOasisGanDistortionVqFusionTrainer(opt, device="cuda", dp=None):
+    return Trainer(opt, gan=True, oasis=True, device=device, dp=dp)
 
 
-def build_trainer(opt, device="cuda") -> Trainer:
+def build_trainer(opt, device="cuda", dp: Optional[DataParallel] = None) -> Trainer:
     """The trainer of ``opt.trainer.type`` on ``device`` (the card unless
-    the caller asks for the CPU; without CUDA the default raises)."""
-    return TRAINER_REGISTRY.get(opt["trainer"]["type"])(opt, device=device)
+    the caller asks for the CPU; without CUDA the default raises); ``dp``:
+    this process's rank of a data-parallel run (module docstring)."""
+    return TRAINER_REGISTRY.get(opt["trainer"]["type"])(opt, device=device, dp=dp)
