@@ -292,6 +292,26 @@
    bit-exactly between the mesh codec and a single-device one in both
    directions; the wall time of a round trip and bench_device_cycle of the
    mesh against the single-device codec at batch 16.
+20. Fully sharded training (parallel/fsdp.py, ``fsdp: true``), stages 1_2
+   (RD) and 1_3 (GAN) at item 19's batch and ranks: (b) over an nccl group
+   of world 1 the trainer shards nothing and its step is the plain step bit
+   for bit; (e) data_parallel_eval of the flagship's eval forward over
+   ["cuda:0", "cuda:0"] against one call on the batch of 6, each output
+   within item 19's WHOLE_BATCH_GRAD_TOL; (a) 2 gloo ranks on this card
+   (nccl, a card a rank, with two or more), each running the data-parallel
+   step and then the FSDP step from the same bits under DETERMINISTIC: the
+   terms and the launches equal (and equal to item 19's ranks'), every
+   slice a rank holds and every whole tensor (weights, both Adam moments,
+   counters) within FSDP_TOL of the data-parallel rank's (the JAX FSDP
+   test's tolerance; the bit-equal count and the largest difference
+   printed), the gathered states bit-equal across the ranks; (c) a rank's
+   bytes of parameters and moments between steps, FSDP against data
+   parallel, the bytes a step all-gathers, reduce-scatters and
+   all-reduces, the peak over a warm step and the warm step's seconds
+   (host clock); (d) the FSDP ranks' stage 1_3 save (gathered on every
+   rank, written by rank 0) boots a 1-process trainer bit for bit: model,
+   discriminator and the optimizer states. The kernels line carries each
+   rank's launches of the FSDP steps (train_launches_fsdp_*_ranks).
 A Codec constructed and called with the caller's TF32 and cuDNN benchmark
 on leaves them so and round-trips bit-exactly (after item 3).
 
@@ -4267,6 +4287,323 @@ def check_mesh_codec(deployment_sd, smi):
     return launches
 
 
+# --------------------------------------------- fully sharded training (item 20)
+
+FSDP_TOL = dict(rtol=2e-4, atol=2e-5)     # tests/test_train.py's FSDP against replicated
+EVAL_SWEEP_MESH = ("cuda:0", "cuda:0")
+
+
+def _whole_state(tr):
+    """``_train_state`` with every tensor whole: under FSDP gathered on
+    every rank (every rank calls this)."""
+    return tr._whole(lambda: _train_state(tr))
+
+
+def _opts(tr):
+    return [(k, getattr(tr.state, k)) for k in ("g_opt", "aux_opt", "d_opt")
+            if getattr(tr.state, k) is not None]
+
+
+def _resident_bytes(tr):
+    """The bytes of parameters and optimizer moments the rank holds now:
+    the modules' parameters (a released sharded one holds none), the FSDP
+    slices and the moments, each tensor once."""
+    held = {}
+    modules = [tr.model] + ([tr.state.disc] if tr.state.disc is not None else [])
+    tensors = [p for m in modules for p in m.parameters()]
+    if tr.fsdp is not None:
+        tensors += [s for lay in tr.fsdp.layouts for s in lay.shards.values()]
+    for _, opt in _opts(tr):
+        tensors += list(opt.params) + list(opt.mu or []) + list(opt.nu or [])
+    for t in tensors:
+        held.setdefault(id(t), t.numel() * t.element_size())
+    return sum(held.values())
+
+
+def _hold_fsdp_slices(tr, dp_after, rank, world, label):
+    """Every tensor the FSDP rank holds after its step against the same
+    tensor of the data-parallel rank after its step from the same bits: a
+    slice against the data-parallel tensor's slice on the shard dimension,
+    a whole tensor against the whole, at FSDP_TOL (the counters exactly).
+    Returns (tensors, bit-equal, largest |difference|, its tensor)."""
+    import torch
+    pairs = []
+    for lay, prefix in zip(tr.fsdp.layouts, ("model.", "disc.")):
+        pairs += [(prefix + n, lay.param(n), lay.plan[n]) for n in lay.params]
+    for key, opt in _opts(tr):
+        pairs += [(f"{key}.{c}", getattr(opt, c), None) for c in ("count", "sched_count")]
+        for moment in ("mu", "nu"):
+            pairs += [(f"{key}.{moment}.{n}", t, opt.layout.plan[n])
+                      for n, t in zip(opt.names, getattr(opt, moment) or [])]
+    equal, worst, worst_name = 0, 0.0, None
+    for name, got, d in pairs:
+        got, want = got.detach(), dp_after[name]
+        if d is not None:
+            k = want.shape[d] // world
+            want = want.narrow(d, rank * k, k)
+        if got.shape != want.shape or not torch.allclose(got, want, **FSDP_TOL):
+            raise AssertionError(f"{label}: {name} differs from the data-parallel step's "
+                                 f"beyond rtol {FSDP_TOL['rtol']}, atol {FSDP_TOL['atol']}")
+        equal += bool(torch.equal(got, want))
+        diff = float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+        if diff > worst:
+            worst, worst_name = diff, name
+    return len(pairs), equal, worst, worst_name
+
+
+def _fsdp_rank(rank, world, backend, store, root, devices, out):
+    """One rank of item 20 (a), in its own process: for each stage, the
+    data-parallel trainer's counted step and warm step, then the fully
+    sharded trainer's (``fsdp: true``) from the same bits, held here
+    against the data-parallel one; bytes at rest, collective bytes, peaks
+    and warm seconds of both; after the last stage's steps an FSDP save.
+    Writes what it saw to ``out/rank{rank}.pt``."""
+    import torch
+    from dc_vic_tpu_torch.ops import native
+    from dc_vic_tpu_torch.parallel.mesh import init_distributed, teardown
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    torch.cuda.set_device(devices[rank])
+    native.kernels()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dp = init_distributed(rank, world, backend, f"file://{store}")
+    res = {}
+    try:
+        for stage in DP_STAGES:
+            got = res[stage] = {}
+            for mode in ("dp", "fsdp"):
+                opt = training_opt(stage, root)
+                opt["fsdp"] = mode == "fsdp"
+                tr = build_trainer(opt, device=devices[rank], dp=dp)
+                if (tr.fsdp is None) != (mode == "dp"):
+                    raise AssertionError(f"rank {rank}: fsdp {opt['fsdp']} built {tr.fsdp}")
+                batch = tr._to_device(next(tr.train_loader.epoch_batches(0))["real_images"])
+                start = _bits(_whole_state(tr))
+                terms, launched, _ = _dp_step(tr, batch, dp, grads=False)
+                resident = _resident_bytes(tr)
+                if mode == "dp":
+                    dp_after = _train_state(tr)
+                else:
+                    got["held"] = _hold_fsdp_slices(tr, dp_after, rank, world,
+                                                    f"rank {rank}, stage {stage}")
+                    got["after"] = _bits(_whole_state(tr))
+                    del dp_after
+                torch.cuda.reset_peak_memory_stats()
+                warm, step_s = _timed_step(tr, batch, dp)
+                got[mode] = dict(start=start, terms=terms, launched=launched, warm=warm,
+                                 step_s=step_s, resident=resident,
+                                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                if mode == "fsdp":
+                    # the step's collectives alone: the all-gather of the sharded
+                    # parameters, then the gradients' reduce-scatters and all-reduces
+                    # (zeros: no gradient is left after a step)
+                    t = time.perf_counter()
+                    tr.fsdp.gather()
+                    torch.cuda.synchronize()
+                    got["gather_s"] = time.perf_counter() - t
+                    t = time.perf_counter()
+                    for key in ("g_opt", "d_opt" if tr.gan else "aux_opt"):
+                        tr.fsdp.mean_grads(getattr(tr.state, key))
+                    torch.cuda.synchronize()
+                    got["scatter_s"] = time.perf_counter() - t
+                    tr.fsdp.release()
+                if mode == "fsdp" and stage == DP_STAGES[-1]:
+                    got["saved_bits"] = _bits(_whole_state(tr))
+                    got["saved"] = tr.save(1)
+                del tr
+                torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        teardown()
+
+
+def _eval_sweep(model, batch, smi):
+    """Item 20 (e): ``data_parallel_eval`` of the eval forward over
+    EVAL_SWEEP_MESH against one call on the whole batch, each output held
+    within WHOLE_BATCH_GRAD_TOL relative L2 (item 19's whole-batch limit:
+    split batches run other cuDNN algorithms, _batch_shape_witness)."""
+    import torch
+    from dc_vic_tpu_torch.parallel import data_parallel_eval
+    from dc_vic_tpu_torch.utils.backends import backend_flags
+
+    def forward(m, x, b1, b2):
+        out = m(x, b1, b2, is_train=False)
+        return dict(fake=out["fake_images"], y=out["latent_code"]["y"],
+                    y_hat=out["quantized_code"]["y"], z_hat=out["quantized_code"]["z"],
+                    tokens=out["out_vq_logits"].argmax(dim=1).float())
+    betas = [torch.full((1,), 1.0, device=batch.device)] * 2
+    sweep = data_parallel_eval(forward, EVAL_SWEEP_MESH)
+    with torch.no_grad(), backend_flags(**DETERMINISTIC):
+        whole = forward(model, batch, *betas)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        whole = forward(model, batch, *betas)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+        split = sweep(model, batch, *betas)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        split = sweep(model, batch, *betas)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t
+    rows = []
+    for k, w in whole.items():
+        g = split[k]
+        if g.shape != w.shape or g.device != w.device or not torch.isfinite(g).all():
+            raise AssertionError(f"item 20 (e): {k} {tuple(g.shape)} on {g.device}, want "
+                                 f"{tuple(w.shape)} on {w.device}")
+        _, rel = _rel_l2(g, w)
+        flips = int(((g - w).abs() > 0.5).sum()) if k in ("y_hat", "z_hat", "tokens") else None
+        if rel > WHOLE_BATCH_GRAD_TOL:
+            raise AssertionError(f"item 20 (e): {k} is {rel:.3e} relative L2 from one device's")
+        rows.append(f"{k} {rel:.3e}" + ("" if flips is None else f" ({flips} of {g.numel()} "
+                                                                 f"changed)"))
+    print(f"item 20 (e): data_parallel_eval of the eval forward over {list(EVAL_SWEEP_MESH)}, "
+          f"batch {batch.shape[0]}, against one device (relative L2, limit "
+          f"{WHOLE_BATCH_GRAD_TOL}): {', '.join(rows)}; warm {sweep_s:.4f} s against "
+          f"{one_s:.4f} s ({smi}; host clock, one call each, replicas made in the call)")
+
+
+def check_fsdp(smi, dp_runs):
+    """Item 20: (b) ``fsdp: true`` over an nccl world of 1 is the plain step,
+    (e) the eval sweep, (a) + (c) the FSDP ranks against the data-parallel
+    ones, (d) their checkpoint booting one process. ``dp_runs``: item 19's
+    result. Returns {stage: {backend: [launches of each rank's FSDP step]}}."""
+    import shutil
+    import tempfile
+    import torch
+    from dc_vic_tpu_torch.parallel.mesh import init_distributed, teardown
+    from dc_vic_tpu_torch.tools import fsdp_bytes
+    from dc_vic_tpu_torch.train.trainer import build_trainer
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dcvic_fsdp_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    try:
+        _training_images(root)
+        dp1 = init_distributed(0, 1, "nccl", f"file://{os.path.join(root, 'store_nccl1')}")
+        try:
+            for stage in DP_STAGES:
+                opt = training_opt(stage, root)
+                opt["fsdp"] = True
+                tr = build_trainer(opt, dp=dp1)
+                if tr.fsdp is not None:
+                    raise AssertionError("fsdp: true sharded a world of 1")
+                batch = tr._to_device(next(tr.train_loader.epoch_batches(0))["real_images"])
+                snap = _snapshot(tr)
+                terms, launched, _ = _dp_step(tr, batch, None, grads=False)
+                after = _bits(_train_state(tr))
+                _restore(tr, snap)
+                terms1, launched1, _ = _dp_step(tr, batch, dp1, grads=False)
+                if (terms1, launched1, _bits(_train_state(tr))) != (terms, launched, after):
+                    raise AssertionError(f"stage {stage}: fsdp: true over an nccl world of 1 "
+                                         f"is not the plain step bit for bit")
+                print(f"item 20 (b), stage {stage}: fsdp: true over an nccl world of 1 shards "
+                      f"nothing and gives the plain step's bits (terms, weights, optimizer "
+                      f"states; total {terms['total']:.6f})")
+                if stage == DP_STAGES[0]:
+                    _eval_sweep(tr.model.eval(), batch, smi)
+                del tr, snap
+                torch.cuda.empty_cache()
+        finally:
+            teardown()
+        runs = [("gloo", ["cuda:0"] * DP_WORLD)]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("nccl", [f"cuda:{i}" for i in range(DP_WORLD)]))
+        else:
+            print(f"item 20: one card ({smi}), so no nccl run over {DP_WORLD} cards")
+        saved = None
+        for backend, devices in runs:
+            done = os.path.join(root, f"fsdp_{backend}")
+            os.makedirs(done)
+            torch.multiprocessing.spawn(
+                _fsdp_rank, args=(DP_WORLD, backend, os.path.join(root, f"store_fsdp_{backend}"),
+                                  root, devices, done), nprocs=DP_WORLD, join=True)
+            ranks = [torch.load(os.path.join(done, f"rank{r}.pt"), weights_only=False)
+                     for r in range(DP_WORLD)]
+            for stage in DP_STAGES:
+                label = f"item 20, stage {stage}, {DP_WORLD} ranks ({backend}, {devices})"
+                item19 = dp_runs[stage].get(backend)
+                for r, rank in enumerate(ranks):
+                    dp, fs = rank[stage]["dp"], rank[stage]["fsdp"]
+                    if fs["start"] != dp["start"] or fs["start"] != ranks[0][stage]["dp"]["start"]:
+                        raise AssertionError(f"{label}: rank {r}'s FSDP trainer did not start "
+                                             f"from the data-parallel bits")
+                    if fs["terms"] != dp["terms"] or fs["terms"].get("skipped"):
+                        raise AssertionError(f"{label}: rank {r} terms {fs['terms']} against "
+                                             f"{dp['terms']}")
+                    if fs["launched"] != dp["launched"] or (
+                            item19 is not None and fs["launched"] != item19["launched"][r]):
+                        raise AssertionError(f"{label}: rank {r} launches {fs['launched']}, "
+                                             f"data parallel {dp['launched']}")
+                if ranks[0][stage]["after"] != ranks[1][stage]["after"]:
+                    raise AssertionError(f"{label}: the ranks' gathered states differ")
+                held = [rank[stage]["held"] for rank in ranks]
+                got = [rank[stage] for rank in ranks]
+                plan = fsdp_bytes.count(training_opt(stage, root), DP_WORLD)
+                if any((g["fsdp"]["resident"], g["dp"]["resident"])
+                       != (plan["resident_fsdp"], plan["resident_dp"]) for g in got):
+                    raise AssertionError(
+                        f"{label}: a rank holds {[g['fsdp']['resident'] for g in got]} B "
+                        f"between FSDP steps, {[g['dp']['resident'] for g in got]} B between "
+                        f"data-parallel ones; the plan gives {plan['resident_fsdp']} and "
+                        f"{plan['resident_dp']}")
+                print(f"{label}: terms equal to the data-parallel step's (total "
+                      f"{got[0]['fsdp']['terms']['total']:.6f}); each rank's slices and whole "
+                      f"tensors after the step against the data-parallel rank's at rtol {FSDP_TOL['rtol']}, atol {FSDP_TOL['atol']}: "
+                      + "; ".join(f"rank {r} {n} tensors, {eq} bit-equal, largest |difference| "
+                                  f"{w:.3e} ({name})" for r, (n, eq, w, name) in enumerate(held))
+                      + f"; the gathered states bit-equal across the ranks; launches a rank "
+                      f"{got[0]['fsdp']['launched']['forward']} (= the data-parallel step's"
+                      + ("" if item19 is None else " and item 19's") + ")")
+                print(f"{label}: bytes of parameters and moments each rank holds between "
+                      f"steps {plan['resident_fsdp']} FSDP against {plan['resident_dp']} data "
+                      f"parallel ({plan['resident_fsdp'] / plan['resident_dp']:.4f}), as "
+                      f"tools/fsdp_bytes.py counts them; a step all-gathers "
+                      f"{plan['all_gather']} B ({plan['sharded']} tensors), reduce-scatters "
+                      f"{plan['reduce_scatter']} B ({plan['sharded_trained']}) and all-reduces "
+                      f"{plan['all_reduce']} B (+ the terms); peak over a warm step "
+                      + ", ".join(f"{g['fsdp']['peak_gib']:.2f} / {g['dp']['peak_gib']:.2f}"
+                                  for g in got)
+                      + " GiB a rank (FSDP / data parallel); warm step "
+                      + ", ".join(f"{g['fsdp']['step_s']:.4f} / {g['dp']['step_s']:.4f}"
+                                  for g in got)
+                      + " s a rank (FSDP / data parallel); the collectives alone: all-gather "
+                      + ", ".join(f"{g['gather_s']:.4f}" for g in got)
+                      + " s, reduce-scatters and all-reduce "
+                      + ", ".join(f"{g['scatter_s']:.4f}" for g in got)
+                      + f" s ({smi}; host clock, one step each"
+                      + ("" if item19 is None else ", item 19's data-parallel ranks "
+                         + ", ".join(f"{s:.4f}" for s in item19["step_s"]) + " s")
+                      + ")")
+                out.setdefault(stage, {})[backend] = [g["fsdp"]["launched"] for g in got]
+            if saved is None:
+                saved = ranks[0][DP_STAGES[-1]]
+        # (d) the FSDP ranks' checkpoint boots one process
+        paths = saved["saved"]
+        tr = build_trainer(training_opt(DP_STAGES[-1], root, load=dict(
+            path=paths[0], training_state_path=paths[1], discriminator_path=paths[2],
+            strict=True)))
+        if not (tr.restored["strict"] and tr.restored["optimizer"]
+                and tr.restored["discriminator"]):
+            raise AssertionError(f"item 20 (d): the boot took {tr.restored}")
+        if _bits(_train_state(tr)) != saved["saved_bits"]:
+            raise AssertionError("item 20 (d): the 1-process trainer booted from the FSDP "
+                                 "checkpoint differs from the ranks' gathered state")
+        print(f"item 20 (d): the FSDP ranks' stage {DP_STAGES[-1]} checkpoint "
+              f"({', '.join(os.path.basename(p) for p in paths)}) boots one process bit for bit "
+              f"(model, discriminator, g_opt, aux_opt and d_opt states)")
+        del tr
+        torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"item 20 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4495,6 +4832,9 @@ def main():
     torch.cuda.empty_cache()
     print(f"item 19 took {time.perf_counter() - t19:.1f} s")
 
+    fsdp_launches = check_fsdp(smi, dp_launches)
+    torch.cuda.empty_cache()
+
     kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
@@ -4522,6 +4862,10 @@ def main():
                 if backend != "plain":
                     k[f"train_launches_dp_{stage}_{backend}_ranks"] = [
                         launched["forward"][k["name"]] for launched in run["launched"]]
+        for stage, table in fsdp_launches.items():
+            for backend, ranks in table.items():
+                k[f"train_launches_fsdp_{stage}_{backend}_ranks"] = [
+                    launched["forward"][k["name"]] for launched in ranks]
     for k in bf16_kernels:
         k["launches"] = launches16[k["name"][:-len("_bf16")]]
         k["path_shapes"] = [r for r in path_rows if r["name"] == k["name"]]

@@ -19,13 +19,13 @@ its shards one after another.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import canonical_device, replicas
 from .driver import Codec, PendingImages, _codec_call, _nhwc, device_cycle
 
 
@@ -38,22 +38,6 @@ class _PendingShards:
 
     def fetch(self) -> np.ndarray:
         return np.concatenate([p.fetch() for p in self._parts])[:self._keep]
-
-
-def _replicas(module, mesh: List[torch.device]) -> list:
-    """One model per mesh entry: ``module`` itself for a first entry on its
-    own device, a deep copy moved to the entry's device otherwise."""
-    own = next(module.parameters()).device
-    return [module if i == 0 and dev == own else copy.deepcopy(module).to(dev)
-            for i, dev in enumerate(mesh)]
-
-
-def _canonical(dev) -> torch.device:
-    """A mesh entry with its card index (``"cuda"`` is the current card)."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _pad_batch(items, multiple: int):
@@ -80,13 +64,13 @@ class MeshCodec:
         if params_backend == "cpu":
             raise ValueError("params_backend='cpu' with a mesh: each shard derives its "
                              "entropy parameters on its own device")
-        self.mesh = [_canonical(d) for d in mesh]
+        self.mesh = [canonical_device(d) for d in mesh]
         if not self.mesh:
             raise ValueError("a mesh needs at least one device")
         self._shards = [
             Codec(dataclasses.replace(spec, module=m), stream_format, encode_backend, lanes,
                   portable, params_backend or "accel")
-            for m in _replicas(spec.module.eval(), self.mesh)]
+            for m in replicas(spec.module.eval(), self.mesh)]
         first = self._shards[0]
         self.spec, self.module, self.device = spec, first.module, first.device
         self.stream_format, self.encode_backend = stream_format, encode_backend

@@ -17,10 +17,14 @@ insert the collectives. The port writes them out, for its two users:
   together, and its parameters stay bit-equal to the others'. The step is
   then the single-process step on the global batch up to the order of the
   sums.
+  Under FSDP (``fsdp: true``, ``parallel/fsdp.py``) each rank keeps only
+  its slices of the tensors ``fsdp_plan`` shards, gathers them for the step
+  and reduce-scatters their gradients.
 * **Serving: one process, a list of devices** (``make_mesh``). The codec
-  keeps one replica of the model per entry and runs each contiguous shard
-  of a batch on its replica (``codec/driver.py``). An entry may repeat a
-  device.
+  keeps one replica of the model per entry (``replicas``) and runs each
+  contiguous shard of a batch on its replica (``codec/mesh.py``);
+  ``data_parallel_eval`` does the same for any function of a module. An
+  entry may repeat a device.
 
 The backend is always the caller's choice (``"nccl"`` when each rank has a
 card of its own, ``"gloo"`` for CPU ranks or ranks that share a card). A
@@ -28,8 +32,10 @@ failed collective raises; nothing falls back to another backend.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Union
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
@@ -66,6 +72,85 @@ def make_mesh(n_devices: Union[None, int, Sequence] = None,
     if not mesh:
         raise ValueError("a mesh needs at least one device")
     return mesh
+
+
+def canonical_device(dev) -> torch.device:
+    """A mesh entry with its card index (``"cuda"`` is the current card)."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def replicas(module: nn.Module, mesh: Sequence[torch.device]) -> List[nn.Module]:
+    """One model per mesh entry: ``module`` itself for a first entry on its
+    own device, a deep copy moved to the entry's device otherwise."""
+    own = next(module.parameters()).device
+    return [module if i == 0 and dev == own else copy.deepcopy(module).to(dev)
+            for i, dev in enumerate(mesh)]
+
+
+def _concat(parts: list, dev: torch.device):
+    """Per-entry outputs joined on dim 0 on ``dev``: tensors, or dicts,
+    lists and tuples of them."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        if first.dim() == 0:
+            raise ValueError("data_parallel_eval joins outputs on the batch dim; "
+                             "a 0-dim output has none")
+        return torch.cat([p.to(dev) for p in parts])
+    if isinstance(first, dict):
+        return {k: _concat([p[k] for p in parts], dev) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_concat(list(q), dev) for q in zip(*parts))
+    raise TypeError(f"data_parallel_eval cannot join outputs of type {type(first).__name__}")
+
+
+def data_parallel_eval(fn: Callable, mesh: Sequence) -> Callable:
+    """``fn(module, batch, *args)`` over the devices of ``mesh`` in one
+    process (the port of the JAX ``data_parallel_eval``): the wrapper takes
+    the same arguments, runs ``fn`` on one replica of ``module`` per entry
+    (``replicas``, made at each call, so the weights are the module's at
+    that call) with the entry's contiguous shard of ``batch`` and the other
+    arguments whole on the entry's device, and returns the batch-major
+    outputs concatenated on the first entry's device. A batch that does not
+    divide by the mesh raises, as ``P("data")`` does."""
+    devices = [canonical_device(d) for d in mesh]
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+
+    def wrapper(module: nn.Module, batch: torch.Tensor, *args):
+        n = len(devices)
+        if batch.shape[0] % n:
+            raise ValueError(f"a batch of {batch.shape[0]} does not divide over {n} devices")
+        size = batch.shape[0] // n
+        outs = [fn(m, batch[i * size:(i + 1) * size].to(dev),
+                   *(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+                for i, (m, dev) in enumerate(zip(replicas(module, devices), devices))]
+        return _concat(outs, devices[0])
+    return wrapper
+
+
+def fsdp_plan(named_tensors, world: int, min_size: int = 1 << 14) -> Dict[str, Optional[int]]:
+    """The port of ``fsdp_sharding_tree``: for each (name, tensor), the
+    dimension it is sharded on over ``world`` ranks, or None where it stays
+    replicated. A tensor of at least ``min_size`` elements is sharded on its
+    largest dimension that divides by ``world`` (the first of equal ones);
+    a smaller one, or one with no such dimension, is replicated. The rule
+    reads the port's layout (OIHW convolutions), so on a tie the dimension
+    may be another than flax's (HWIO); which tensors are sharded is the
+    same."""
+    items = named_tensors.items() if isinstance(named_tensors, dict) else named_tensors
+    plan = {}
+    for name, t in items:
+        shape = tuple(t.shape)
+        best_dim, best = None, 0
+        if shape and math.prod(shape) >= min_size:
+            for d, s in enumerate(shape):
+                if s % world == 0 and s > best:
+                    best_dim, best = d, s
+        plan[name] = best_dim
+    return plan
 
 
 def shard_rows(n: int, rank: int, world: int, groups: int = 1) -> List[int]:

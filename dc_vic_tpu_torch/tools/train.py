@@ -15,7 +15,10 @@ batch: ``--nproc`` ranks (default: the most cards that divide the global
 batch, or half of it with ``mc_sampling``; 1 on the CPU), spawned here, rank
 r on ``cuda:r`` (or the CPU), joined through a file store by ``nccl`` on
 cards and ``gloo`` on the CPU. At ``--nproc 1`` the
-trainer runs in this process, without a process group.
+trainer runs in this process, without a process group. ``fsdp: true`` in
+the config trains the ranks fully sharded (``parallel/fsdp.py``), as the
+JAX trainer shards its state on a mesh of more than one device; one rank
+ignores it.
 """
 from __future__ import annotations
 

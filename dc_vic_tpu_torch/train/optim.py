@@ -13,7 +13,9 @@ rather than ``torch.optim``'s defaults:
   ``reset_schedule_counts`` zeroes while Adam's own counter and moments stay;
 * an optimizer holds only the parameters its mask trains, so a frozen leaf
   is never written; ``step(ok=...)`` keeps parameters, moments and counters
-  exactly as they were where ``ok`` is false, without a host sync.
+  exactly as they were where ``ok`` is false, without a host sync;
+* under FSDP (``shard``) it trains a rank's slices of the sharded tensors,
+  with moments to match, and clips by the norm of the whole tensors.
 
 Partitioning implements the reference's freezing rules on the port's
 parameter names: the aux optimizer sees only the entropy bottleneck's
@@ -111,6 +113,42 @@ class Optimizer:
                          for p in self.params]
         self.mu = zeros() if kind in ("Adam", "AdamW") or momentum else None
         self.nu = zeros() if kind in ("Adam", "AdamW") else None
+        self.layout = None        # a parallel.fsdp.ShardedParams under FSDP
+        self._sharded = None
+
+    @torch.no_grad()
+    def shard(self, layout) -> None:
+        """Train this rank's slices from here on (FSDP, ``parallel/fsdp.py``):
+        ``params``, ``mu`` and ``nu`` hold, for each tensor ``layout``
+        shards, the rank's slice, and the whole tensor for the others. The
+        clip norm is the whole tensors' (the slices' squares summed over the
+        ranks, the whole tensors' counted once); ``state_dict`` gathers the
+        moments whole (every rank calls it) and ``load_state_dict`` slices
+        them."""
+        self.layout = layout
+        self.params = [layout.param(n) for n in self.names]
+        for key in ("mu", "nu"):
+            if getattr(self, key) is not None:
+                setattr(self, key, [layout.local(n, t) for n, t in zip(self.names,
+                                                                         getattr(self, key))])
+        self._sharded = [layout.sharded(n) for n in self.names]
+
+    def _global_norm(self, gs) -> torch.Tensor:
+        """The norm over every tensor of ``gs``, as optax's
+        ``clip_by_global_norm`` takes it."""
+        if self.layout is None:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+
+        def squares(ts):
+            return torch.stack(torch._foreach_norm(ts)).square().sum()
+        sharded = [g for g, s in zip(gs, self._sharded) if s]
+        whole = [g for g, s in zip(gs, self._sharded) if not s]
+        total = torch.zeros((), dtype=gs[0].dtype, device=gs[0].device)
+        if sharded:
+            total = self.layout.sum_over_ranks(squares(sharded))
+        if whole:
+            total = total + squares(whole)
+        return torch.sqrt(total)
 
     def lr(self) -> torch.Tensor:
         """The learning rate the next step takes."""
@@ -127,7 +165,7 @@ class Optimizer:
                      for p in self.params]
         gs = [g.to(p.dtype) for g, p in zip(grads, self.params)]
         if self.clip_max_norm:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+            norm = self._global_norm(gs)
             clipped = torch._foreach_mul(torch._foreach_div(gs, norm), self.clip_max_norm)
             trigger = norm < self.clip_max_norm
             gs = [torch.where(trigger, g, c) for g, c in zip(gs, clipped)]
@@ -173,11 +211,18 @@ class Optimizer:
         put([self.count, self.sched_count], [new_count, self.sched_count + 1])
 
     def state_dict(self) -> Dict:
+        """The counters and the moments by name, whole."""
         out = {"count": self.count.clone(), "sched_count": self.sched_count.clone()}
         for key in ("mu", "nu"):
             if getattr(self, key) is not None:
-                out[key] = {n: t.clone() for n, t in zip(self.names, getattr(self, key))}
+                out[key] = {n: self._whole(n, t) for n, t in zip(self.names, getattr(self, key))}
         return out
+
+    def _whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A copy of the whole tensor of which ``t`` is this rank's part."""
+        if self.layout is not None and self.layout.sharded(name):
+            return self.layout.full(name, t)
+        return t.clone()
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
@@ -196,7 +241,7 @@ class Optimizer:
                 raise KeyError(f"optimizer state {key}: {len(missing)} trained parameters "
                                f"missing, e.g. {missing[0]}")
             for n, t in zip(self.names, own):
-                t.copy_(saved[n])
+                t.copy_(saved[n] if self.layout is None else self.layout.local(n, saved[n]))
 
 
 def build_optimizer(params: Dict[str, nn.Parameter], opt_cfg: Dict,

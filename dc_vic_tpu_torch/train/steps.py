@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..codec.ops import Noise
+from ..parallel.fsdp import FullyShardedState
 from ..parallel.mesh import DataParallel
 from .optim import Optimizer
 
@@ -33,8 +34,10 @@ from .optim import Optimizer
 @dataclasses.dataclass
 class TrainState:
     """What a step reads and updates: the model, its optimizers, the
-    discriminator's (GAN stages), the step count and the generator of the
-    betas and the noise (on the model's device)."""
+    discriminator's (GAN stages), the step count, the generator of the
+    betas and the noise (on the model's device) and, under FSDP, the rank's
+    sharded state (``parallel/fsdp.py``), gathered at the step's start and
+    released at its end."""
     model: nn.Module
     g_opt: Optimizer
     generator: torch.Generator
@@ -42,6 +45,7 @@ class TrainState:
     disc: Optional[nn.Module] = None
     d_opt: Optional[Optimizer] = None
     step: int = 0
+    fsdp: Optional[FullyShardedState] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,10 +206,13 @@ def _noise(generator: torch.Generator, dp: Optional[DataParallel]) -> Noise:
     return Noise(generator) if dp is None else Noise(generator, shard=dp.shard)
 
 
-def _update(opts, terms: Dict[str, torch.Tensor], totals, dp: Optional[DataParallel]):
+def _update(opts, terms: Dict[str, torch.Tensor], totals, dp: Optional[DataParallel],
+            fsdp: Optional[FullyShardedState] = None):
     """The end of a step: with ``dp``, the logged terms averaged over the
     ranks in one collective and each optimizer's gradients averaged before
-    its step; the step is skipped unless every total (read from ``terms``
+    its step (under ``fsdp`` reduce-scattered to the rank's slices where a
+    tensor is sharded, and the gathered parameters released after the
+    steps); the step is skipped unless every total (read from ``terms``
     after that average, so every rank decides alike) is finite. Returns the
     terms with ``skipped``."""
     terms = {k: v.detach() for k, v in terms.items()}
@@ -215,7 +222,13 @@ def _update(opts, terms: Dict[str, torch.Tensor], totals, dp: Optional[DataParal
     for name in totals[1:]:
         ok = ok & _finite(terms[name])
     for opt in opts:
-        opt.step(None if dp is None else dp.mean_grads(opt.params), ok=ok)
+        if fsdp is not None:
+            grads = fsdp.mean_grads(opt)
+        else:
+            grads = None if dp is None else dp.mean_grads(opt.params)
+        opt.step(grads, ok=ok)
+    if fsdp is not None:
+        fsdp.release()
     terms["skipped"] = (~ok).float()
     return terms
 
@@ -230,6 +243,8 @@ def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPo
     model = state.model
     shard = None if dp is None else dp.shard
     beta_rate, beta_vq = policy.sample(state.generator, batch.shape[0], shard)
+    if state.fsdp is not None:
+        state.fsdp.gather()
     _zero_grads(model)
     total, terms, out = rd_losses(model, losses, batch, beta_rate, beta_vq, policy,
                                   _noise(state.generator, dp), lpips_fn)
@@ -237,7 +252,7 @@ def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPo
     (total + aux).backward()
     terms.update(bpp=out["bpp"], qbpp=out["qbpp"], vq_accuracy=out["vq_accuracy"],
                  total=total, aux=aux)
-    terms = _update((state.g_opt, state.aux_opt), terms, ("total",), dp)
+    terms = _update((state.g_opt, state.aux_opt), terms, ("total",), dp, state.fsdp)
     state.step += 1
     return terms
 
@@ -265,7 +280,8 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
         g_batch = d_real_batch = batch
     beta_rate, beta_vq = policy.sample(state.generator, g_batch.shape[0],
                                        None if dp is None else dp.shard)
-
+    if state.fsdp is not None:
+        state.fsdp.gather()
     _zero_grads(model, disc)
     disc.requires_grad_(False)
     try:
@@ -290,6 +306,6 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
     d_total.backward()
     terms.update(bpp=out["bpp"], vq_accuracy=out["vq_accuracy"], total=g_total,
                  d_loss=d_total)
-    terms = _update((state.g_opt, state.d_opt), terms, ("total", "d_loss"), dp)
+    terms = _update((state.g_opt, state.d_opt), terms, ("total", "d_loss"), dp, state.fsdp)
     state.step += 1
     return terms

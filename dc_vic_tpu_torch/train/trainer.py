@@ -45,6 +45,17 @@ barrier. No wrapper module is used, so checkpoint keys are the model's own
 whatever the rank count: a checkpoint written by 2 ranks boots 1, and the
 reverse. A BatchNorm discriminator is refused with more than one rank (its
 batch statistics would be the rank's, not the global batch's).
+
+Fully sharded (``fsdp: true`` in the config, read only with more than one
+rank, as the JAX trainer reads it only on a mesh of more than one device;
+``parallel/fsdp.py``): after the broadcast and any checkpoint load each rank
+keeps its slices of the model's and the discriminator's large parameters
+and of their optimizer moments. A step gathers them whole at its start and
+releases them after the optimizers' step; the gradients of the sharded
+tensors are reduce-scattered. A save and a validation gather on every rank
+first (rank 0 writes or evaluates), so checkpoints have the same keys and
+shapes as without FSDP and boot a trainer of any rank count, sharded or
+not.
 """
 from __future__ import annotations
 
@@ -63,6 +74,7 @@ from ..metrics.image import calc_ms_ssim, calc_psnr
 from ..models import build_comp_model, init_weights
 from ..models.dc_vic import pad_image
 from ..models.discriminators import build_discriminator, init_discriminator
+from ..parallel.fsdp import shard_state
 from ..parallel.mesh import DataParallel
 from ..utils.backends import backend_flags
 from ..utils.logger import AvgMeter, CSVLogger, bolded_log, get_root_logger
@@ -212,6 +224,10 @@ class Trainer:
         if self.dp is not None:
             self.dp.replicate(self.model)
             self.dp.replicate(disc)
+        self.fsdp = None
+        if opt.get("fsdp") and self.dp is not None and self.dp.world > 1:
+            self.fsdp = self.state.fsdp = shard_state(self.dp, (self.model, disc),
+                                                      (g_opt, aux_opt, d_opt))
         self.saver = Saver(self.paths.model_dir, opt.get("keep_step") or ())
 
     def _set_loggers(self):
@@ -412,7 +428,18 @@ class Trainer:
         the eval images, one CSV row per beta corner (the beta columns empty
         without betas). Returns the last corner's averages (rank 0; an
         empty dict on the other ranks)."""
-        return self._on_main(lambda: self._validate(itr, max_samples)) or {}
+        return self._whole(lambda: self._on_main(lambda: self._validate(itr, max_samples))) or {}
+
+    def _whole(self, work):
+        """``work()`` with every parameter whole: under FSDP gathered on
+        every rank for its duration (every rank calls this)."""
+        if self.fsdp is None:
+            return work()
+        self.fsdp.gather()
+        try:
+            return work()
+        finally:
+            self.fsdp.release()
 
     @torch.no_grad()
     def _validate(self, itr: int, max_samples: int) -> Dict[str, float]:
@@ -448,16 +475,25 @@ class Trainer:
     def save(self, itr: int):
         """comp_model, training_state (optimizers and step) and, in the GAN
         stages, the discriminator and its optimizer; written by rank 0
-        (returns the paths there, None elsewhere)."""
-        return self._on_main(lambda: self._save(itr))
+        (returns the paths there, None elsewhere). Under FSDP every rank
+        gathers the whole tensors first."""
+        if self.fsdp is None:
+            return self._on_main(lambda: self._save(self.payloads(), itr))
+        payloads = self._whole(self.payloads)
+        return self._on_main(lambda: self._save(payloads, itr))
 
-    def _save(self, itr: int):
+    def payloads(self) -> Dict:
+        """What ``save`` writes, by label: whole tensors (under FSDP a
+        collective, and the model's parameters must be gathered)."""
         training_state = {"g_opt": self.state.g_opt.state_dict(),
                           "aux_opt": self.state.aux_opt.state_dict(), "step": self.state.step}
         payloads = {"comp_model": self.model.state_dict(), "training_state": training_state}
         if self.gan:
             payloads["discriminator"] = self.state.disc.state_dict()
             training_state["d_opt"] = self.state.d_opt.state_dict()
+        return payloads
+
+    def _save(self, payloads: Dict, itr: int):
         paths = self.saver.save(payloads, itr)
         self.logger.info(f"saved checkpoint at iter {itr}: {paths[0]}")
         return paths

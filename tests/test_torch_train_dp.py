@@ -29,113 +29,21 @@ and against the JAX package's ``data_parallel_step`` on a 2-device mesh.
 import csv
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import yaml
 
 import dp_workers
 import torch_threads  # noqa: F401
 from helpers import tiny_config
-from train_helpers import (GRAD_TOL, TOL, _port_layout, jax_params, recording,
-                           zero_by_construction)
+from train_helpers import DP_WORLD as WORLD
+from train_helpers import GRAD_TOL, TOL, jax_dp_step, stage_yaml, zero_by_construction
 
-from dc_vic_tpu.models import build_comp_model as jax_build
-from dc_vic_tpu.models.convert import export_state_dict
-from dc_vic_tpu.parallel.mesh import data_parallel_step
-from dc_vic_tpu.parallel.mesh import make_mesh as jax_mesh
-from dc_vic_tpu.parallel.mesh import replicate
-from dc_vic_tpu.parallel.mesh import shard_batch as jax_shard
-from dc_vic_tpu.train import optim as jax_optim
-from dc_vic_tpu.train.losses import build_loss as jax_build_loss
-from dc_vic_tpu.train.steps import BetaPolicy as JaxPolicy
-from dc_vic_tpu.train.steps import TrainState as JaxState
-from dc_vic_tpu.train.steps import make_rd_step
 from dc_vic_tpu_torch.models import build_comp_model
 from dc_vic_tpu_torch.tools import train as train_tool
 from dc_vic_tpu_torch.train.saver import Saver
 from dc_vic_tpu_torch.train.trainer import build_trainer
 from dc_vic_tpu_torch.utils.config import load_config
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORLD = 2
-BATCH = 4                 # the global batch: two images a rank
-G_OPT = {"type": "Adam", "lr": 1e-4}
-
-
-def _stage_yaml(tmp, stage, load=None, **extra):
-    """config/exp1_stage{stage}.yaml at the tiny widths on the synthetic
-    images, a global batch of BATCH 64 x 64 crops."""
-    tiny = tiny_config().to_plain()
-    cfg = {
-        "_base_": os.path.join(ROOT, "config", f"exp1_stage{stage}.yaml"),
-        "subnet": dict(tiny["subnet"], _delete_=True),
-        "exp": f"stage{stage}", "ckpt_root": os.path.join(tmp, "ckpt"), "seed": 0,
-        "dataset": {"batch_size": BATCH,
-                    "train_dataset": {"root_dir": os.path.join(tmp, "data"),
-                                      "subset_list": [0], "image_size": 64},
-                    "eval_dataset": {"root_dir": os.path.join(tmp, "data", "kodak")}},
-        "discriminator": {"ndf": 8, "n_layers": 2, "cond_ch": 4, "L": 4},
-        "load_checkpoint": dict(load, _delete_=True) if load else None,
-        **extra,
-    }
-    path = os.path.join(tmp, f"stage{stage}_{len(os.listdir(tmp))}.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(cfg, f)
-    return path
-
-
-def _jax_dp_step(case):
-    """One JAX data-parallel stage 1_1 RD step on a 2-device mesh; writes
-    what a rank needs to replay it (weights, draws, batch, optimizers) to
-    ``case`` and returns the JAX side's terms, weights before and after and
-    Adam first moments."""
-    opt = load_config(os.path.join(ROOT, "config", "exp1_stage1_1.yaml"), is_train=True)
-    losses_cfg = {k: dict(v) for k, v in dict(opt["loss"]).items()}
-    clip, aux_cfg = opt["optim"]["clip_max_norm"], dict(opt["optim"]["aux_optimizer"])
-    cfg = tiny_config(use_beta=False)
-    m = jax_build(cfg).module
-    params = jax_params(m, cfg)
-    g_tx = jax_optim.build_optimizer(dict(G_OPT), None, clip)
-    aux_tx = jax_optim.build_optimizer(dict(aux_cfg), None, None)
-    rd = make_rd_step(m, {k: jax_build_loss(v) for k, v in losses_cfg.items()}, g_tx, aux_tx,
-                      JaxPolicy(use_beta=False))
-    draws = []
-
-    def step_and_draws(state, batch):
-        del draws[:]
-        new_state, terms = rd(state, batch)
-        return new_state, (terms, list(draws))
-
-    mesh = jax_mesh(WORLD)
-    step = data_parallel_step(step_and_draws, mesh)
-    batch = np.random.default_rng(11).uniform(-1, 1, (BATCH, 64, 64, 3)).astype(np.float32)
-    start = export_state_dict(params)
-    state = replicate(JaxState(params=params, g_opt=g_tx.init(params),
-                               aux_opt=aux_tx.init(params), step=jnp.zeros((), jnp.int32),
-                               rng=jax.random.PRNGKey(7)), mesh)
-    mp = pytest.MonkeyPatch()
-    recording(mp, draws)
-    try:
-        state, (terms, got) = step(state, jax_shard(jnp.asarray(batch), mesh))
-    finally:
-        mp.undo()
-    torch.save(dict(cfg=cfg.to_plain(), start=start, batch=batch, losses=losses_cfg,
-                    clip=clip, aux_opt=aux_cfg, g_opt=dict(G_OPT),
-                    draws=[_port_layout(d) for d in got]), case + ".tmp")
-    os.replace(case + ".tmp", case)
-    def first_moments(opt_state):
-        found = [s.mu for s in jax.tree.leaves(opt_state, is_leaf=lambda s: hasattr(s, "mu"))
-                 if hasattr(s, "mu")]
-        assert len(found) == 1
-        return export_state_dict(found[0])
-    return dict(terms=jax.tree.map(float, terms), start=start,
-                      end=export_state_dict(state.params), n_draws=len(got),
-                      mu=dict(first_moments(state.g_opt), **{
-                          k: v for k, v in first_moments(state.aux_opt).items()
-                          if k.endswith("quantiles")}))
 
 
 @pytest.fixture(scope="module")
@@ -145,11 +53,11 @@ def runs(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("dp"))
     dp_workers.write_images(os.path.join(tmp, "data", "train_0"), 8, (72, 80), 0)
     dp_workers.write_images(os.path.join(tmp, "data", "kodak"), 1, (64, 96), 1)
-    rd_yaml = _stage_yaml(tmp, "1_2")
+    rd_yaml = stage_yaml(tmp, "1_2")
     # the stage 1_2 checkpoint both stage 1_3 trainers boot from: one
     # process's weights at init
     ckpt = build_trainer(load_config(rd_yaml, is_train=True), device="cpu").save(0)[0]
-    gan_yaml = _stage_yaml(tmp, "1_3", dict(path=ckpt, load_optimizer=False, strict=False),
+    gan_yaml = stage_yaml(tmp, "1_3", dict(path=ckpt, load_optimizer=False, strict=False),
                            trainer={"mc_sampling": True})
     out, case = os.path.join(tmp, "out"), os.path.join(tmp, "jax_case.pt")
     os.makedirs(out)
@@ -162,7 +70,7 @@ def runs(tmp_path_factory):
             tr = build_trainer(load_config(path, is_train=True), device="cpu")
             one[kind] = dp_workers.taken(tr, tr.step(dp_workers.first_batch(tr)))
         del tr
-        jax_side = _jax_dp_step(case)
+        jax_side = jax_dp_step(case)
     finally:
         if not os.path.exists(case):
             open(case + ".failed", "w").close()
@@ -282,7 +190,7 @@ def test_launcher_two_ranks_writes_once_and_boots_one(runs, tmp_path):
     step and one checkpoint, written by rank 0; that checkpoint boots a
     1-process trainer strictly, keys and bits."""
     tmp = runs["tmp"]
-    path = _stage_yaml(tmp, "1_2", exp="launch", total_iter=2, log_step=1, eval_step=2,
+    path = stage_yaml(tmp, "1_2", exp="launch", total_iter=2, log_step=1, eval_step=2,
                        save_step=2, keep_step=[2])
     assert train_tool.main(["--config_path", path, "--device", "cpu", "--nproc", "2"]) is None
     job = os.path.join(tmp, "ckpt", "launch")
@@ -295,7 +203,7 @@ def test_launcher_two_ranks_writes_once_and_boots_one(runs, tmp_path):
     ckpts = sorted(os.listdir(os.path.join(job, "model")))
     assert ckpts == ["comp_model_iter2.ckpt", "training_state_iter2.ckpt"]
     saved = Saver.load(os.path.join(job, "model", "comp_model_iter2.ckpt"))
-    boot = _stage_yaml(tmp, "1_2", dict(path=os.path.join(job, "model", "comp_model_iter2.ckpt"),
+    boot = stage_yaml(tmp, "1_2", dict(path=os.path.join(job, "model", "comp_model_iter2.ckpt"),
                                         training_state_path=os.path.join(
                                             job, "model", "training_state_iter2.ckpt"),
                                         strict=True), exp="boot")

@@ -1,16 +1,37 @@
-"""Shared pieces of the training parity tests (tests/test_torch_train_*.py):
-weights carried from the port into flax, layouts, and the recorder of the
-JAX forward's noise draws."""
+"""Shared pieces of the training parity tests (tests/test_torch_train_*.py,
+tests/test_torch_fsdp.py): weights carried from the port into flax,
+layouts, the recorder of the JAX forward's noise draws, the stage configs
+of the data-parallel tests and the JAX data-parallel step they replay."""
+import os
 import sys
 from collections.abc import Mapping
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+import yaml
+from jax.sharding import NamedSharding, PartitionSpec
 
-from dc_vic_tpu.models.convert import convert_state_dict
+from dc_vic_tpu.models import build_comp_model as jax_build
+from dc_vic_tpu.models.convert import convert_state_dict, export_state_dict
+from dc_vic_tpu.parallel.mesh import data_parallel_step, fsdp_sharding_tree
+from dc_vic_tpu.parallel.mesh import make_mesh as jax_mesh
+from dc_vic_tpu.parallel.mesh import shard_batch as jax_shard
+from dc_vic_tpu.train import optim as jax_optim
+from dc_vic_tpu.train.losses import build_loss as jax_build_loss
+from dc_vic_tpu.train.steps import BetaPolicy as JaxPolicy
+from dc_vic_tpu.train.steps import TrainState as JaxState
+from dc_vic_tpu.train.steps import make_rd_step
 from dc_vic_tpu_torch.models import build_comp_model, init_weights
+from dc_vic_tpu_torch.utils.config import load_config
+from helpers import tiny_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DP_WORLD = 2
+DP_BATCH = 4                 # the global batch of the data-parallel tests: two images a rank
+DP_G_OPT = {"type": "Adam", "lr": 1e-4}
 
 TOL = dict(atol=1e-3, rtol=1e-3)     # the model tests' tolerance
 GRAD_TOL = 1e-3                      # relative L2 per parameter tensor (+1e-7 absolute)
@@ -123,3 +144,96 @@ def check_gradients(module, want, trained, zero=()):
             assert err <= GRAD_TOL * ref + 1e-7, f"{n}: relative L2 error {err / ref:.3e}"
         checked += 1
     return checked
+
+
+def stage_yaml(tmp, stage, load=None, **extra):
+    """config/exp1_stage{stage}.yaml at the tiny widths on the synthetic
+    images under ``tmp``, a global batch of DP_BATCH 64 x 64 crops."""
+    tiny = tiny_config().to_plain()
+    cfg = {
+        "_base_": os.path.join(ROOT, "config", f"exp1_stage{stage}.yaml"),
+        "subnet": dict(tiny["subnet"], _delete_=True),
+        "exp": f"stage{stage}", "ckpt_root": os.path.join(tmp, "ckpt"), "seed": 0,
+        "dataset": {"batch_size": DP_BATCH,
+                    "train_dataset": {"root_dir": os.path.join(tmp, "data"),
+                                      "subset_list": [0], "image_size": 64},
+                    "eval_dataset": {"root_dir": os.path.join(tmp, "data", "kodak")}},
+        "discriminator": {"ndf": 8, "n_layers": 2, "cond_ch": 4, "L": 4},
+        "load_checkpoint": dict(load, _delete_=True) if load else None,
+        **extra,
+    }
+    path = os.path.join(tmp, f"stage{stage}_{len(os.listdir(tmp))}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def jax_dp_step(case, fsdp_min_size=None, use_charm=True):
+    """One JAX data-parallel stage 1_1 RD step on a mesh of DP_WORLD devices
+    (the tiny stage 1_1 model, or its type without ChARM), the state
+    replicated or, with ``fsdp_min_size``, sharded by
+    ``fsdp_sharding_tree`` at that size; writes what a rank needs to replay
+    it (weights, draws, batch, optimizers) to ``case`` and returns the JAX
+    side's terms, weights before and after, Adam first moments, the names
+    of the sharded weights, and the model and weights it ran (for further
+    JAX calls on the same model)."""
+    opt = load_config(os.path.join(ROOT, "config", "exp1_stage1_1.yaml"), is_train=True)
+    losses_cfg = {k: dict(v) for k, v in dict(opt["loss"]).items()}
+    clip, aux_cfg = opt["optim"]["clip_max_norm"], dict(opt["optim"]["aux_optimizer"])
+    cfg = tiny_config(use_charm=use_charm, use_beta=False)
+    m = jax_build(cfg).module
+    params = jax_params(m, cfg)
+    g_tx = jax_optim.build_optimizer(dict(DP_G_OPT), None, clip)
+    aux_tx = jax_optim.build_optimizer(dict(aux_cfg), None, None)
+    rd = make_rd_step(m, {k: jax_build_loss(v) for k, v in losses_cfg.items()}, g_tx, aux_tx,
+                      JaxPolicy(use_beta=False))
+    draws = []
+
+    def step_and_draws(state, batch):
+        del draws[:]
+        new_state, terms = rd(state, batch)
+        return new_state, (terms, list(draws))
+
+    mesh = jax_mesh(DP_WORLD)
+    batch = np.random.default_rng(11).uniform(-1, 1, (DP_BATCH, 64, 64, 3)).astype(np.float32)
+    start = export_state_dict(params)
+
+    def init(p):
+        return JaxState(params=p, g_opt=g_tx.init(p), aux_opt=aux_tx.init(p),
+                        step=jnp.zeros((), jnp.int32), rng=jax.random.PRNGKey(7))
+    # the state made and placed in one jit (the optimizers' eager init and
+    # a placement apart take seconds more)
+    shardings = None
+    placed = NamedSharding(mesh, PartitionSpec())
+    if fsdp_min_size is not None:
+        shardings = placed = fsdp_sharding_tree(jax.eval_shape(init, params), mesh,
+                                                min_size=fsdp_min_size)
+    with jax.transfer_guard("allow"):
+        state = jax.jit(init, out_shardings=placed)(params)
+    step = data_parallel_step(step_and_draws, mesh, state_shardings=shardings)
+    mp = pytest.MonkeyPatch()
+    recording(mp, draws)
+    try:
+        state, (terms, got) = step(state, jax_shard(jnp.asarray(batch), mesh))
+    finally:
+        mp.undo()
+    torch.save(dict(cfg=cfg.to_plain(), start=start, batch=batch, losses=losses_cfg,
+                    clip=clip, aux_opt=aux_cfg, g_opt=dict(DP_G_OPT),
+                    draws=[_port_layout(d) for d in got]), case + ".tmp")
+    os.replace(case + ".tmp", case)
+
+    def first_moments(opt_state):
+        found = [s.mu for s in jax.tree.leaves(opt_state, is_leaf=lambda s: hasattr(s, "mu"))
+                 if hasattr(s, "mu")]
+        assert len(found) == 1
+        return export_state_dict(found[0])
+    return dict(terms=jax.tree.map(float, terms), start=start,
+                end=export_state_dict(state.params), n_draws=len(got),
+                mu=dict(first_moments(state.g_opt), **{
+                    k: v for k, v in first_moments(state.aux_opt).items()
+                    if k.endswith("quantiles")}),
+                sharded=None if shardings is None else sorted(
+                    k for k, v in export_state_dict(jax.tree.map(
+                        lambda x, s: np.full(x.shape, not s.is_fully_replicated), params,
+                        shardings.params)).items() if np.all(v)),
+                module=m, params=params)
