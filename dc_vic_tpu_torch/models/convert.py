@@ -1,4 +1,5 @@
-"""Loading weights in the reference's torch layout.
+"""Loading weights, and the Adam state that trains them, in the
+reference's torch layout.
 
 The port's parameter names are the reference's state-dict keys, so a dict
 in that layout (the JAX package's ``export_state_dict`` output, or a
@@ -16,30 +17,61 @@ import torch
 from torch import nn
 
 
-def load_reference_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
-    """Load ``sd`` (numpy arrays keyed by reference torch names) strictly:
-    raise on any missing or extra key or any shape that does not match.
-
-    Dense layers are stored 2-D here; a 1x1-conv weight (O, I, 1, 1), as
-    the reference stores its FiLM and quant convs, is accepted for them."""
-    own = model.state_dict()
-    missing = sorted(set(own) - set(sd))
-    extra = sorted(set(sd) - set(own))
+def _reference_tensors(shapes: Dict[str, tuple], sd: Dict[str, np.ndarray],
+                       what: str = "state dict") -> Dict[str, torch.Tensor]:
+    """``sd`` (numpy arrays keyed by reference torch names) as tensors of
+    ``shapes``, strictly: raise on any missing or extra key or any shape
+    that does not match. Dense layers are stored 2-D here; a 1x1-conv
+    weight (O, I, 1, 1), as the reference stores its FiLM and quant convs,
+    is accepted for them."""
+    missing = sorted(set(shapes) - set(sd))
+    extra = sorted(set(sd) - set(shapes))
     if missing or extra:
-        raise KeyError(f"state dict does not match the model: missing {missing}, "
+        raise KeyError(f"{what} does not match the model: missing {missing}, "
                        f"unexpected {extra}")
     tensors = {}
     for key, value in sd.items():
         t = torch.from_numpy(np.ascontiguousarray(value))
-        want = own[key].shape
+        want = torch.Size(shapes[key])
         if t.shape != want and t.dim() == 4 and t.shape[2:] == (1, 1) \
                 and t.shape[:2] == want:
             t = t[:, :, 0, 0]
         if t.shape != want:
             raise ValueError(f"shape mismatch for {key}: got {tuple(t.shape)}, "
                              f"model has {tuple(want)}")
-        tensors[key] = t.to(own[key].dtype)
-    model.load_state_dict(tensors, strict=True)
+        tensors[key] = t
+    return tensors
+
+
+def load_reference_state_dict(model: nn.Module, sd: Dict[str, np.ndarray]) -> None:
+    """Load ``sd`` (numpy arrays keyed by reference torch names) strictly,
+    with the checks of ``_reference_tensors``."""
+    own = model.state_dict()
+    tensors = _reference_tensors({k: v.shape for k, v in own.items()}, sd)
+    model.load_state_dict({k: t.to(own[k].dtype) for k, t in tensors.items()}, strict=True)
+
+
+def load_reference_optimizer_state(opt, mu: Dict[str, np.ndarray], nu: Dict[str, np.ndarray],
+                                   count, sched_count) -> None:
+    """Fill ``opt`` (a ``train.optim.Optimizer``) with the reference
+    trainer's Adam state: the first and second moments ``mu`` and ``nu``
+    (numpy arrays keyed by reference torch names, as for the weights),
+    Adam's own step count and the schedule's. The reference keeps moments
+    for every weight and zeros for those its mask freezes; a key that this
+    optimizer does not train must hold zeros, and every one it trains must
+    be there, with the shape checks of ``load_reference_state_dict``."""
+    shapes = {n: (opt.layout.shapes[n] if opt.layout is not None else tuple(p.shape))
+              for n, p in zip(opt.names, opt.params)}
+    state = {"count": torch.as_tensor(np.asarray(count), dtype=torch.int32),
+             "sched_count": torch.as_tensor(np.asarray(sched_count), dtype=torch.int32)}
+    for key, moments in (("mu", mu), ("nu", nu)):
+        frozen = [k for k, v in moments.items() if k not in shapes and np.any(np.asarray(v))]
+        if frozen:
+            raise ValueError(f"optimizer state {key}: nonzero moments for {len(frozen)} "
+                             f"weights this optimizer does not train, e.g. {frozen[0]}")
+        state[key] = _reference_tensors(shapes, {k: v for k, v in moments.items()
+                                                 if k in shapes}, f"optimizer state {key}")
+    opt.load_state_dict(state)
 
 
 def _flatten(tree, prefix=()):

@@ -25,6 +25,11 @@ biases whose gradient is zero by construction, which Adam moves by
 rounding noise, within the rate's reach in both), the quantiles the aux
 optimizer trains, and the Adam step counts. Besides, the two packages'
 training loaders give the same batches for one seed (order, crops, flips).
+
+States the run has really reached (moved quantiles, grown second moments,
+the warm-up part way up, the rate at 1e-3) are held one step at a time by
+``tests/test_torch_train_along_reference.py``, which carries the JAX
+run's whole training state into the port at each snapshot.
 """
 import os
 
