@@ -1,0 +1,7 @@
+"""``coder_ms.decode``: Device ms per image of the rANS coder kernels (rans_*:
+R1 encode, R2 decode)."""
+from __future__ import annotations
+
+
+def read(rec):
+    return rec.device_ms_per_unit(lambda n: "rans_" in n)
