@@ -53,7 +53,7 @@
    seven times per decompress (z and six ChARM slices). A batch-4 stream
    decoded as batch 2 must raise, and the decode chain must run under
    torch.cuda.set_sync_debug_mode("error"). Warm encode and decode seconds of both
-   formats and Codec.bench_device_cycle are printed.
+   formats are printed.
 7. Holds K3 to K6 in bf16 at the path's largest plane, [4, 128, 768, 512]
    (128 output channels), against their plain versions (K4 to K6 within one
    bf16 step), with times, the bf16 bounds (half the bytes; one product per
@@ -69,10 +69,9 @@
    numpy.random.default_rng(0)), encoder weights scaled by 0.55, with the
    reconstruction kernels off and on: compress -> decompress -> bit-exact
    latents and pixels, consumed words checked, launch counts held against the
-   shape rules (K1 1, K2 7, R1 2, R2 7), bpp, peak memory and
-   Codec.bench_device_cycle printed, the f32 model's device cycle at the same
-   batch beside it, and the entropy chain timed with the TF32 allowance on
-   and off. The bf16 reconstruction with the kernels on and the one
+   shape rules (K1 1, K2 7, R1 2, R2 7), bpp and peak memory printed, the
+   f32 model's round trip at the same batch beside it, and the entropy chain
+   timed with the TF32 allowance on and off. The bf16 reconstruction with the kernels on and the one
    with the kernels off, of the same y_hat and codeword indices, are both
    held against the f32 model's: image by image the kernels' route may be at
    most BF16_NOISE_RATIO times as far from it as the default route.
@@ -290,8 +289,8 @@
    reconstruct_uint8, batch 15 padded to 16, launches equal to twice a
    single-device round trip's at batch 8, portable streams decoding
    bit-exactly between the mesh codec and a single-device one in both
-   directions; the wall time of a round trip and bench_device_cycle of the
-   mesh against the single-device codec at batch 16.
+   directions; the wall time of a round trip of the mesh against the
+   single-device codec at batch 16.
 20. Fully sharded training (parallel/fsdp.py, ``fsdp: true``), stages 1_2
    (RD) and 1_3 (GAN) at item 19's batch and ranks: (b) over an nccl group
    of world 1 the trainer shards nothing and its step is the plain step bit
@@ -2233,12 +2232,9 @@ def check_deployment(deployment_sd):
                         fast_entropy=dtype_name == "bfloat16", bf16=dtype_name == "bfloat16")
             if any(h[k] != v for k, v in want.items()):
                 raise AssertionError(f"{label}: header {h}")
-            cycle = codec_c.bench_device_cycle(images16, 0, iters=3 if dtype_name == "bfloat16"
-                                               else 2)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
             print(f"{label}: warm encode {enc:.4f} s, decode {dec:.4f} s (host clock, one "
-                  f"run); bench_device_cycle encode chain {cycle['enc_s']:.4f} s, decode chain "
-                  f"{cycle['dec_s']:.4f} s; {bpp:.4f} bpp"
+                  f"run); {bpp:.4f} bpp"
                   f"{' (over the 0.8 the reference workload stays under)' if bpp > 0.8 else ''}"
                   f"; peak memory {peak:.2f} GiB; header {h}")
             if dtype_name == "bfloat16" or not names:
@@ -2265,13 +2261,7 @@ def check_deployment(deployment_sd):
     pcodec, pbpp = check_portable(spec16, fresh_spec, codec16, strings16, images16, parts16,
                                   ref)
     del fresh_spec, parts16, ref
-    torch.cuda.reset_peak_memory_stats()
-    pcycle = pcodec.bench_device_cycle(images16, 0)
-    cycle = codec16.bench_device_cycle(images16, 0)
-    print(f"bench_device_cycle, bf16 recon_kernels off, batch {B16}: portable encode chain "
-          f"{pcycle['enc_s']:.4f} s, decode chain {pcycle['dec_s']:.4f} s; non-portable "
-          f"{cycle['enc_s']:.4f} s / {cycle['dec_s']:.4f} s (same run, in turn); portable "
-          f"{pbpp:.4f} bpp; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    print(f"portable streams, bf16 recon_kernels off, batch {B16}: {pbpp:.4f} bpp")
     del kept, pcodec, codec16, codec16k, spec16
     torch.cuda.empty_cache()
     return launches16, shapes16
@@ -4272,13 +4262,9 @@ def check_mesh_codec(deployment_sd, smi):
         # the times: the same global batch on the mesh and on one device
         _, _, s_enc, s_dec = drive(single, images16)
         _, _, m_enc, m_dec = drive(mc, images16)
-        s_cyc = single.bench_device_cycle(images16, 0)
-        m_cyc = mc.bench_device_cycle(images16, 0)
         print(f"item 19, contract cycle at batch {B16} ({smi}): one device encode {s_enc:.4f} "
-              f"s, decode {s_dec:.4f} s, bench_device_cycle {s_cyc['enc_s']:.4f} / "
-              f"{s_cyc['dec_s']:.4f} s; {name} encode {m_enc:.4f} s, decode {m_dec:.4f} s, "
-              f"bench_device_cycle {m_cyc['enc_s']:.4f} / {m_cyc['dec_s']:.4f} s (host clock, "
-              f"one warm run each, in turn)")
+              f"s, decode {s_dec:.4f} s; {name} encode {m_enc:.4f} s, decode {m_dec:.4f} s "
+              f"(host clock, one warm run each, in turn)")
         del mc
         torch.cuda.empty_cache()
     del single, spec
@@ -4743,11 +4729,6 @@ def main():
         bpp = float(np.mean([r["bpp"] for r in res]))
         print(f"warm round trip, {name}: encode {enc:.4f} s, decode {dec:.4f} s "
               f"(one run), {bpp:.4f} bpp")
-    for (backend, lanes), c in tpu.items():
-        if backend == "device":
-            cycle = c.bench_device_cycle(images, 0)
-            print(f"bench_device_cycle, lanes {lanes}: encode chain {cycle['enc_s']:.4f} s, "
-                  f"decode chain {cycle['dec_s']:.4f} s (device only, inputs on the card)")
     del tpu, codecs, pending
     torch.cuda.empty_cache()
 

@@ -61,9 +61,8 @@ Several devices: ``Codec(spec, ..., mesh=devices)`` builds a
 from __future__ import annotations
 
 import functools
+import itertools
 import os
-import statistics
-import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
@@ -80,6 +79,7 @@ from .bottleneck import build_bottleneck_cdf
 from .container import HeaderHandler
 from .gaussian import get_scale_table
 from ..utils.backends import backend_flags
+from ..utils.profiling import count, span
 from .tiling import (DEC_STRIDE_Y, DEC_WINDOW_Y, ENC_STRIDE, ENC_WINDOW, SPLIT_RESOLUTION,
                      keep_region, tile_starts)
 
@@ -88,23 +88,35 @@ Y_STRIDE = 16  # image pixels per y position
 VQ_STRIDE = 8  # image pixels per VQGAN latent position
 
 
+def _host(t: torch.Tensor) -> np.ndarray:
+    """``t`` copied to the host, which waits for the device's work on it:
+    counted (``host_waits``, while a profiler records) at every such copy of
+    the codec, on the CPU too."""
+    count("host_waits")
+    return t.cpu().numpy()
+
+
 class PendingImages:
     """A decoded batch still on the device: one flat uint8 buffer holding
     the NHWC pixels followed by the consumed-word counts. ``fetch`` copies it
     to the host once, runs the stream-integrity check on the counts, and
-    crops the images."""
+    crops the images. ``seq``: the decode request's sequence number, in the
+    ``codec.fetch`` span's args."""
 
-    def __init__(self, data: torch.Tensor, meta: Tuple[int, int, int, int, int], check):
+    def __init__(self, data: torch.Tensor, meta: Tuple[int, int, int, int, int], check,
+                 seq: Optional[int] = None):
         self._data = data
         self._meta = meta      # (B, padH, padW, H, W)
         self._check = check    # called with the [2, B] consumed-word counts
+        self._seq = seq
 
     def fetch(self) -> np.ndarray:
-        B, padH, padW, H, W = self._meta
-        host = self._data.cpu().numpy()
-        n = B * padH * padW * 3
-        self._check(host[n:].view(np.int32).reshape(2, B))
-        return host[:n].reshape(B, padH, padW, 3)[:, :H, :W]
+        with span("codec.fetch", {"seq": self._seq}):
+            B, padH, padW, H, W = self._meta
+            host = _host(self._data)
+            n = B * padH * padW * 3
+            self._check(host[n:].view(np.int32).reshape(2, B))
+            return host[:n].reshape(B, padH, padW, 3)[:, :H, :W]
 
 
 def _pad_np(x: np.ndarray, stride: int = STRIDE) -> np.ndarray:
@@ -117,7 +129,7 @@ def _pad_np(x: np.ndarray, stride: int = STRIDE) -> np.ndarray:
 
 
 def _nhwc(t: torch.Tensor) -> np.ndarray:
-    return t.permute(0, 2, 3, 1).cpu().numpy()
+    return _host(t.permute(0, 2, 3, 1))
 
 
 def _nchw_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -266,7 +278,13 @@ class Codec:
     stream's words x 16 / pixels, exact; host coding: the table cost of the
     symbols, ``rans_device.coded_bits``, flush excluded); with
     ``debug=True`` the encoder's ``y_hat``/``z_hat`` (NHWC numpy) for
-    ``verify_roundtrip``."""
+    ``verify_roundtrip``.
+
+    Tracing: under a ``torch.profiler`` session the calls mark their
+    stages as program spans (``utils/profiling.py::span``, names
+    ``codec.*``); the spans of the k-th ``compress_dispatch``, its
+    ``compress_finalize``, the k-th ``decompress`` and its ``fetch`` carry
+    ``{"seq": k}``."""
 
     # tiles per launch of the split paths' VQGAN encode and reconstruction:
     # one batch shape whatever the image's size
@@ -330,6 +348,8 @@ class Codec:
         self.y_table = self.module.gaussian.build_cdf_table(get_scale_table())
         self._dtables: Dict[Tuple[str, torch.device], rd.DeviceCdfTable] = {}
         self._workers = min(16, os.cpu_count() or 1)
+        # sequence numbers of encode batches and decode requests (span args)
+        self._batches, self._requests = itertools.count(), itertools.count()
 
     def _dtable(self, which: str, device=None) -> rd.DeviceCdfTable:
         """The y or z table on ``device`` (default: the model's), built at
@@ -428,19 +448,21 @@ class Codec:
     def _reconstruct(self, y_hat: torch.Tensor, b1, b2, H: int, W: int) -> torch.Tensor:
         """uint8 [B, 3, padH, padW] of an H x W image's y_hat (H x W padded
         or not), tiled where ``_tiled`` says so."""
-        if _tiled(H, W):
-            return self._split_reconstruct(y_hat, b1, b2)
-        return self.module.reconstruct_uint8(y_hat, b1, b2)
+        with span("codec.reconstruct"):
+            if _tiled(H, W):
+                return self._split_reconstruct(y_hat, b1, b2)
+            return self.module.reconstruct_uint8(y_hat, b1, b2)
 
     # ------------------------------------------------------------ encode
     def _front(self, x: torch.Tensor, b1, b2):
         """encode_front of padded NHWC images on the device, with the VQGAN
         encode tiled where ``_tiled`` says so."""
-        if _tiled(x.shape[1], x.shape[2]):
-            latent, indices = self._split_vq_encode(x)
-            return self.module.encode_front_from_vq(x.permute(0, 3, 1, 2), latent, indices,
-                                                    b1, b2)
-        return self.module.encode_front(x.permute(0, 3, 1, 2), b1, b2)
+        with span("codec.front"):
+            if _tiled(x.shape[1], x.shape[2]):
+                latent, indices = self._split_vq_encode(x)
+                return self.module.encode_front_from_vq(x.permute(0, 3, 1, 2), latent,
+                                                        indices, b1, b2)
+            return self.module.encode_front(x.permute(0, 3, 1, 2), b1, b2)
 
     def _encode_param_chain(self, y, z_sym):
         """The decoder's own chain, driven with the encoder's symbols: over
@@ -448,15 +470,16 @@ class Codec:
         (``_split``), the per-slice integers joined back into batch planes.
         Runs where the chain's module lies (``params_backend``). Returns
         (per-slice symbols, per-slice indexes, y_hat, z_hat)."""
-        y, z_sym = y.to(self._chain_device), z_sym.to(self._chain_device)
-        chain = _ParamChain(self._chain, z_sym, y.shape[2:], self.portable)
-        ys = _split(y, self.portable)
-        syms, idxs = [], []
-        for i in range(self.y_sections):
-            idxs.append(chain.indexes())
-            syms.append(chain.symbolize(i, ys))
-            chain.step(i, syms[-1])
-        return syms, idxs, chain.y_hat(), chain.z_hat()
+        with span("codec.encode_chain"):
+            y, z_sym = y.to(self._chain_device), z_sym.to(self._chain_device)
+            chain = _ParamChain(self._chain, z_sym, y.shape[2:], self.portable)
+            ys = _split(y, self.portable)
+            syms, idxs = [], []
+            for i in range(self.y_sections):
+                idxs.append(chain.indexes())
+                syms.append(chain.symbolize(i, ys))
+                chain.step(i, syms[-1])
+            return syms, idxs, chain.y_hat(), chain.z_hat()
 
     def _tpu_pack(self, y_sym, y_idx, z_sym) -> Dict:
         """Device entropy encode of the symbol planes (NCHW int16 / uint8):
@@ -464,12 +487,13 @@ class Codec:
         Returns the packed word buffers and one int32 stats tensor
         [6, B]: y words, z words, largest per-section y escapes, z escapes,
         y tier-2 escapes, z tier-2 escapes."""
-        py, y_off, y_counts, y_esc, y_big = rd.encode_pack(
-            y_sym, y_idx, self.y_sections, self.lanes, self._dtable("y"))
-        pz, z_off, z_counts, z_esc, z_big = rd.encode_pack(
-            z_sym, None, 1, self.lanes, self._dtable("z"))
-        stats = torch.stack([y_counts, z_counts, y_esc.max(dim=1).values,
-                             z_esc.max(dim=1).values, y_big, z_big]).to(torch.int32)
+        with span("codec.pack"):
+            py, y_off, y_counts, y_esc, y_big = rd.encode_pack(
+                y_sym, y_idx, self.y_sections, self.lanes, self._dtable("y"))
+            pz, z_off, z_counts, z_esc, z_big = rd.encode_pack(
+                z_sym, None, 1, self.lanes, self._dtable("z"))
+            stats = torch.stack([y_counts, z_counts, y_esc.max(dim=1).values,
+                                 z_esc.max(dim=1).values, y_big, z_big]).to(torch.int32)
         return dict(packed_y=py, y_offsets=y_off, packed_z=pz, z_offsets=z_off, stats=stats)
 
     def _encode_tail(self, x: torch.Tensor, b1, b2, fmt: str, debug: bool) -> Dict:
@@ -506,11 +530,13 @@ class Codec:
         (unpadded). The betas are a quality level's pair, or given as
         ``beta_rate`` and ``beta_vq`` without a quality (the header then
         records quality 0, as the reference's does)."""
-        images, betas, common = self._dispatch_args(images, quality_ind, beta_rate, beta_vq,
-                                                    debug)
-        x = self._upload_images(images)
-        out = self._encode_tail(x, *self._beta_tensors(*betas), common["fmt"], debug)
-        return dict(out=out, B=len(images), encode_batch=len(images), **common)
+        seq = next(self._batches)
+        with span("codec.compress_dispatch", {"seq": seq}):
+            images, betas, common = self._dispatch_args(images, quality_ind, beta_rate,
+                                                        beta_vq, debug)
+            x = self._upload_images(images)
+            out = self._encode_tail(x, *self._beta_tensors(*betas), common["fmt"], debug)
+        return dict(out=out, B=len(images), encode_batch=len(images), seq=seq, **common)
 
     def _dispatch_args(self, images, quality_ind, beta_rate, beta_vq, debug):
         """``compress_dispatch``'s arguments checked: (the images, uint8 or
@@ -541,14 +567,13 @@ class Codec:
         return ((np.asarray(y_escmax) > rd.esc_cap(ny))
                 | (np.asarray(z_escmax) > rd.esc_cap(nz)))
 
-    def _tpu_results(self, handle: Dict, z_strs, y_strs, y_bits, z_bits, escfree,
-                     esc_dense, t2free) -> List[Dict]:
+    def _tpu_results(self, handle: Dict, max_abs_y: float, z_strs, y_strs, y_bits, z_bits,
+                     escfree, esc_dense, t2free) -> List[Dict]:
         B, H, W = handle["B"], handle["H"], handle["W"]
-        max_abs_y = int(handle["out"]["max_abs_y"])
         results = []
         for b in range(B):
             header = HeaderHandler.encode(
-                (H, W), max_abs_y, handle["quality_ind"], tpu_format=True, lanes=self.lanes,
+                (H, W), int(max_abs_y), handle["quality_ind"], tpu_format=True, lanes=self.lanes,
                 esc_dense=bool(esc_dense[b]), t2free=bool(t2free), escfree=bool(escfree[b]),
                 portable=self.portable, encode_batch=handle["encode_batch"],
                 fast_entropy=self._fast_entropy, bf16=self._bf16)
@@ -559,42 +584,42 @@ class Codec:
                 pred_y_bpp=float(y_bits[b]) / (H * W), pred_z_bpp=float(z_bits[b]) / (H * W)))
         return results
 
-    def _finalize_tpu(self, handle: Dict) -> List[Dict]:
+    def _finalize_tpu(self, handle: Dict, max_abs_y: float) -> List[Dict]:
         """Fetch the device-coded streams: the stats, then each buffer's
         real words in one copy."""
         out = handle["out"]
-        stats = out["stats"].cpu().numpy().astype(np.int64)
+        stats = _host(out["stats"]).astype(np.int64)
         y_counts, z_counts, y_escmax, z_escmax, y_big, z_big = stats
 
         def fetch(packed, offsets, counts):
-            offsets = offsets.cpu().numpy()
+            offsets = _host(offsets)
             if (counts < 0).any() or (offsets + counts > packed.numel()).any():
                 raise RuntimeError("tpu-format stream word counts exceed the packed "
                                    "buffer: corrupt encode stats")
-            words = torch.cat([packed[o:o + n] for o, n in zip(offsets, counts)]).cpu().numpy()
+            words = _host(torch.cat([packed[o:o + n] for o, n in zip(offsets, counts)]))
             ends = np.cumsum(counts)
             return [words[e - n:e].tobytes() for e, n in zip(ends, counts)]
 
         y_strs = fetch(out["packed_y"], out["y_offsets"], y_counts)
         z_strs = fetch(out["packed_z"], out["z_offsets"], z_counts)
         return self._tpu_results(
-            handle, z_strs, y_strs, y_counts * 16.0, z_counts * 16.0,
+            handle, max_abs_y, z_strs, y_strs, y_counts * 16.0, z_counts * 16.0,
             escfree=(y_escmax == 0) & (z_escmax == 0),
             esc_dense=self._esc_dense_flags(handle["H"], handle["W"], y_escmax, z_escmax),
             t2free=not (y_big.any() or z_big.any()))
 
-    def _finalize_host(self, handle: Dict) -> List[Dict]:
+    def _finalize_host(self, handle: Dict, max_abs_y: float) -> List[Dict]:
         """Symbol planes to the host, then the host coder of the format."""
         out = handle["out"]
         B, H, W = handle["B"], handle["H"], handle["W"]
         tpu = handle["fmt"] == "tpu_host"
 
         def slice_major(planes):  # per image: section, then (h, w, c) order
-            return torch.stack([p.permute(0, 2, 3, 1) for p in planes], dim=1) \
-                .reshape(B, self.y_sections, -1).to(torch.int32).cpu().numpy()
+            return _host(torch.stack([p.permute(0, 2, 3, 1) for p in planes], dim=1)
+                         .reshape(B, self.y_sections, -1).to(torch.int32))
         y_sym, y_idx = slice_major(out["syms"]), slice_major(out["idxs"])
         z_np = _nhwc(out["z_sym"]).astype(np.int32).reshape(B, -1)
-        y_bits, z_bits = out["y_bits"].cpu().numpy(), out["z_bits"].cpu().numpy()
+        y_bits, z_bits = _host(out["y_bits"]), _host(out["z_bits"])
         Cz = self.bottleneck_z
         z_idx = np.broadcast_to(np.arange(Cz, dtype=np.int32),
                                 (z_np.shape[1] // Cz, Cz)).reshape(-1)
@@ -618,11 +643,11 @@ class Codec:
             z_esc = np.array([e for _, e, _ in z_enc])
             # per image, as the host coder sees one stream at a time
             return self._tpu_results(
-                handle, [s for s, _, _ in z_enc], [s for s, _, _ in y_enc], y_bits, z_bits,
+                handle, max_abs_y, [s for s, _, _ in z_enc], [s for s, _, _ in y_enc], y_bits,
+                z_bits,
                 escfree=(y_esc == 0) & (z_esc == 0),
                 esc_dense=self._esc_dense_flags(H, W, y_esc, z_esc),
                 t2free=not any(t for _, _, t in y_enc + z_enc))
-        max_abs_y = float(out["max_abs_y"])
         results = []
         for b in range(B):
             header = HeaderHandler.encode((H, W), max_abs_y, handle["quality_ind"],
@@ -639,8 +664,14 @@ class Codec:
         """Phase 2: fetch the device-coded streams (tpu format, device
         backend), or the symbol planes and entropy-code them on the host.
         Returns one result dict per image."""
-        results = (self._finalize_tpu(handle) if handle["fmt"] == "tpu_dev"
-                   else self._finalize_host(handle))
+        with span("codec.compress_finalize", {"seq": handle.get("seq")}):
+            return self._finalize(handle, float(_host(handle["out"]["max_abs_y"])))
+
+    def _finalize(self, handle: Dict, max_abs_y: float) -> List[Dict]:
+        """``compress_finalize`` with the headers' largest |y| given (a
+        mesh's, merged over its shards)."""
+        results = (self._finalize_tpu(handle, max_abs_y) if handle["fmt"] == "tpu_dev"
+                   else self._finalize_host(handle, max_abs_y))
         if handle["debug"]:
             y_hat, z_hat = _nhwc(handle["out"]["y_hat"]), _nhwc(handle["out"]["z_hat"])
             for b, r in enumerate(results):
@@ -764,19 +795,21 @@ class Codec:
         dev = self.device
         flags = dict(sparse_esc=sparse_esc, tier2=tier2, escfree=escfree)
         zero = torch.zeros(B, dtype=torch.int32, device=dev)
-        z_sym, z_cursor, _ = rd.decode_section(
-            z_words, z_base, zero, None, None, (B, self.bottleneck_z, zH, zW), lanes,
-            self._dtable("z"), **flags)
-        # the tpu format's parameters were derived on the model's device
-        # (``params_backend`` places only the compressai format's chain)
-        chain = _ParamChain(self.module, z_sym, (yH, yW), portable)
-        sc = self.bottleneck_y // self.y_sections
-        cursor, state = zero, None
-        for i in range(self.y_sections):
-            sym, cursor, state = rd.decode_section(
-                y_words, y_base, cursor, state, chain.indexes(), (B, sc, yH, yW), lanes,
-                self._dtable("y"), **flags)
-            chain.step(i, sym)
+        with span("codec.decode.chain"):
+            z_sym, z_cursor, _ = rd.decode_section(
+                z_words, z_base, zero, None, None, (B, self.bottleneck_z, zH, zW), lanes,
+                self._dtable("z"), **flags)
+            # the tpu format's parameters were derived on the model's device
+            # (``params_backend`` places only the compressai format's chain)
+            chain = _ParamChain(self.module, z_sym, (yH, yW), portable)
+            sc = self.bottleneck_y // self.y_sections
+            cursor, state = zero, None
+            for i in range(self.y_sections):
+                with span("codec.decode.section"):
+                    sym, cursor, state = rd.decode_section(
+                        y_words, y_base, cursor, state, chain.indexes(), (B, sc, yH, yW),
+                        lanes, self._dtable("y"), **flags)
+                    chain.step(i, sym)
         y_hat = chain.y_hat()
         res = dict(y_hat=y_hat, z_hat=chain.z_hat(),
                    consumed_words=torch.stack([z_cursor, cursor], dim=0))
@@ -788,20 +821,21 @@ class Codec:
                     lanes: int) -> Tuple[torch.Tensor, ...]:
         """The word buffers of a tpu-format decode on the device, and the
         coder's tables, before the chain (which never waits)."""
-        _, _, zH, zW, yH, yW = _geometry(*img_size)
-        y_cap, z_cap = self._tpu_caps(len(z_strs), yH, yW, zH, zW, lanes)
-        y_words, y_base = self._upload_words(y_strs, y_cap)
-        z_words, z_base = self._upload_words(z_strs, z_cap)
-        self._dtable("y"), self._dtable("z")
+        with span("codec.upload"):
+            _, _, zH, zW, yH, yW = _geometry(*img_size)
+            y_cap, z_cap = self._tpu_caps(len(z_strs), yH, yW, zH, zW, lanes)
+            y_words, y_base = self._upload_words(y_strs, y_cap)
+            z_words, z_base = self._upload_words(z_strs, z_cap)
+            self._dtable("y"), self._dtable("z")
         return z_words, z_base, y_words, y_base
 
     def _tpu_chain(self, words, z_strs, y_strs, img_size: Tuple[int, int], b1, b2,
                    lanes: int, esc_dense: bool, t2free: bool, escfree: bool, portable: bool,
-                   include_latents: bool = False):
+                   include_latents: bool = False, seq: Optional[int] = None):
         """Queue the decode chain on uploaded words (``_upload_tpu``).
         Returns a ``PendingImages`` of the pixels and the consumed-word
-        counts, or with ``include_latents`` (chain's dict, its check), no
-        reconstruction."""
+        counts (``seq``: the request's sequence number), or with
+        ``include_latents`` (chain's dict, its check), no reconstruction."""
         H, W = img_size
         B = len(z_strs)
         padH, padW, zH, zW, yH, yW = _geometry(H, W)
@@ -816,22 +850,23 @@ class Codec:
             return out, check
         flat = torch.cat([out["img"].permute(0, 2, 3, 1).reshape(-1),
                           out["consumed_words"].reshape(-1).view(torch.uint8)])
-        return PendingImages(flat, (B, padH, padW, H, W), check)
+        return PendingImages(flat, (B, padH, padW, H, W), check, seq)
 
     def _decompress_tpu(self, z_strs: List[bytes], y_strs: List[bytes],
                         img_size: Tuple[int, int], b1, b2, lanes: int, esc_dense: bool,
                         t2free: bool, escfree: bool, portable: bool,
-                        defer_fetch: bool = False, include_latents: bool = False):
+                        defer_fetch: bool = False, include_latents: bool = False,
+                        seq: Optional[int] = None):
         """Decode device-coded streams: upload the word buffers, run the
         decode chain, bring the pixels and the consumed-word counts back in
         one copy. ``include_latents`` returns the chain's dict instead
         (checked), without reconstruction."""
         words = self._upload_tpu(z_strs, y_strs, img_size, lanes)
         got = self._tpu_chain(words, z_strs, y_strs, img_size, b1, b2, lanes, esc_dense,
-                              t2free, escfree, portable, include_latents)
+                              t2free, escfree, portable, include_latents, seq)
         if include_latents:
             out, check = got
-            check(out["consumed_words"].cpu().numpy())
+            check(_host(out["consumed_words"]))
             return out
         return got if defer_fetch else got.fetch()
 
@@ -886,15 +921,18 @@ class Codec:
         ``stream_format`` defaults to this codec's; the tpu format's
         ``lanes`` to this codec's lanes, and its guarantees (``esc_dense``,
         ``t2free``, ``escfree``) to none."""
-        H, W = img_size
-        b1, b2 = self._beta_tensors(beta_rate, beta_vq)
-        if (stream_format or self.stream_format) == "tpu":
-            return self._decompress_tpu(
-                z_strs, y_strs, (H, W), b1, b2, lanes or self.lanes, esc_dense=esc_dense,
-                t2free=t2free, escfree=escfree, portable=portable, defer_fetch=defer_fetch)
-        y_hat, _ = self._decode_latents(z_strs, y_strs, H, W, portable)
-        img = self._reconstruct(y_hat.to(self.device), b1, b2, H, W)
-        return _nhwc(img[:, :, :H, :W])
+        seq = next(self._requests)
+        with span("codec.decompress", {"seq": seq}):
+            H, W = img_size
+            b1, b2 = self._beta_tensors(beta_rate, beta_vq)
+            if (stream_format or self.stream_format) == "tpu":
+                return self._decompress_tpu(
+                    z_strs, y_strs, (H, W), b1, b2, lanes or self.lanes, esc_dense=esc_dense,
+                    t2free=t2free, escfree=escfree, portable=portable,
+                    defer_fetch=defer_fetch, seq=seq)
+            y_hat, _ = self._decode_latents(z_strs, y_strs, H, W, portable)
+            img = self._reconstruct(y_hat.to(self.device), b1, b2, H, W)
+            return _nhwc(img[:, :, :H, :W])
 
     @_codec_call
     def verify_roundtrip(self, results: List[Dict], string_lists: List[List[bytes]],
@@ -924,59 +962,3 @@ class Codec:
             y_hat, z_hat = self._decode_latents(z_strs, y_strs, *img_size,
                                                 bool(hdr["portable"]))
         return _nhwc(y_hat), _nhwc(z_hat)
-
-    @_codec_call
-    def bench_device_cycle(self, images: np.ndarray, quality_ind: Optional[int] = None,
-                           beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
-                           iters: int = 3) -> Dict[str, float]:
-        """Time the device's share of one codec cycle in the tpu format:
-        the encode chain (front -> parameter chain -> device pack) and the
-        decode chain, each with its inputs already on the device, queued
-        end to end and waited for once. Host entropy coding and the copies
-        to and from the host are outside. Returns the median seconds per
-        batch of each chain. Needs a CUDA device."""
-        return device_cycle(self, [self], lambda items: [items], images, quality_ind,
-                            beta_rate, beta_vq, iters)
-
-
-def device_cycle(codec, shards: List[Codec], cut, images: np.ndarray,
-                 quality_ind: Optional[int], beta_rate: Optional[float],
-                 beta_vq: Optional[float], iters: int) -> Dict[str, float]:
-    """``bench_device_cycle`` of ``codec`` whose batches run on the
-    single-device ``shards``, ``cut(batch)`` giving each shard's part:
-    every shard's chain is queued before the wait for all their cards."""
-    if codec.stream_format != "tpu":
-        raise ValueError("the device cycle needs stream_format='tpu'")
-    if any(c.device.type != "cuda" for c in shards):
-        raise RuntimeError("bench_device_cycle times the card: build the model on cuda")
-    _, beta_rate, beta_vq = shards[0]._resolve_betas(quality_ind, beta_rate, beta_vq)
-    images = np.asarray(images)
-    H, W = images.shape[1:3]
-    ups = [(c._upload_images(x), *c._beta_tensors(beta_rate, beta_vq))
-           for c, x in zip(shards, cut(images))]
-    devices = {c.device for c in shards}
-
-    def timed(fn):
-        """Median seconds of ``fn`` until every card is done, after a
-        first run that is not counted."""
-        times = []
-        for i in range(iters + 1):
-            t0 = time.perf_counter()
-            fn()
-            for d in devices:
-                torch.cuda.synchronize(d)
-            times.append(time.perf_counter() - t0)
-        return statistics.median(times[1:])
-
-    enc_s = timed(lambda: [c._encode_tail(*up, "tpu_dev", False)
-                           for c, up in zip(shards, ups)])
-    res = codec.compress(images, beta_rate=beta_rate, beta_vq=beta_vq)
-    hdr = codec._parse([r["string_list"] for r in res])
-    _, _, zH, zW, yH, yW = _geometry(H, W)
-    zs, ys = (cut([r["string_list"][k] for r in res]) for k in (1, 2))
-    words = [c._upload_tpu(z, y, (H, W), codec.lanes) for c, z, y in zip(shards, zs, ys)]
-    dec_s = timed(lambda: [c._decode_pipeline(
-        *w, len(z), zH, zW, yH, yW, codec.lanes, sparse_esc=not hdr["esc_dense"],
-        recon=True, b1=b1, b2=b2, tier2=not hdr["t2free"], escfree=bool(hdr["escfree"]),
-        portable=bool(hdr["portable"])) for c, w, z, (_, b1, b2) in zip(shards, words, zs, ups)])
-    return {"enc_s": enc_s, "dec_s": dec_s}

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import canonical_device, replicas
-from .driver import Codec, PendingImages, _codec_call, _nhwc, device_cycle
+from .driver import Codec, PendingImages, _codec_call, _host, _nhwc
 
 
 class _PendingShards:
@@ -115,11 +115,10 @@ class MeshCodec:
     def compress_finalize(self, handle: Dict) -> List[Dict]:
         """Each shard's results, the pad dropped; the headers carry the
         whole batch's largest |y|, as on one device."""
-        max_abs_y = max(float(h["out"]["max_abs_y"]) for h in handle["shards"])
+        max_abs_y = max(float(_host(h["out"]["max_abs_y"])) for h in handle["shards"])
         results = []
         for c, h in zip(self._shards, handle["shards"]):
-            h["out"]["max_abs_y"] = max_abs_y
-            results += c.compress_finalize(h)
+            results += c._finalize(h, max_abs_y)
         return results[:handle["B"]]
 
     def _parse(self, string_lists) -> Dict:
@@ -166,15 +165,6 @@ class MeshCodec:
                     for c, w, z, y in zip(self._shards, words, zs, ys)]
             lat = []
             for out, check in runs:
-                check(out["consumed_words"].cpu().numpy())
+                check(_host(out["consumed_words"]))
                 lat.append((_nhwc(out["y_hat"]), _nhwc(out["z_hat"])))
         return np.concatenate([y for y, _ in lat]), np.concatenate([z for _, z in lat])
-
-    @_codec_call
-    def bench_device_cycle(self, images: np.ndarray, quality_ind: Optional[int] = None,
-                           beta_rate: Optional[float] = None, beta_vq: Optional[float] = None,
-                           iters: int = 3) -> Dict[str, float]:
-        """``Codec.bench_device_cycle`` with every shard's chain queued
-        before the wait for all the mesh's cards."""
-        return device_cycle(self, self._shards, self._cut, images, quality_ind, beta_rate,
-                            beta_vq, iters)

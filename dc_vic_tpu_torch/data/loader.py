@@ -17,6 +17,7 @@ from typing import Dict, Iterator
 import numpy as np
 
 from ..parallel.mesh import shard_rows
+from ..utils.profiling import span
 from .datasets import BaseImageDataset
 
 
@@ -75,8 +76,16 @@ class HostDataLoader:
             pool.shutdown(wait=False, cancel_futures=True)
 
     def infinite(self, start_epoch: int = 0) -> Iterator[Dict]:
-        """Epoch after epoch, without end."""
-        epoch = start_epoch
+        """Epoch after epoch, without end. Each batch is taken inside the
+        program span ``data.next`` (with an epoch's start where it begins
+        one)."""
+        batches = self._epochs(start_epoch)
+        while True:
+            with span("data.next"):
+                batch = next(batches)
+            yield batch
+
+    def _epochs(self, epoch: int) -> Iterator[Dict]:
         while True:
             yield from self.epoch_batches(epoch)
             epoch += 1

@@ -43,6 +43,7 @@ from ..codec.gaussian import GaussianConditional, get_scale_table
 from ..codec.ops import Noise
 from ..nn.layers import FuseSftBlock, LightFuseSftBlock
 from ..ops.layout import row_major as _row_major
+from ..utils.profiling import span
 from .vqgan import VQModel
 
 GUMBEL_TAU = 1.0  # the Gumbel softmax temperature (the JAX package's default)
@@ -310,22 +311,25 @@ class DCVICModel(EntropyChainMethods, nn.Module):
         to the codec dtype. With ``use_gumbel`` and the model's
         ``gumbel_sampling``, the decoder reads the codebook mixed by a
         Gumbel softmax of the logits instead of the argmax codewords."""
-        if self.use_beta:
-            feat, cond_feats = self.decoder.get_feats(y_hat, beta_rate, beta_vq)
-        else:
-            feat, cond_feats = self.decoder.get_feats(y_hat)
-        pred_embed, logits = self.vq_estimator(feat)
-        indices = torch.argmax(logits, dim=1)
-        if use_gumbel and self.gumbel_sampling:
-            g = noise.gumbel(logits.shape, logits)
-            weights = torch.softmax((logits + g) / GUMBEL_TAU, dim=1)
-            vq_latent = torch.einsum("bnhw,nd->bdhw", weights,
-                                     self.vq_model.quantize.embedding.weight)
-        else:
-            vq_latent = self.vq_model.quantize.lookup(indices)
-        vq_latent = self.vq_model.post_quant_conv(vq_latent)
-        fake = self.vq_model.decoder(vq_latent, self.fusion_module.fusion_modules,
-                                     cond_feats, w).float()
+        with span("model.decoder_feats"):
+            if self.use_beta:
+                feat, cond_feats = self.decoder.get_feats(y_hat, beta_rate, beta_vq)
+            else:
+                feat, cond_feats = self.decoder.get_feats(y_hat)
+        with span("model.vq_estimator"):
+            pred_embed, logits = self.vq_estimator(feat)
+            indices = torch.argmax(logits, dim=1)
+        with span("model.vqgan_decoder"):
+            if use_gumbel and self.gumbel_sampling:
+                g = noise.gumbel(logits.shape, logits)
+                weights = torch.softmax((logits + g) / GUMBEL_TAU, dim=1)
+                vq_latent = torch.einsum("bnhw,nd->bdhw", weights,
+                                         self.vq_model.quantize.embedding.weight)
+            else:
+                vq_latent = self.vq_model.quantize.lookup(indices)
+            vq_latent = self.vq_model.post_quant_conv(vq_latent)
+            fake = self.vq_model.decoder(vq_latent, self.fusion_module.fusion_modules,
+                                         cond_feats, w).float()
         if self.convert_img_range_to_01:
             fake = fake * 2.0 - 1.0
         return fake, pred_embed, logits, indices

@@ -20,6 +20,7 @@ from ..nn.layers import (BetaScaleShift, ChengNLAM, FemasrResBlock,
                          ResidualBottleneckBlocks, beta_cond, beta_mlp, conv,
                          deconv, up_conv)
 from ..nn.swin import RSTB
+from ..utils.profiling import span
 from ..utils.registry import (CONTEXTMODEL_REGISTRY, DECODER_REGISTRY,
                               ENCODER_REGISTRY, HYPERDECODER_REGISTRY,
                               HYPERENCODER_REGISTRY, VQ_ESTIMATOR_REGISTRY)
@@ -33,7 +34,8 @@ class _BetaFilm(nn.Module):
         self.mlp = beta_mlp(cond_ch, L, include_x)
 
     def cond(self, beta_1, beta_2):
-        return beta_cond(self.mlp, beta_1, beta_2, *self.beta_args)
+        with span("nn.fusion"):
+            return beta_cond(self.mlp, beta_1, beta_2, *self.beta_args)
 
 
 @ENCODER_REGISTRY.register()

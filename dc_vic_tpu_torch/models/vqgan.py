@@ -23,23 +23,26 @@ from ..nn.layers import GroupNorm, PointwiseLinear, conv, num_groups32
 from ..ops import conv3x3 as conv3x3_ops
 from ..ops.attention import flash_attention
 from ..ops.vq import vq_argmin_nchw
+from ..utils.profiling import span
 
 
 def gn_fold(x: torch.Tensor, norm: GroupNorm):
     """Fold GroupNorm statistics and gamma, beta into one per-(image,
     channel) affine: GN(x) * gamma + beta == x * scale[b] + bias[b]. Both
     [B, C] f32. The variance is the two-pass one, as in the JAX package's
-    fused block (its GroupNorm module uses the fast variance)."""
-    B, C = x.shape[:2]
-    G = norm.num_groups
-    xg = x.float().reshape(B, G, -1)
-    mean = xg.mean(-1)
-    var = torch.square(xg - mean[:, :, None]).mean(-1)
-    inv = torch.rsqrt(var + norm.eps)
-    rep = lambda a: a.repeat_interleave(C // G, dim=1)             # [B,G]->[B,C]
-    scale = norm.weight.float()[None] * rep(inv)
-    bias = norm.bias.float()[None] - rep(mean) * scale
-    return scale, bias
+    fused block (its GroupNorm module uses the fast variance). The
+    GroupNorm's work outside the conv: the program span ``nn.group_norm``."""
+    with span("nn.group_norm"):
+        B, C = x.shape[:2]
+        G = norm.num_groups
+        xg = x.float().reshape(B, G, -1)
+        mean = xg.mean(-1)
+        var = torch.square(xg - mean[:, :, None]).mean(-1)
+        inv = torch.rsqrt(var + norm.eps)
+        rep = lambda a: a.repeat_interleave(C // G, dim=1)             # [B,G]->[B,C]
+        scale = norm.weight.float()[None] * rep(inv)
+        bias = norm.bias.float()[None] - rep(mean) * scale
+        return scale, bias
 
 
 class VQResnetBlock(nn.Module):
@@ -97,17 +100,18 @@ class VQAttnBlock(nn.Module):
         self.proj_out = conv(ch, ch, 1)
 
     def forward(self, x):
-        B, C, H, W = x.shape
-        h = self.norm(x)
+        with span("nn.attention"):
+            B, C, H, W = x.shape
+            h = self.norm(x)
 
-        def tokens(t):  # [B, C, H, W] -> [B, H*W, C], row-major over (H, W)
-            return t.reshape(B, C, H * W).transpose(1, 2).float().contiguous()
+            def tokens(t):  # [B, C, H, W] -> [B, H*W, C], row-major over (H, W)
+                return t.reshape(B, C, H * W).transpose(1, 2).float().contiguous()
 
-        # f32 operands whatever the conv dtype, q pre-scaled by C^-1/2
-        q = self.q(h)
-        out = flash_attention(tokens(q * C ** -0.5), tokens(self.k(h)), tokens(self.v(h)))
-        out = out.transpose(1, 2).reshape(B, C, H, W)
-        return (x + self.proj_out(out)).to(q.dtype)
+            # f32 operands whatever the conv dtype, q pre-scaled by C^-1/2
+            q = self.q(h)
+            out = flash_attention(tokens(q * C ** -0.5), tokens(self.k(h)), tokens(self.v(h)))
+            out = out.transpose(1, 2).reshape(B, C, H, W)
+            return (x + self.proj_out(out)).to(q.dtype)
 
 
 class Downsample(nn.Module):

@@ -34,6 +34,7 @@ from torch import nn
 
 from ..ops import conv3x3 as conv3x3_ops
 from ..ops import gn as gn_ops
+from ..utils.profiling import span
 
 
 def num_groups32(channels: int) -> int:
@@ -151,22 +152,23 @@ class GroupNorm(nn.Module):
         return self.recon_kernel and gn_ops.use_kernel(shape)
 
     def forward(self, x):
-        if self.takes_kernel(x.shape):
-            return gn_ops.group_norm(x, self.weight, self.bias, self.num_groups,
-                                     self.eps, self.act)
-        B, C = x.shape[:2]
-        G = self.num_groups
-        xg = x.float().reshape(B, G, -1)
-        mean = xg.mean(-1)
-        var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
-        inv = torch.rsqrt(var + self.eps)
-        rep = lambda a: a.repeat_interleave(C // G, dim=1)     # [B,G]->[B,C]
-        scale = self.weight.float()[None] * rep(inv)
-        shift = self.bias.float()[None] - rep(mean) * scale
-        y = x.float() * scale[:, :, None, None] + shift[:, :, None, None]
-        if self.act == "swish":
-            y = y * torch.sigmoid(y)
-        return y.to(x.dtype)
+        with span("nn.group_norm"):
+            if self.takes_kernel(x.shape):
+                return gn_ops.group_norm(x, self.weight, self.bias, self.num_groups,
+                                         self.eps, self.act)
+            B, C = x.shape[:2]
+            G = self.num_groups
+            xg = x.float().reshape(B, G, -1)
+            mean = xg.mean(-1)
+            var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
+            inv = torch.rsqrt(var + self.eps)
+            rep = lambda a: a.repeat_interleave(C // G, dim=1)     # [B,G]->[B,C]
+            scale = self.weight.float()[None] * rep(inv)
+            shift = self.bias.float()[None] - rep(mean) * scale
+            y = x.float() * scale[:, :, None, None] + shift[:, :, None, None]
+            if self.act == "swish":
+                y = y * torch.sigmoid(y)
+            return y.to(x.dtype)
 
 
 class BottleneckResBlock(nn.Module):
@@ -275,10 +277,11 @@ class BetaScaleShift(nn.Module):
         self.shift = nn.Linear(cond_ch, feat_ch)
 
     def forward(self, feat, cond):
-        h = self.shared(cond)
-        scale = self.scale(h)[:, :, None, None]
-        shift = self.shift(h)[:, :, None, None]
-        return feat * (1.0 + scale) + shift
+        with span("nn.fusion"):
+            h = self.shared(cond)
+            scale = self.scale(h)[:, :, None, None]
+            shift = self.shift(h)[:, :, None, None]
+            return feat * (1.0 + scale) + shift
 
 
 class GNResBlock(nn.Module):
@@ -341,8 +344,9 @@ class FuseSftBlock(nn.Module):
                                    conv(dec_ch, dec_ch, 3))
 
     def forward(self, dec_feat, cond_feat, w: float = 1.0):
-        fuse = self.fuse_block(torch.cat([cond_feat, dec_feat], dim=1))
-        return dec_feat + w * (dec_feat * self.scale(fuse) + self.shift(fuse))
+        with span("nn.fusion"):
+            fuse = self.fuse_block(torch.cat([cond_feat, dec_feat], dim=1))
+            return dec_feat + w * (dec_feat * self.scale(fuse) + self.shift(fuse))
 
 
 class LightFuseSftBlock(nn.Module):
@@ -359,8 +363,9 @@ class LightFuseSftBlock(nn.Module):
         self.shift = conv(mid_ch, dec_ch, 3)
 
     def forward(self, dec_feat, cond_feat, w: float = 1.0):
-        fuse = self.fuse_block(torch.cat([cond_feat, dec_feat], dim=1))
-        return dec_feat + w * (dec_feat * self.scale(fuse) + self.shift(fuse))
+        with span("nn.fusion"):
+            fuse = self.fuse_block(torch.cat([cond_feat, dec_feat], dim=1))
+            return dec_feat + w * (dec_feat * self.scale(fuse) + self.shift(fuse))
 
 
 class GDN(nn.Module):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .layers import conv
 
 
@@ -60,21 +61,22 @@ class WindowAttention(nn.Module):
 
     def forward(self, xw, mask=None):
         # xw: [B*nW, N, C] tokens of each window
-        Bn, N, C = xw.shape
-        h = self.num_heads
-        hd = C // h
-        qkv = self.qkv(xw).reshape(Bn, N, 3, h, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]                    # [Bn, h, N, hd]
-        # f32 scores: products of the tokens' values, summed in f32
-        attn = (q * hd ** -0.5).float() @ k.float().transpose(-2, -1)
-        bias = self.relative_position_bias_table[self.relative_position_index]
-        attn = attn + bias.reshape(N, N, h).permute(2, 0, 1)[None]
-        if mask is not None:
-            nW = mask.shape[0]
-            attn = attn.reshape(Bn // nW, nW, h, N, N) + mask[None, :, None]
-            attn = attn.reshape(Bn, h, N, N)
-        out = torch.softmax(attn, dim=-1).to(xw.dtype) @ v
-        return self.proj(out.transpose(1, 2).reshape(Bn, N, C))
+        with span("nn.attention"):
+            Bn, N, C = xw.shape
+            h = self.num_heads
+            hd = C // h
+            qkv = self.qkv(xw).reshape(Bn, N, 3, h, hd).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv[0], qkv[1], qkv[2]                    # [Bn, h, N, hd]
+            # f32 scores: products of the tokens' values, summed in f32
+            attn = (q * hd ** -0.5).float() @ k.float().transpose(-2, -1)
+            bias = self.relative_position_bias_table[self.relative_position_index]
+            attn = attn + bias.reshape(N, N, h).permute(2, 0, 1)[None]
+            if mask is not None:
+                nW = mask.shape[0]
+                attn = attn.reshape(Bn // nW, nW, h, N, N) + mask[None, :, None]
+                attn = attn.reshape(Bn, h, N, N)
+            out = torch.softmax(attn, dim=-1).to(xw.dtype) @ v
+            return self.proj(out.transpose(1, 2).reshape(Bn, N, C))
 
 
 class LayerNorm(nn.LayerNorm):

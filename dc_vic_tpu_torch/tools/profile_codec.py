@@ -1,7 +1,7 @@
 """Per-stage codec profiler (port of scripts/profile_codec.py): the host
 clock of each stage of the compress -> decompress cycle, and with
 ``--trace_dir`` a ``torch.profiler`` trace of the timed rounds and the
-device time per kernel name.
+device time per kernel name and per program span.
 
     python3 -m dc_vic_tpu_torch.tools.profile_codec --config_path config/dc_vic_patchgan.yaml \\
         [--model_path ckpt.pth.tar] [--batch 8] [--height 768] [--width 512] [--rounds 3] \\
@@ -31,7 +31,8 @@ import numpy as np
 
 from ..codec.driver import Codec, PendingImages
 from ..utils.logger import get_root_logger
-from ..utils.profiling import StageTimer, device_trace, kernel_report, kernel_times
+from ..utils.profiling import (StageTimer, device_trace, kernel_report, kernel_times,
+                               span_times)
 
 STAGES = ("1_device_encode+sym_d2h", "2_host_rans_encode", "3_decode_z+hyper+charm+recon",
           "4_image_d2h")
@@ -71,8 +72,8 @@ def profile(codec: Codec, images: np.ndarray, rounds: int, trace_dir=None, **bet
     ``codec`` at ``betas`` (``quality_ind``, or ``beta_rate`` and
     ``beta_vq``) after one warm-up cycle: the ``StageTimer`` report, one
     entry per stage of ``STAGES``. With ``trace_dir`` the timed rounds are
-    traced there and the device time per kernel is printed (top 20 and the
-    total)."""
+    traced there and the device time per kernel (top 20 and the total) and
+    per program span is printed."""
     _cycle(codec, images, StageTimer(), betas)
     timer = StageTimer()
     with device_trace(trace_dir) if trace_dir else contextlib.nullcontext() as prof:
@@ -80,6 +81,9 @@ def profile(codec: Codec, images: np.ndarray, rounds: int, trace_dir=None, **bet
             _cycle(codec, images, timer, betas)
     if trace_dir:
         for line in kernel_report(kernel_times(prof)):
+            print(line)
+        print("by program span (innermost):")
+        for line in kernel_report(span_times(prof), top=40):
             print(line)
     return timer.report()
 

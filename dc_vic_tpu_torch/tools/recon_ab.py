@@ -16,7 +16,9 @@ Codec.decompress ``--runs`` times per model in the order off, on, on, off,
 ...; every time is printed (host clock around a call that ends in
 torch.cuda.synchronize()), then the medians. Then one round trip of each
 model runs under torch.profiler (CPU and CUDA activities) and the device
-time is summed by kernel name and by group:
+time is summed by the program span that launched it (``utils/profiling.py::
+span_times``: the codec's stages, the model's, the NN modules'), by kernel
+name and by group:
 
 * conv and matmul library: cuDNN and cuBLAS kernels with their FFT and
   layout-transpose helpers;
@@ -32,8 +34,7 @@ and ``--lanes`` are the Codec's arguments of those names.
 ``--recon-kernels`` names the kernels of the "on" model (``gn`` alone keeps
 the convolutions with cuDNN). ``--deployment`` takes the deployment workload
 of ``tools/workload.py`` instead: bf16 and ``default``, tpu format, device
-backend, 512 lanes, sixteen smooth images, encoder weights scaled; the
-device-only times of ``Codec.bench_device_cycle`` are printed as well.
+backend, 512 lanes, sixteen smooth images, encoder weights scaled.
 
 The grouping is by substrings of the kernel names and is printed in full
 (top kernels by time), so a wrong guess shows. Needs CUDA; fails without.
@@ -53,7 +54,7 @@ import torch
 from ..codec.driver import Codec
 from ..models import RECON_KERNELS, build_comp_model, init_weights
 from ..utils.config import load_config
-from ..utils.profiling import kernel_times
+from ..utils.profiling import kernel_report, kernel_times, span_times
 from .workload import DEPLOYMENT, deployment_images, scale_encoder
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -93,20 +94,24 @@ def round_trip(codec: Codec, images: np.ndarray):
 
 
 def device_times(codec: Codec, images: np.ndarray):
-    """{kernel name: (device microseconds, calls)} of one round trip, and
-    the wall seconds it took under the profiler."""
+    """{kernel name: (device microseconds, calls)} of one round trip, the
+    same by program span, and the wall seconds it took under the
+    profiler."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = sum(round_trip(codec, images)[:2])
-    return kernel_times(prof), wall
+    return kernel_times(prof), span_times(prof), wall
 
 
-def report(label: str, times: dict, wall: float, emit) -> None:
+def report(label: str, times: dict, spans: dict, wall: float, emit) -> None:
     total = sum(us for us, _ in times.values())
     if total <= 0:
         raise RuntimeError("the profiler recorded no device time")
     emit(f"--- {label}: device time {total / 1e3} ms in {sum(n for _, n in times.values())} "
          f"kernel launches; wall {wall} s under the profiler")
+    emit("by program span (innermost):")
+    for line in kernel_report(spans, top=40)[1:]:
+        emit(line)
     groups = {}
     for name, (us, n) in times.items():
         g = groups.setdefault(group_of(name), [0.0, 0])
@@ -187,17 +192,9 @@ def main() -> None:
         emit(f"kernels {name}: decode s {[r[1] for r in runs]}")
         emit(f"kernels {name}: median encode {statistics.median(r[0] for r in runs)} s, "
              f"median decode {statistics.median(r[1] for r in runs)} s over {len(runs)} runs")
-    if args.stream_format == "tpu" and args.encode_backend == "device":
-        for name, codec in codecs.items():
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            cycle = codec.bench_device_cycle(images, 0)
-            emit(f"kernels {name}: bench_device_cycle encode chain {cycle['enc_s']} s, decode "
-                 f"chain {cycle['dec_s']} s; peak memory of these cycles "
-                 f"{torch.cuda.max_memory_allocated() / 2 ** 30} GiB (both models resident)")
     for name, codec in codecs.items():
-        times, wall = device_times(codec, images)
-        report(f"reconstruction kernels {name}", times, wall, emit)
+        times, spans, wall = device_times(codec, images)
+        report(f"reconstruction kernels {name}", times, spans, wall, emit)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

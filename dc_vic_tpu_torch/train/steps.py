@@ -11,7 +11,9 @@ Each step does the main (g) update, the aux (quantile) update where the
 stage has one, and the reference's skip of a step whose loss is not finite
 or too large (|loss| >= 1e4): the skip is a ``torch.where`` on the device
 inside the optimizers, so a step never waits for the host. The step counter
-advances either way.
+advances either way. Under a ``torch.profiler`` session a step marks its
+forward passes, backward passes and update as the program spans
+``train.forward``, ``train.backward`` and ``train.update``.
 
 The loss assemblies (``rd_losses``, ``gan_g_losses``, ``gan_d_loss``) take
 explicit betas and a ``Noise``, so a caller can replay another run's draws.
@@ -28,6 +30,7 @@ from torch import nn
 from ..codec.ops import Noise
 from ..parallel.fsdp import FullyShardedState
 from ..parallel.mesh import DataParallel
+from ..utils.profiling import span
 from .optim import Optimizer
 
 
@@ -215,21 +218,22 @@ def _update(opts, terms: Dict[str, torch.Tensor], totals, dp: Optional[DataParal
     steps); the step is skipped unless every total (read from ``terms``
     after that average, so every rank decides alike) is finite. Returns the
     terms with ``skipped``."""
-    terms = {k: v.detach() for k, v in terms.items()}
-    if dp is not None:
-        terms = dp.all_reduce_mean(terms)
-    ok = _finite(terms[totals[0]])
-    for name in totals[1:]:
-        ok = ok & _finite(terms[name])
-    for opt in opts:
+    with span("train.update"):
+        terms = {k: v.detach() for k, v in terms.items()}
+        if dp is not None:
+            terms = dp.all_reduce_mean(terms)
+        ok = _finite(terms[totals[0]])
+        for name in totals[1:]:
+            ok = ok & _finite(terms[name])
+        for opt in opts:
+            if fsdp is not None:
+                grads = fsdp.mean_grads(opt)
+            else:
+                grads = None if dp is None else dp.mean_grads(opt.params)
+            opt.step(grads, ok=ok)
         if fsdp is not None:
-            grads = fsdp.mean_grads(opt)
-        else:
-            grads = None if dp is None else dp.mean_grads(opt.params)
-        opt.step(grads, ok=ok)
-    if fsdp is not None:
-        fsdp.release()
-    terms["skipped"] = (~ok).float()
+            fsdp.release()
+        terms["skipped"] = (~ok).float()
     return terms
 
 
@@ -246,10 +250,12 @@ def rd_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaPo
     if state.fsdp is not None:
         state.fsdp.gather()
     _zero_grads(model)
-    total, terms, out = rd_losses(model, losses, batch, beta_rate, beta_vq, policy,
-                                  _noise(state.generator, dp), lpips_fn)
-    aux = model.aux_loss()
-    (total + aux).backward()
+    with span("train.forward"):
+        total, terms, out = rd_losses(model, losses, batch, beta_rate, beta_vq, policy,
+                                      _noise(state.generator, dp), lpips_fn)
+        aux = model.aux_loss()
+    with span("train.backward"):
+        (total + aux).backward()
     terms.update(bpp=out["bpp"], qbpp=out["qbpp"], vq_accuracy=out["vq_accuracy"],
                  total=total, aux=aux)
     terms = _update((state.g_opt, state.aux_opt), terms, ("total",), dp, state.fsdp)
@@ -285,25 +291,30 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
     _zero_grads(model, disc)
     disc.requires_grad_(False)
     try:
-        g_total, terms, out = gan_g_losses(model, disc, losses, g_batch, beta_rate, beta_vq,
-                                           policy, _noise(state.generator, dp), lpips_fn,
-                                           oasis)
-        g_total.backward()
+        with span("train.forward"):
+            g_total, terms, out = gan_g_losses(model, disc, losses, g_batch, beta_rate,
+                                               beta_vq, policy, _noise(state.generator, dp),
+                                               lpips_fn, oasis)
+        with span("train.backward"):
+            g_total.backward()
     finally:
         disc.requires_grad_(True)
-    # the encoder branch and the VQGAN are frozen in the GAN stages, so the
-    # reals' y_hat and token map are the same before and after the
-    # generator's update
-    real_y_hat = model.extract_y_hat(d_real_batch, beta_rate, beta_vq) if y_hat_cond else None
-    fake_y_hat = out["quantized_code"]["y"].detach() if y_hat_cond else None
-    fake_tokens = real_tokens = out["gt_vq_indices"] if oasis else None
-    if oasis and mc_sampling:
-        with torch.no_grad():
-            real_tokens = model.vq_encode(d_real_batch)[1]
-    d_total = gan_d_loss(disc, gan_loss, d_real_batch, out["fake_images"], beta_rate,
-                         beta_vq, real_y_hat, fake_y_hat, real_tokens=real_tokens,
-                         fake_tokens=fake_tokens)
-    d_total.backward()
+    with span("train.forward"):
+        # the encoder branch and the VQGAN are frozen in the GAN stages, so
+        # the reals' y_hat and token map are the same before and after the
+        # generator's update
+        real_y_hat = (model.extract_y_hat(d_real_batch, beta_rate, beta_vq) if y_hat_cond
+                      else None)
+        fake_y_hat = out["quantized_code"]["y"].detach() if y_hat_cond else None
+        fake_tokens = real_tokens = out["gt_vq_indices"] if oasis else None
+        if oasis and mc_sampling:
+            with torch.no_grad():
+                real_tokens = model.vq_encode(d_real_batch)[1]
+        d_total = gan_d_loss(disc, gan_loss, d_real_batch, out["fake_images"], beta_rate,
+                             beta_vq, real_y_hat, fake_y_hat, real_tokens=real_tokens,
+                             fake_tokens=fake_tokens)
+    with span("train.backward"):
+        d_total.backward()
     terms.update(bpp=out["bpp"], vq_accuracy=out["vq_accuracy"], total=g_total,
                  d_loss=d_total)
     terms = _update((state.g_opt, state.d_opt), terms, ("total", "d_loss"), dp, state.fsdp)

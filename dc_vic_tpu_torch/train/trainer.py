@@ -79,6 +79,7 @@ from ..parallel.mesh import DataParallel
 from ..utils.backends import backend_flags
 from ..utils.logger import AvgMeter, CSVLogger, bolded_log, get_root_logger
 from ..utils.paths import PathHandler
+from ..utils.profiling import span
 from ..utils.registry import TRAINER_REGISTRY
 from ..utils.timer import Timer
 from .losses import build_loss
@@ -254,11 +255,12 @@ class Trainer:
 
     def _to_device(self, images: np.ndarray) -> torch.Tensor:
         """NHWC float32 host images -> NCHW on the device (pinned and
-        non-blocking on a card)."""
-        t = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2).contiguous()
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        non-blocking on a card), in the program span ``data.to_device``."""
+        with span("data.to_device"):
+            t = torch.from_numpy(np.ascontiguousarray(images)).permute(0, 3, 1, 2).contiguous()
+            if self.device.type == "cuda":
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
 
     # ------------------------------------------------------------------
     def step(self, batch: torch.Tensor) -> Dict[str, torch.Tensor]:

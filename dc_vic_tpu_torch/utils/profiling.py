@@ -11,6 +11,20 @@ that two versions of a kernel can be timed in turns. ``StageTimer``
 accumulates host-clock seconds per named stage, each stage ending in a wait
 for the device work it names (``sync``), so that a stage's time is its own
 on a device that runs asynchronously.
+
+Program spans. ``span(name)`` marks a layer boundary of the program (the
+codec driver, the model stages, the NN modules, the trainer, the data path;
+PERF.md lists them with the metrics that read them) and ``count(name)``
+counts an event there. Both act only while a ``torch.profiler`` session
+records, and cost one flag check otherwise. Where the session records the
+host's operations, a span is an operation named ``dcvic.<name>`` on the
+profiler's host timeline, nested in the spans around it, with its ``args``
+attached (the trace shows them when the profiler records shapes); where it
+records the card alone, a span records no event. Either way its host
+seconds and entries, and the counts, add up in memory, apart by the kind
+of session, and are read and reset with the kernel counters through
+``ops/counts.py``. ``span_times`` sums a finished profile's device time by
+the innermost span that launched each kernel (``kernel_report`` lists it).
 """
 from __future__ import annotations
 
@@ -18,12 +32,106 @@ import contextlib
 import importlib
 import os
 import sys
+import threading
 import time
 import types
 from collections import defaultdict
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+
+SPAN_PREFIX = "dcvic."
+# while a profiler records, by whether its session records the host's
+# operations too (True) or the card alone (False): span name -> [host
+# seconds, entries], counter name -> count; ``ops/counts.py`` reads and
+# resets them under ``totals_lock``
+span_totals: Dict[bool, Dict[str, List[float]]] = {True: {}, False: {}}
+counters: Dict[bool, Dict[str, int]] = {True: {}, False: {}}
+totals_lock = threading.Lock()
+_OFF = contextlib.nullcontext()
+_host_recorded = True     # set where each profiler session starts (_watch_sessions)
+
+
+def records_host(activities) -> bool:
+    """Whether a session of these ``ProfilerActivity``s records the host's
+    operations: one that names its activities without the CPU records the
+    card alone; one that names none (NVTX, ITT) takes the spans as host
+    ranges."""
+    return not activities or torch.profiler.ProfilerActivity.CPU in activities
+
+
+def _watch_sessions() -> None:
+    """Note, where each profiler session starts, whether it records the
+    host's operations. torch has no query of a running session's
+    activities, so the call of ``torch.autograd.profiler`` that starts one,
+    ``_enable_profiler(config, activities)`` (``torch.profiler.profile``
+    goes through it), is wrapped once (``records_host``)."""
+    from torch.autograd import profiler as autograd_profiler
+    start = autograd_profiler._enable_profiler
+    if getattr(start, "notes_host", False):
+        return
+
+    def enable(config, activities, *rest, **kwargs):
+        global _host_recorded
+        _host_recorded = records_host(activities)
+        return start(config, activities, *rest, **kwargs)
+    enable.notes_host = True
+    autograd_profiler._enable_profiler = enable
+
+
+_watch_sessions()
+
+
+class _Span:
+    """An active span. Where the session records the host, it is a host
+    operation on the profiler's timeline, recorded at the FUNCTION scope
+    (``_RecordFunctionFast``), not as a user annotation
+    (``record_function``): a user annotation also puts a copy of itself on
+    the device timeline, spanning the kernels it launched, which anything
+    that counts the device timeline's events as device work would count as
+    a kernel; and it costs ten times as much host time. Where the session
+    records the card alone, a span would record no event and still slow
+    every launch inside it (about 1.5 us on the card), so it enters no
+    record and only adds up its host time."""
+    __slots__ = ("name", "args", "host", "rf", "t0")
+
+    def __init__(self, name: str, args: Optional[dict], host: bool):
+        self.name, self.args, self.host = name, args, host
+
+    def __enter__(self):
+        if self.host:
+            self.rf = torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + self.name, (),
+                                                             self.args or {})
+            self.rf.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self.t0
+        if self.host:
+            self.rf.__exit__(*exc)
+        with totals_lock:
+            tot = span_totals[self.host].setdefault(self.name, [0.0, 0])
+            tot[0] += dt
+            tot[1] += 1
+
+
+def span(name: str, args: Optional[dict] = None):
+    """A context that marks the block as the program span ``name`` while a
+    profiler records (``args``: numbers shown with it in the trace, such as
+    a request's sequence number); otherwise a shared context that does
+    nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _Span(name, args, _host_recorded)
+
+
+def count(name: str) -> None:
+    """Add one to the counter ``name`` while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        with totals_lock:
+            table = counters[_host_recorded]
+            table[name] = table.get(name, 0) + 1
 
 
 def _devices(tree, out: set) -> set:
@@ -93,6 +201,45 @@ def kernel_report(times: Dict[str, Tuple[float, int]], top: int = 20) -> List[st
         lines.append(f"{100 * us / max(total, 1e-9):6.2f}%  {us / 1e3:10.3f} ms  {n:6d}  "
                      f"{name[:110]}")
     return lines
+
+
+def span_times(prof) -> Dict[str, Tuple[float, int]]:
+    """{program span name (no prefix): (device microseconds, operations)} of
+    a finished profile that recorded the host too: each operation on the
+    device (a kernel, a copy) counts for the innermost program span whose
+    host interval holds its launch, the runtime call (``cudaLaunchKernel``,
+    ``cudaMemcpyAsync``, ...) that shares its correlation id. By interval
+    and not by the launching thread's stack, so that the kernels autograd
+    launches on its own thread count for the span its caller was in
+    (``train.backward``). Operations launched outside every span, or whose
+    launch the profile holds no record of, count under ``"(outside)"``;
+    user annotations' copies on the device timeline are no operation."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    # by start, the outer of two that start together first
+    spans = sorted(((e.time_range.start, e.time_range.end, e.name[len(SPAN_PREFIX):])
+                    for e in host if e.name.startswith(SPAN_PREFIX)),
+                   key=lambda s: (s[0], -s[1]))
+    launched = {e.id: e.time_range.start for e in host if e.name.startswith("cu")}
+    device = sorted((launched.get(e.id, float("-inf")), e.time_range.elapsed_us())
+                    for e in events if e.device_type == DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False))
+    out: Dict[str, List[float]] = {}
+    open_spans: List[Tuple[float, float, str]] = []    # nested: innermost last
+    j = 0
+    for t, us in device:
+        while j < len(spans) and spans[j][0] <= t:
+            while open_spans and open_spans[-1][1] < spans[j][0]:
+                open_spans.pop()
+            open_spans.append(spans[j])
+            j += 1
+        while open_spans and open_spans[-1][1] < t:
+            open_spans.pop()
+        tot = out.setdefault(open_spans[-1][2] if open_spans else "(outside)", [0.0, 0])
+        tot[0] += us
+        tot[1] += 1
+    return {k: (v[0], int(v[1])) for k, v in out.items()}
 
 
 def graph_ms(fn, *args, launches: int = 100, replays: int = 5) -> float:
