@@ -5,9 +5,11 @@
 1. Prints the environment, builds the CUDA kernels and the host rANS coder.
 2. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes and times both: K1 vq_argmin, K2 flash attention, K3
-   gn_channel_sums, K4 gn_apply, K5 conv3x3_same, K6 conv3x3_gn_swish. The
-   conv kernels are also compared on the one-pixel border alone, and K2 to
-   K6 are run twice on the same input and must give the same bits. K1 is
+   gn_channel_sums, K4 gn_apply, gn_fold (the fused residual block's
+   statistics, at its four planes: FOLD_SHAPES), K5 conv3x3_same, K6
+   conv3x3_gn_swish. The conv kernels are also compared on the one-pixel
+   border alone, and K2 to K6 and gn_fold are run twice on the same input
+   and must give the same bits. K1 is
    held at the four latents it quantizes (training's batch 6 of 256x256,
    batch 4 of 768x512, the tiled 2048x1365 canvas, the contract's batch 16)
    through its NCHW entry and its flat entry, at codebooks of 1000 and 11,622
@@ -714,7 +716,73 @@ def group_norm_pairs(gn, x, gamma, beta, tol):
     return out
 
 
-CONV_SHAPES = [((4, 128, 128, 768, 512), "float32"), ((4, 256, 256, 384, 256), "float32"),
+# the fused residual block's planes (32 groups): the decoder's 128- and
+# 256-channel planes of the contract's batch 16 of 768x512 in bf16, the
+# 128-channel plane of the thumbnail batch 96 of 256x256 in bf16, training's
+# batch 6 of 256x256 in f32; with the kernel's and the plain version's calls
+# in one timed graph
+FOLD_SHAPES = [((16, 128, 768, 512), "bfloat16", 40, 3), ((16, 256, 768, 512), "bfloat16", 20, 2),
+               ((96, 128, 256, 256), "bfloat16", 40, 3), ((6, 128, 256, 256), "float32", 200, 20)]
+
+
+def check_gn_fold(gn, dev, gen):
+    """gn_fold (``fold_stats``) at the fused block's planes against its plain
+    version (``fold_stats_plain``, the f32 composite it replaced): scale and
+    bias within 2e-6 of each output's size (f32 sums in another order; a
+    group's statistics off by one bf16 step miss by 4e-3), one launch a
+    call, the same bits on a second call. Timed at every shape by graph
+    replay (ms) and by the kernel's own duration under the profiler
+    (profiled_ms), the plain version by graph replay; bound by the map's
+    bytes, read once. The entry holds the first shape; per_shape all four."""
+    import torch
+    from dc_vic_tpu_torch.utils.profiling import graph_ms, profiled_ms
+    rows = []
+    for shape, dtype_name, calls, plain_calls in FOLD_SHAPES:
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(getattr(torch, dtype_name))
+        gamma = torch.rand(shape[1], generator=gen, device=dev) + 0.5
+        beta = torch.randn(shape[1], generator=gen, device=dev)
+        args = (x, gamma, beta, 32, 1e-6)
+        before = gn.launches["gn_fold"]
+        got = gn.fold_stats(*args)
+        if gn.launches["gn_fold"] != before + 1:
+            raise AssertionError(f"gn_fold launched {gn.launches['gn_fold'] - before} times "
+                                 f"for one call at {shape}")
+        want = gn.fold_stats_plain(*args)
+        gap = 0.0
+        for a, b in zip(got, want):
+            size = float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=2e-6, atol=2e-6 * size)
+            gap = max(gap, float((a - b).abs().max()) / size)
+        if not all(torch.equal(a, b) for a, b in zip(got, gn.fold_stats(*args))):
+            raise AssertionError(f"gn_fold is not repeatable at {shape}")
+        del want
+        row = {"x": list(shape), "dtype": dtype_name, "max_gap_over_size": gap,
+               **bounds(_nbytes(x, gamma, beta, *got), 3 * x.numel()),
+               "ms": graph_ms(gn.fold_stats, *args, launches=calls, replays=3),
+               "profiled_ms": profiled_ms(gn.fold_stats, *args, kernel="gn_fold_kernel",
+                                          launches=calls),
+               "plain_ms": graph_ms(gn.fold_stats_plain, *args, launches=plain_calls,
+                                    replays=3)}
+        if min(row["ms"], row["profiled_ms"]) < row["bound_ms"]:
+            raise AssertionError(f"gn_fold at {shape}: {row} is under its bound: the bound or "
+                                 f"the timing is wrong")
+        rows.append(row)
+        print(f"gn_fold {list(shape)} {dtype_name}: outputs {gap:.2e} of their size from the "
+              f"plain version; repeatable; kernel {row['ms']:.4f} ms (graph; "
+              f"{row['profiled_ms']:.4f} ms profiler, {row['bound_ms'] / row['profiled_ms']:.1%} "
+              f"of the bound), plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})")
+        del x, got, args
+        torch.cuda.empty_cache()
+    return {"name": "gn_fold", "route": "cuda", "source": "dc_vic_tpu_torch/csrc/gn.cu",
+            "replaces": "none: XLA fused dc_vic_tpu/models/vqgan.py:61",
+            "max_gap_over_size": max(r["max_gap_over_size"] for r in rows),
+            **{k: rows[0][k] for k in ("ms", "profiled_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "bound_ffma_ms")},
+            "library_ms": None, "per_shape": rows}
+
+
+CONV_SHAPES =[((4, 128, 128, 768, 512), "float32"), ((4, 256, 256, 384, 256), "float32"),
                ((4, 256, 128, 192, 128), "float32"), ((2, 128, 64, 13, 37), "float32"),
                ((4, 128, 128, 192, 128), "bfloat16"),
                ((4, 512, 512, 192, 128), "float32")]    # the path's deepest reduction
@@ -1693,7 +1761,7 @@ def expected_launch_recorder(module):
     from dc_vic_tpu_torch.nn.layers import Conv2d, GroupNorm
     from dc_vic_tpu_torch.ops import attention, conv3x3, gn, vq
     want = {"vq_argmin": 0, "flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0,
-            "conv3x3_same": 0, "conv3x3_gn_swish": 0}
+            "gn_fold": 0, "conv3x3_same": 0, "conv3x3_gn_swish": 0}
     # (B, C, Cout, H, W) -> launches of the two conv kernels, (B, C, H, W) ->
     # launches of the GroupNorm pair
     shapes = {"conv3x3_same": {}, "conv3x3_gn_swish": {}, "gn": {}}
@@ -1721,6 +1789,7 @@ def expected_launch_recorder(module):
             B, C, H, W = shape
             if m.fused and conv3x3.use_kernel(B, C, m.conv1.out_channels, H, W):
                 want["conv3x3_gn_swish"] += 2
+                want["gn_fold"] += 2                    # the statistics of norm1, norm2
                 Cout = m.conv1.out_channels
                 tally("conv3x3_gn_swish", (B, C, Cout, H, W))       # conv1
                 tally("conv3x3_gn_swish", (B, Cout, Cout, H, W))    # conv2
@@ -2325,8 +2394,8 @@ def backward_recorder(module):
     from dc_vic_tpu_torch.models.vqgan import VQAttnBlock, VQResnetBlock
     from dc_vic_tpu_torch.nn.layers import Conv2d, GroupNorm
     from dc_vic_tpu_torch.ops import attention
-    want = {"flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0, "conv3x3_same": 0,
-            "conv3x3_gn_swish": 0}
+    want = {"flash_attention": 0, "gn_channel_sums": 0, "gn_apply": 0, "gn_fold": 0,
+            "conv3x3_same": 0, "conv3x3_gn_swish": 0}
 
     def hook(m, args):
         x = args[0]
@@ -2342,6 +2411,7 @@ def backward_recorder(module):
             want["conv3x3_same"] += 1
         elif isinstance(m, VQResnetBlock) and m.takes_fused(x.shape):
             want["conv3x3_gn_swish"] += 2
+            want["gn_fold"] += 2
 
     kinds = (VQAttnBlock, GroupNorm, Conv2d, VQResnetBlock)
     return want, [m.register_forward_pre_hook(hook) for m in module.modules()
@@ -2646,8 +2716,8 @@ def check_training(smi, dev, gen):
           f"{val_s:.1f} s ({val}); worst gradient error {worst:.3e}; training phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     out = {}
-    for name in ("vq_argmin", "flash_attention", "gn_channel_sums", "gn_apply", "conv3x3_same",
-                 "conv3x3_gn_swish"):
+    for name in ("vq_argmin", "flash_attention", "gn_channel_sums", "gn_apply", "gn_fold",
+                 "conv3x3_same", "conv3x3_gn_swish"):
         out[name] = dict(rows.get(name, {}),
                          train_launches_rd_step=rd_launched["forward"][name],
                          train_backwards_rd_step=rd_launched["backward"].get(name, 0),
@@ -3178,10 +3248,10 @@ FILM_DISC = {"type": "DualBetaFtTamingNLayerDiscriminator", "ndf": 64, "n_layers
              "max_beta_2": 3.5, "weight_init": True}
 # K1 to K6 by kernel name, and their Functions' backwards by autograd node
 OWN_KERNELS = ("vq_argmin_kernel", "flash_attn_f32_kernel", "gn_channel_sums_kernel",
-               "gn_apply_kernel", "conv3x3_same_kernel", "conv3x3_gn_swish_kernel",
-               "conv3x3_bf16_kernel")
+               "gn_apply_kernel", "gn_fold_kernel", "conv3x3_same_kernel",
+               "conv3x3_gn_swish_kernel", "conv3x3_bf16_kernel")
 OWN_BACKWARDS = ("_FlashAttentionBackward", "_ChannelSumsBackward", "_ApplyAffineBackward",
-                 "_Conv3x3SameBackward", "_Conv3x3GnSwishBackward")
+                 "_FoldStatsBackward", "_Conv3x3SameBackward", "_Conv3x3GnSwishBackward")
 PROFILE_ROUNDS = 3
 
 
@@ -4640,6 +4710,7 @@ def main():
           f"F.scaled_dot_product_attention {k2['library_ms']:.3f} ms; at [16,6144,512] "
           f"{k2['per_shape'][-1]['ms']:.3f} ms")
     k3, k4 = check_gn(gn, dev, gen)
+    k_fold = check_gn_fold(gn, dev, gen)
     k5, k6 = check_conv(conv3x3, dev, gen)
     torch.cuda.empty_cache()
     r1, r2 = check_rans(rans_device, rans_host, Codec, dev)
@@ -4816,7 +4887,7 @@ def main():
     fsdp_launches = check_fsdp(smi, dp_launches)
     torch.cuda.empty_cache()
 
-    kernels = [k1, k2, k3, k4, k5, k6, r1, r2]
+    kernels = [k1, k2, k3, k4, k_fold, k5, k6, r1, r2]
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_bf16_batch16"] = launches16[k["name"]]

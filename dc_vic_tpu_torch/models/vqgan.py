@@ -21,6 +21,7 @@ from torch import nn
 
 from ..nn.layers import GroupNorm, PointwiseLinear, conv, num_groups32
 from ..ops import conv3x3 as conv3x3_ops
+from ..ops import gn as gn_ops
 from ..ops.attention import flash_attention
 from ..ops.vq import vq_argmin_nchw
 from ..utils.profiling import span
@@ -30,19 +31,11 @@ def gn_fold(x: torch.Tensor, norm: GroupNorm):
     """Fold GroupNorm statistics and gamma, beta into one per-(image,
     channel) affine: GN(x) * gamma + beta == x * scale[b] + bias[b]. Both
     [B, C] f32. The variance is the two-pass one, as in the JAX package's
-    fused block (its GroupNorm module uses the fast variance). The
+    fused block (its GroupNorm module uses the fast variance); on the card
+    one launch of kernel ``gn_fold`` (``ops/gn.py::fold_stats``). The
     GroupNorm's work outside the conv: the program span ``nn.group_norm``."""
     with span("nn.group_norm"):
-        B, C = x.shape[:2]
-        G = norm.num_groups
-        xg = x.float().reshape(B, G, -1)
-        mean = xg.mean(-1)
-        var = torch.square(xg - mean[:, :, None]).mean(-1)
-        inv = torch.rsqrt(var + norm.eps)
-        rep = lambda a: a.repeat_interleave(C // G, dim=1)             # [B,G]->[B,C]
-        scale = norm.weight.float()[None] * rep(inv)
-        bias = norm.bias.float()[None] - rep(mean) * scale
-        return scale, bias
+        return gn_ops.fold_stats(x, norm.weight, norm.bias, norm.num_groups, norm.eps)
 
 
 class VQResnetBlock(nn.Module):

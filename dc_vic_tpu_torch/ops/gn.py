@@ -1,14 +1,18 @@
 """GroupNorm through per-channel sums: the CUDA kernels K3 and K4
-(``csrc/gn.cu``) and their plain PyTorch versions.
+(``csrc/gn.cu``) and their plain PyTorch versions; and the fused residual
+block's folded statistics, kernel ``gn_fold`` in the same file.
 
 Port of ``dc_vic_tpu/ops/gn.py`` in the port's NCHW layout: ``channel_sums``
 (K3) streams the plane once for the per-(image, channel) f32 [sum, sum of
 squares], ``gn_stats`` combines them per group with the fast variance
 E[x^2] - E[x]^2 clipped at zero, and ``apply_affine`` (K4) is the folded
-per-(image, channel) affine with an optional swish. Dispatch is by device: a
-CPU tensor takes the ``*_plain`` version; a CUDA tensor launches the kernel or
-raises. ``use_kernel`` is the shape rule by which ``nn.layers.GroupNorm``
-chooses this path over its ordinary PyTorch code. Both go through a
+per-(image, channel) affine with an optional swish. ``fold_stats`` is
+``dc_vic_tpu/models/vqgan.py::_gn_fold``, which XLA fuses: the two-pass
+variance per (image, group), folded with gamma and beta into the affine that
+K6 takes, from one read of the map. Dispatch is by device: a CPU tensor takes
+the ``*_plain`` version; a CUDA tensor launches the kernel or raises.
+``use_kernel`` is the shape rule by which ``nn.layers.GroupNorm`` chooses
+this path over its ordinary PyTorch code. All go through a
 ``torch.autograd.Function`` (on the CPU too) whose backward is the gradient
 of the plain version in PyTorch, as XLA differentiates the JAX package's
 plain math.
@@ -25,8 +29,8 @@ from .layout import widen
 
 # Kernel launches since the last reset (counted where each kernel launches),
 # and backward passes of the Functions on CUDA tensors (PyTorch, no kernel).
-launches = {"gn_channel_sums": 0, "gn_apply": 0}
-backwards = {"gn_channel_sums": 0, "gn_apply": 0}
+launches = {"gn_channel_sums": 0, "gn_apply": 0, "gn_fold": 0}
+backwards = {"gn_channel_sums": 0, "gn_apply": 0, "gn_fold": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = (None, "swish")
@@ -207,3 +211,135 @@ def group_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     scale = gamma.float()[None] * rep(inv)
     bias = beta.float()[None] - rep(mean) * scale
     return apply_affine(x, scale, bias, act)
+
+
+# ------------------------------------------------------- fused statistics
+
+def _fold_plain(x, gamma, beta, num_groups, eps):
+    """(scale, bias, mean, rstd): the folded affine [B, C] and the group
+    statistics [B, G] in f32 (float64 stays float64)."""
+    B, C = x.shape[:2]
+    xg = widen(x).reshape(B, num_groups, -1)
+    mean = xg.mean(-1)
+    var = torch.square(xg - mean[:, :, None]).mean(-1)
+    inv = torch.rsqrt(var + eps)
+    rep = lambda a: a.repeat_interleave(C // num_groups, dim=1)     # [B,G]->[B,C]
+    scale = widen(gamma)[None] * rep(inv)
+    bias = widen(beta)[None] - rep(mean) * scale
+    return scale, bias, mean, inv
+
+
+def fold_stats_plain(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     num_groups: int, eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GroupNorm statistics of x [B, C, ...] and gamma, beta folded into one
+    per-(image, channel) affine: GN(x) * gamma + beta == x * scale + bias.
+    Mean and two-pass variance (the mean of squared deviations) per (image,
+    group) in f32; scale, bias [B, C] f32."""
+    return _fold_plain(x, gamma, beta, num_groups, eps)[:2]
+
+
+# tickets of the kernel's last-block merge, one per (image, group), by device
+# and stream: 0 between launches (each launch sets back what it counted).
+# Launches on one stream run in order, so they share one buffer; launches on
+# two streams may overlap, so each stream has its own (one first made under
+# graph capture is zeroed when the graph replays).
+_tickets = {}
+
+
+def _ticket_buffer(device: torch.device, stream: int, groups: int) -> torch.Tensor:
+    buf = _tickets.get((device.index, stream))
+    if buf is None or buf.numel() < groups:
+        buf = _tickets[device.index, stream] = torch.zeros(groups, dtype=torch.int32,
+                                                           device=device)
+    return buf
+
+
+def _fold_stats_cuda(x, gamma, beta, num_groups, eps):
+    dtype = _check_map(x, "fold_stats")
+    if gamma.dtype != beta.dtype or gamma.dtype not in _DTYPES:
+        raise TypeError(f"fold_stats kernel takes float32 or bfloat16 gamma and beta, got "
+                        f"{gamma.dtype} and {beta.dtype}")
+    if gamma.device != x.device or beta.device != x.device:
+        raise ValueError("x, gamma and beta must be on the same device")
+    B, C = x.shape[:2]
+    x, gamma, beta = _row_major(x), gamma.contiguous(), beta.contiguous()
+    HW = x.numel() // (B * C)
+    lib = native.kernels()
+    chunks = lib.dcvic_gn_fold_chunks((C // num_groups) * HW, dtype)
+    affine = torch.empty(2, B, C, dtype=torch.float32, device=x.device)
+    stats = torch.empty(2, B, num_groups, dtype=torch.float32, device=x.device)
+    partials = torch.empty(2 * B * num_groups * chunks, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        tickets = _ticket_buffer(x.device, stream, B * num_groups)
+        err = lib.dcvic_gn_fold(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                affine[0].data_ptr(), affine[1].data_ptr(),
+                                stats[0].data_ptr(), stats[1].data_ptr(), partials.data_ptr(),
+                                tickets.data_ptr(), B, C, num_groups, HW, eps, dtype,
+                                _DTYPES[gamma.dtype], stream)
+    native.check(err, "gn_fold")
+    launches["gn_fold"] += 1
+    return affine[0], affine[1], stats[0], stats[1]
+
+
+class _FoldStats(torch.autograd.Function):
+    """``gn_fold`` forward (the plain version on the CPU); backward: the
+    gradient of the plain version in closed form from the saved x and the
+    forward's per-group mean and rstd."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps):
+        if x.device.type == "cpu":
+            scale, bias, mean, rstd = _fold_plain(x, gamma, beta, num_groups, eps)
+        else:
+            scale, bias, mean, rstd = _fold_stats_cuda(x, gamma, beta, num_groups, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        ctx.beta_dtype = beta.dtype
+        return scale, bias
+
+    @staticmethod
+    def backward(ctx, g_scale, g_bias):
+        # scale = gamma r, bias = beta - m gamma r per (image, group) with
+        # r = (var + eps)^-1/2; var reaches x as 2 (x - m) / n, m as 1 / n
+        x, gamma, mean, rstd = ctx.saved_tensors
+        if x.device.type == "cuda":
+            backwards["gn_fold"] += 1
+        B, C = x.shape[:2]
+        G = mean.shape[1]
+        gs, gb = (g.reshape(B, G, C // G) for g in (g_scale, g_bias))
+        m, r = mean[:, :, None], rstd[:, :, None]
+        gam = widen(gamma).reshape(G, C // G)
+        dx = d_gamma = d_beta = None
+        if ctx.needs_input_grad[0]:
+            n = x.numel() // (B * G)
+            d_r = (gam * (gs - m * gb)).sum(-1)
+            d_mean = -(gam * gb).sum(-1) * rstd
+            d_var = -0.5 * rstd ** 3 * d_r
+            dx = x.reshape(B, G, -1) - m                     # the one f32 map
+            dx.mul_((2.0 / n) * d_var[:, :, None]).add_(d_mean[:, :, None] / n)
+            dx = dx.reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            d_gamma = (r * (gs - m * gb)).sum(0).reshape(C).to(gamma.dtype)
+        if ctx.needs_input_grad[2]:
+            d_beta = gb.sum(0).reshape(C).to(ctx.beta_dtype)
+        return dx, d_gamma, d_beta, None, None
+
+
+def fold_stats(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               num_groups: int, eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scale, bias) [B, C] f32 with GN(x) * gamma + beta == x * scale +
+    bias for x [B, C, H, W] f32 or bf16 (float64 on the CPU): per (image,
+    group) the mean and the two-pass variance, as ``fold_stats_plain``."""
+    if x.dim() != 4:
+        raise ValueError(f"fold_stats: expected [B, C, H, W], got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise TypeError(f"fold_stats takes float32 or bfloat16, got {x.dtype}")
+    C = x.shape[1]
+    if num_groups <= 0 or C % num_groups:
+        raise ValueError(f"fold_stats: {C} channels in {num_groups} groups")
+    if tuple(gamma.shape) != (C,) or tuple(beta.shape) != (C,):
+        raise ValueError(f"fold_stats: gamma {tuple(gamma.shape)} / beta "
+                         f"{tuple(beta.shape)} for {C} channels")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fold_stats: unsupported device {x.device}")
+    return _FoldStats.apply(x, gamma, beta, num_groups, eps)

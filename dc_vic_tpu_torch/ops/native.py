@@ -118,6 +118,11 @@ def _bind_kernels(lib: ctypes.CDLL) -> None:
     lib.dcvic_gn_channel_sums.argtypes = [p, p, i, i, ll, i, p]
     lib.dcvic_gn_apply.restype = i
     lib.dcvic_gn_apply.argtypes = [p, p, p, p, i, i, ll, i, i, p]
+    lib.dcvic_gn_fold_chunks.restype = ll
+    lib.dcvic_gn_fold_chunks.argtypes = [ll, i]
+    lib.dcvic_gn_fold.restype = i
+    lib.dcvic_gn_fold.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, ll, ctypes.c_float, i, i,
+                                  p]
     lib.dcvic_conv3x3_same.restype = i
     lib.dcvic_conv3x3_same.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.dcvic_conv3x3_gn_swish.restype = i

@@ -61,7 +61,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 # the bf16 conv kernel is one template: <false> is K5, <true> K6
 OWN = ("vq_argmin_kernel", "flash_attn_f32_kernel", "gn_channel_sums_kernel",
-       "gn_apply_kernel", "conv3x3_same_kernel", "conv3x3_gn_swish_kernel",
+       "gn_apply_kernel", "gn_fold_kernel", "conv3x3_same_kernel", "conv3x3_gn_swish_kernel",
        "conv3x3_bf16_kernel<false>", "conv3x3_bf16_kernel<true>", "repack_weights_kernel",
        "repack_weights_bf16_kernel", "rans_encode_symbols_kernel", "rans_encode_states_kernel",
        "rans_encode_scan_kernel", "rans_encode_scatter_kernel", "rans_decode_section_kernel")

@@ -92,7 +92,8 @@ SELECTED_BETA_VQ = [3.00, 2.25, 2.00, 1.50, 1.00]
 NEW_LR = 5e-5                # s4's new generator and discriminator learning rate
 WARM_FROM = 5                # steps before the first warm one
 # the package's own kernels (K1-K6, R1/R2) by device kernel name
-OWN_KERNELS = ("vq_argmin", "flash_attn", "gn_channel_sums", "gn_apply", "conv3x3", "rans_")
+OWN_KERNELS = ("vq_argmin", "flash_attn", "gn_channel_sums", "gn_apply", "gn_fold", "conv3x3",
+               "rans_")
 # s1's transforms (scripts/soak.py:254-266): the dual-beta ones' widths, no betas
 S1_ENCODER = {"type": "ElicVqCatScEncoder", "in_ch": 3, "out_ch": 96, "main_ch": 64,
               "block_mid_ch": 32, "input_feat_ch": 260, "proj_init": False}

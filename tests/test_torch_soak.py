@@ -351,7 +351,7 @@ def test_counts_read_and_reset_every_counter(monkeypatch):
     assert soak.kernel_counts()["conv3x3_same_backward"] == 1
     counts.reset()
     assert set(counts.launches()) == {"vq_argmin", "flash_attention", "gn_channel_sums",
-                                      "gn_apply", "conv3x3_same", "conv3x3_gn_swish",
+                                      "gn_apply", "gn_fold", "conv3x3_same", "conv3x3_gn_swish",
                                       "rans_encode_pack", "rans_decode_section"}
     assert not any(counts.launches().values()) and not any(counts.backwards().values())
     assert set(soak.kernel_counts()) == set(counts.launches()) | {
