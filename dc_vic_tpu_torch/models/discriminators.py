@@ -9,7 +9,8 @@ optional y_hat branch. Two more variants: the FiLM one, which scales and
 shifts every inner layer by that vector instead, and the OASIS one, the
 dual-beta trunk with a per-pixel (n_embed + 1)-class head on the VQ token
 grid. NCHW modules; ``models/convert.py::discriminator_state_dict`` maps the
-JAX package's parameters onto them.
+JAX package's parameters onto them. A conditioned discriminator's forward
+is the program span ``nn.discriminator``, once a call.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..nn.layers import BetaScaleShift, beta_cond, beta_mlp, fourier_encode_beta, num_groups32
+from ..utils.profiling import span
 from ..utils.registry import DISCRIMINATOR_REGISTRY
 
 
@@ -155,6 +157,12 @@ class DualBetaCondTamingNLayerDiscriminator(nn.Module):
                                                norm_type, weight_init)
 
     def forward(self, x, beta_1, beta_2, y_hat=None):
+        with span("nn.discriminator"):
+            return self.logits(x, beta_1, beta_2, y_hat)
+
+    def logits(self, x, beta_1, beta_2, y_hat=None):
+        """The forward outside the program span (for a class that wraps
+        this one in its own)."""
         B, _, H, W = x.shape
         L, use_pi, include_x = self.beta_args
         e1 = fourier_encode_beta(beta_1, L, self.max_betas[0], use_pi, include_x)
@@ -199,14 +207,15 @@ class DualBetaFtTamingNLayerDiscriminator(nn.Module):
         self.films = nn.ModuleList(BetaScaleShift(w, cond_ch) for w in widths)
 
     def forward(self, x, beta_1, beta_2, y_hat=None):
-        cond = beta_cond(self.mlp, beta_1, beta_2, *self.beta_args)
-        h = x
-        for i, film in enumerate(self.films):
-            h = self.convs[i](h)
-            if i:
-                h = self.norms[i - 1](h)
-            h = F.leaky_relu(film(h, cond), 0.2)
-        return self.convs[-1](h)
+        with span("nn.discriminator"):
+            cond = beta_cond(self.mlp, beta_1, beta_2, *self.beta_args)
+            h = x
+            for i, film in enumerate(self.films):
+                h = self.convs[i](h)
+                if i:
+                    h = self.norms[i - 1](h)
+                h = F.leaky_relu(film(h, cond), 0.2)
+            return self.convs[-1](h)
 
 
 @DISCRIMINATOR_REGISTRY.register()
@@ -229,13 +238,14 @@ class OasisDualBetaCondTamingNLayerDiscriminator(nn.Module):
             in_ch=in_ch)
 
     def forward(self, x, beta_1, beta_2, y_hat=None):
-        logits = self.body(x, beta_1, beta_2)
-        size = (x.shape[2] // self.token_stride, x.shape[3] // self.token_stride)
-        if tuple(logits.shape[2:]) == size:
-            return logits
-        # "nearest-exact" samples at pixel centres, as jax.image.resize's
-        # "nearest" does; "nearest" would pick other rows
-        return F.interpolate(logits, size=size, mode="nearest-exact")
+        with span("nn.discriminator"):
+            logits = self.body.logits(x, beta_1, beta_2)
+            size = (x.shape[2] // self.token_stride, x.shape[3] // self.token_stride)
+            if tuple(logits.shape[2:]) == size:
+                return logits
+            # "nearest-exact" samples at pixel centres, as jax.image.resize's
+            # "nearest" does; "nearest" would pick other rows
+            return F.interpolate(logits, size=size, mode="nearest-exact")
 
 
 @torch.no_grad()

@@ -12,8 +12,10 @@ stage has one, and the reference's skip of a step whose loss is not finite
 or too large (|loss| >= 1e4): the skip is a ``torch.where`` on the device
 inside the optimizers, so a step never waits for the host. The step counter
 advances either way. Under a ``torch.profiler`` session a step marks its
-forward passes, backward passes and update as the program spans
-``train.forward``, ``train.backward`` and ``train.update``.
+generator's forward, its backward and the update as the program spans
+``train.forward``, ``train.backward`` and ``train.update``; the GAN step
+marks its discriminator's half (the forwards on the reals and the fakes,
+their loss and its backward) as ``train.d_step``.
 
 The loss assemblies (``rd_losses``, ``gan_g_losses``, ``gan_d_loss``) take
 explicit betas and a ``Noise``, so a caller can replay another run's draws.
@@ -299,7 +301,7 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
             g_total.backward()
     finally:
         disc.requires_grad_(True)
-    with span("train.forward"):
+    with span("train.d_step"):
         # the encoder branch and the VQGAN are frozen in the GAN stages, so
         # the reals' y_hat and token map are the same before and after the
         # generator's update
@@ -313,7 +315,6 @@ def gan_step(state: TrainState, batch: torch.Tensor, losses: Dict, policy: BetaP
         d_total = gan_d_loss(disc, gan_loss, d_real_batch, out["fake_images"], beta_rate,
                              beta_vq, real_y_hat, fake_y_hat, real_tokens=real_tokens,
                              fake_tokens=fake_tokens)
-    with span("train.backward"):
         d_total.backward()
     terms.update(bpp=out["bpp"], vq_accuracy=out["vq_accuracy"], total=g_total,
                  d_loss=d_total)
